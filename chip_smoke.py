@@ -18,7 +18,8 @@ card. One JSON line per phase:
                   replays without rebuilds
   5. lmds       — lmDS at the paper's 100,000 x 1,000 float64 point: the
                   plan streams X in 13 row buckets, each a gram and an xtv
-                  launch; beta against numpy's float64 solve; a warm refit
+                  launch; beta against numpy's float64 solve; warm refits;
+                  the streaming lane's host spans and a device trace
   6. steplm     — stepwise selection at 20,000 x 32, against the CPU run
   7. kernels    — the summary line of every ported kernel
 
@@ -39,7 +40,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 0
-TOL = {"float64": 1e-12, "float32": 2e-4, "bfloat16": 2e-2}
+# kernel against its plain version, per entry over the product of the
+# norms of the two columns it combines (the entry's Cauchy-Schwarz
+# bound): both sides read the same inputs and accumulate float64 in
+# float64 and float32/bfloat16 in float32, so only summation order differs
+TOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-5}
 
 # Published dense peaks (NVIDIA data sheets): FLOP/s by input dtype and
 # memory bytes/s. float64 counts the FP64 tensor-core rate; float32 the
@@ -159,8 +164,8 @@ def phase_kernels(peaks: dict) -> dict:
             got, want = kern(*args), plain(*args)
             torch.cuda.synchronize()
             err = (got.double() - want.double()).abs().max().item()
-            scale = want.double().abs().max().item()
-            ok = err <= TOL[name] * scale
+            scaled = ref.scaled_err(got, want, x, args[-1])
+            ok = scaled <= TOL[name]
             if kind == "gram" and not torch.equal(got, got.mT):
                 ok = False
             if not torch.equal(got, kern(*args)):  # fixed-order reduction
@@ -176,7 +181,7 @@ def phase_kernels(peaks: dict) -> dict:
                 lambda: [kern(*args) for _ in range(10)])
             ops.LAUNCHES.update(saved)
             row = dict(phase="kernel", kernel=kind, m=m, n=n, c=c or None,
-                       dtype=name, max_abs_err=err, rel_err=err / scale,
+                       dtype=name, max_abs_err=err, scaled_err=scaled,
                        tol=TOL[name], ok=ok, ms=ms,
                        device_ms=None if dev_s is None else 100 * dev_s,
                        plain_ms=plain_ms, library_ms=library_ms,
@@ -242,7 +247,6 @@ def phase_lmds(m: int = 100_000, n: int = 1_000) -> dict:
     import torch
     from repro_torch.core import (LineageRuntime, ReuseCache, costmodel,
                                   get_jit_cache, input_tensor)
-    from repro_torch.core.dag import _fingerprint
     from repro_torch.kernels.gram import ops as gops
     from repro_torch.lifecycle import lmDS
     reg = 1e-7
@@ -259,6 +263,7 @@ def phase_lmds(m: int = 100_000, n: int = 1_000) -> dict:
         X, y = input_tensor("X", xn), input_tensor("y", yn)
         m0 = jc.misses
         s0 = rt.stats.streaming.as_dict()
+        t0s = rt.stats.streaming.spans()
         gops.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -269,14 +274,17 @@ def phase_lmds(m: int = 100_000, n: int = 1_000) -> dict:
                     launches=dict(gops.LAUNCHES),
                     streaming={k: v - s0[k] for k, v in
                                rt.stats.streaming.as_dict().items()
-                               if k != "peak_live_bytes"})
+                               if k != "peak_live_bytes"},
+                    spans={k: v - t0s[k] for k, v in
+                           rt.stats.streaming.spans().items()})
 
     rt = LineageRuntime(cache=ReuseCache())
     cold = fit(rt)            # the main path: counts set to 0 inside
-    # same runtime: the whole stream is a reuse hit. The first refit
-    # builds one compensation closure (the literal that shares a segment
-    # with the reused eye), as the reference compiles one; later refits
-    # build nothing
+    # same runtime: the whole stream is a reuse hit. The first refit hits
+    # the probed eye(1000) and builds the compensation closure for the
+    # literal of its segment, as the reference does (tests/
+    # test_torch_runtime.py::test_streaming_lane_matches_reference);
+    # later refits build nothing
     warm = fit(rt)
     warm2 = fit(rt)
     # a fresh reuse cache: the same plan re-streams on warm closures
@@ -289,42 +297,10 @@ def phase_lmds(m: int = 100_000, n: int = 1_000) -> dict:
                   idle_share=None if busy is None else 1 - busy / trace_wall,
                   top_device_s=dict(sorted(by_name.items(),
                                            key=lambda kv: -kv[1])[:6]))
-    # where a streamed fit's time goes: the same per-bucket steps, timed
-    # apart (at 100K x 1K: 13 buckets of 8192 rows, 8 MB + 8 KB partials)
-    spans = [(s, min(s + c, m)) for s in range(0, m, c)]
-    t0 = time.perf_counter()
-    for s, e in spans:
-        _fingerprint(xn[s:e]), _fingerprint(yn[s:e])
-    fp_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dev = []
-    for s, e in spans:
-        dev.append((torch.from_numpy(xn[s:e]).cuda(),
-                    torch.from_numpy(yn[s:e]).cuda()))
-    torch.cuda.synchronize()
-    h2d_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    parts = []
-    for xb, yb in dev:
-        parts.append((gops.gram_cuda(xb), gops.xtv_cuda(xb, yb)))
-    torch.cuda.synchronize()
-    kern_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    host = [(g.cpu().numpy(), v.cpu().numpy()) for g, v in parts]
-    d2h_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    acc = host[0][0].copy()
-    for g, _ in host[1:]:
-        acc = acc + g
-    add_s = time.perf_counter() - t0
     gops.reset_launches()
-    breakdown = dict(fingerprint_s=fp_s, upload_s=h2d_s, kernels_s=kern_s,
-                     download_s=d2h_s, host_add_s=add_s, buckets=len(spans))
     row = dict(phase="lmds", shape=[m, n], dtype="float64", reg=reg,
                bucket_rows=c, buckets=buckets, cold=cold, warm=warm,
-               warm2=warm2, rerun_fresh_cache=rerun, traced=traced,
-               breakdown=breakdown)
+               warm2=warm2, rerun_fresh_cache=rerun, traced=traced)
     emit(row)
     ok = (buckets > 1 and cold["streaming"]["chunks"] == buckets
           and cold["launches"]["gram"] == buckets
@@ -332,6 +308,7 @@ def phase_lmds(m: int = 100_000, n: int = 1_000) -> dict:
           and max(cold["rel_err"], warm["rel_err"], rerun["rel_err"]) <= 1e-9
           and warm["streaming"]["full_hits"] == 1
           and warm["launches"]["gram"] == warm["launches"]["xtv"] == 0
+          and warm["rebuilds"] == 1
           and warm2["streaming"]["full_hits"] == 1 and warm2["rebuilds"] == 0
           and rerun["streaming"]["chunks"] == buckets
           and rerun["rebuilds"] == 0)
@@ -387,7 +364,7 @@ def main() -> int:
               torch=torch.__version__, cuda=torch.version.cuda))
 
     t0 = time.perf_counter()
-    built = build.build(["gram"])
+    built = build.build("gram")
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=built,
               ptxas=[ln.strip() for ln in build.build_log("gram").splitlines()

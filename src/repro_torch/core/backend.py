@@ -97,6 +97,20 @@ def infer_format(node: Node, in_fmts: tuple[str, ...]) -> str:
 # host <-> device
 # ---------------------------------------------------------------------------
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point computes on: `cuda` (the current card)
+    unless another is asked for. Raises when CUDA is requested but absent
+    — never falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' "
+                               "to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def torch_dtype(dtype) -> torch.dtype:
     """torch dtype of a numpy dtype (bfloat16 from `ml_dtypes` included)."""
     dtype = np.dtype(dtype)
@@ -447,10 +461,11 @@ def kernel_for_node(node: Node, device: torch.device) -> KernelFn:
 
 
 def execute_op(op: str, attrs: dict[str, Any], inputs: list,
-               dtype=np.float64, device="cpu") -> Any:
+               dtype=np.float64, device=None) -> Any:
     """Execute one instruction eagerly on tensors (the reference's
-    `execute_op`; `dtype`/`device` only matter for generators)."""
+    `execute_op`; `dtype`/`device` only matter for generators, which are
+    built on `cuda` unless another device is asked for)."""
     d = dict(attrs)
     d.setdefault("_dtype", np.dtype(dtype))
-    d.setdefault("_device", torch.device(device))
+    d.setdefault("_device", resolve_device(device))
     return get_kernel(op, d)(*inputs)

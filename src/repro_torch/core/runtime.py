@@ -56,6 +56,13 @@ class StreamLog:
     bytes_streamed: int = 0    # input payload bytes moved per dispatch
     peak_live_bytes: int = 0   # max resident: live chunk + accumulators
     full_hits: int = 0         # whole-stream reuse short-circuits
+    # host-clock seconds of each step of the bucket loop; port-only, kept
+    # out of `as_dict` so the counters compare with the reference's
+    fingerprint_s: float = 0.0  # content fingerprints (reuse keys)
+    upload_s: float = 0.0       # host -> device copies of bucket slices
+    dispatch_s: float = 0.0     # segment closure on a bucket, device synced
+    download_s: float = 0.0     # partials device -> host numpy
+    combine_s: float = 0.0      # host adds of the partials
 
     @property
     def total(self) -> int:
@@ -70,6 +77,12 @@ class StreamLog:
                     bytes_streamed=self.bytes_streamed,
                     peak_live_bytes=self.peak_live_bytes,
                     full_hits=self.full_hits)
+
+    def spans(self) -> dict:
+        """Where the bucket loop's host time went, in seconds."""
+        return dict(fingerprint_s=self.fingerprint_s,
+                    upload_s=self.upload_s, dispatch_s=self.dispatch_s,
+                    download_s=self.download_s, combine_s=self.combine_s)
 
 
 @dataclass
@@ -101,21 +114,6 @@ class RuntimeStats:
         return out
 
 
-def resolve_device(device=None) -> torch.device:
-    """The runtime's device: `cuda` (the current card) unless another is
-    asked for. Raises when CUDA is requested but absent — never falls
-    back to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "LineageRuntime: CUDA is not available; pass "
-                "device='cpu' to run on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 class LineageRuntime:
     """Executes plans with lineage tracing and optional reuse."""
 
@@ -130,7 +128,7 @@ class LineageRuntime:
         self.opt_level = opt_level
         self.sparse_inputs = sparse_inputs
         self.fuse = fuse
-        self.device = resolve_device(device)
+        self.device = backend.resolve_device(device)
         self.stats = RuntimeStats()
 
     # ------------------------------------------------------------------
@@ -400,9 +398,11 @@ class LineageRuntime:
         # every chunk's identity (a changed mean shifts every bucket)
         rep_fp = ""
         if reuse:
+            t0 = time.perf_counter()
             rep_fp = "|".join(
                 _fingerprint(backend.to_numpy(values[u]))
                 for u in seg.input_uids if u not in host)
+            log.fingerprint_s += time.perf_counter() - t0
         cost_each = (sum(i.est_cost_s for i in out_ins.values())
                      / n_chunks)
         builder = self._seg_builder(seg)
@@ -424,7 +424,9 @@ class LineageRuntime:
             e = min(s + c, rows)
             parts, ckey, live = None, None, 0
             if reuse:
+                t0 = time.perf_counter()
                 fps = ",".join(_fingerprint(host[u][s:e]) for u in sliced)
+                log.fingerprint_s += time.perf_counter() - t0
                 ckey = hashlib.sha1(
                     f"chunkpart|{seg.key}|{s}:{e}|{rep_fp}|{fps}"
                     .encode()).hexdigest()
@@ -432,6 +434,7 @@ class LineageRuntime:
                 if parts is not None:
                     log.chunks_reused += 1
             if parts is None:
+                t0 = time.perf_counter()
                 args = []
                 for u in seg.input_uids:
                     if u in host:
@@ -440,15 +443,21 @@ class LineageRuntime:
                         args.append(backend.to_device(a, self.device))
                     else:
                         args.append(self._arg(values, u))
+                t1 = time.perf_counter()
                 outs = self._execute_cached(seg.key, builder, args, jcache)
+                t2 = time.perf_counter()
                 # partials come back to HOST arrays, as in the reference:
                 # their only consumer is the `combine` boundary, and host
                 # adds keep warm (all-buckets-reused) runs off the device
                 parts = tuple(backend.to_numpy(o) for o in outs)
+                log.upload_s += t1 - t0
+                log.dispatch_s += t2 - t1
+                log.download_s += time.perf_counter() - t2
                 log.chunks += 1
                 log.bytes_streamed += live
                 if ckey is not None:
                     self.cache.put(ckey, parts, cost_each, gated=False)
+            t0 = time.perf_counter()
             for uid, p in zip(seg.output_uids, parts, strict=True):
                 prev = accs[uid]
                 mode = modes[uid]
@@ -459,6 +468,7 @@ class LineageRuntime:
                 elif mode == "sum":
                     accs[uid] = prev + p
                     log.combines += 1
+            log.combine_s += time.perf_counter() - t0
             acc_bytes = sum(_reuse_nbytes(v) for v in accs.values()
                             if v is not None)
             log.peak_live_bytes = max(log.peak_live_bytes, live + acc_bytes)

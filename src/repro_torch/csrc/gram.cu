@@ -5,9 +5,10 @@
 //   * xtv_partial_kernel  + xtv_reduce_kernel   <- xtv_pallas  (_xtv_kernel)
 //
 // Dtype rule (src/repro/kernels/gram/ref.py): float64 accumulates and
-// returns float64, float32 -> float32, bfloat16/float16 -> float32. The
-// Pallas kernel's unconditional float32 output is NOT carried over: the
-// lifecycle path is float64.
+// returns float64, float32 -> float32, bfloat16 -> float32. The Pallas
+// kernel's unconditional float32 output is NOT carried over: the
+// lifecycle path is float64. float16 is not instantiated (the wrapper
+// refuses it on the card; the plain version serves it on the CPU).
 //
 // What bounds them on this card, and what the design does about it:
 //   * gram is bound by operations in float64 (an 8192 x 1000 bucket is
@@ -38,13 +39,12 @@
 // every buffer), and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-enum DtypeCode : int { kF64 = 0, kF32 = 1, kBF16 = 2, kF16 = 3 };
+enum DtypeCode : int { kF64 = 0, kF32 = 1, kBF16 = 2 };
 
 template <typename T> struct Acc { using type = float; };
 template <> struct Acc<double> { using type = double; };
@@ -52,7 +52,6 @@ template <> struct Acc<double> { using type = double; };
 __device__ __forceinline__ double to_acc(double v) { return v; }
 __device__ __forceinline__ float to_acc(float v) { return v; }
 __device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_acc(__half v) { return __half2float(v); }
 
 __device__ __forceinline__ double madd(double a, double b, double c) { return fma(a, b, c); }
 __device__ __forceinline__ float madd(float a, float b, float c) { return fmaf(a, b, c); }
@@ -243,7 +242,6 @@ int repro_gram_partial(int dtype, const void* x, long long m, long long n,
     case kF64: return launch_gram_partial<double>(x, m, n, ldx, rows_per_split, splits, ws, st);
     case kF32: return launch_gram_partial<float>(x, m, n, ldx, rows_per_split, splits, ws, st);
     case kBF16: return launch_gram_partial<__nv_bfloat16>(x, m, n, ldx, rows_per_split, splits, ws, st);
-    case kF16: return launch_gram_partial<__half>(x, m, n, ldx, rows_per_split, splits, ws, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -274,7 +272,6 @@ int repro_xtv_partial(int dtype, const void* x, const void* v, long long m, long
     case kF64: return launch_xtv_partial<double>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws, st);
     case kF32: return launch_xtv_partial<float>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws, st);
     case kBF16: return launch_xtv_partial<__nv_bfloat16>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws, st);
-    case kF16: return launch_xtv_partial<__half>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

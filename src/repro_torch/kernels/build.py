@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -43,32 +44,26 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names) -> dict[str, float]:
-    """Compile every named source that is not built yet, one `nvcc` per
-    source, all started together. Returns {name: seconds} for the ones
-    compiled. The compiler's output (ptxas register/spill report) is kept
-    beside each library as `<lib>.log`."""
-    import time
+def build(name: str) -> float | None:
+    """Compile `csrc/<name>.cu` unless it is built already; returns the
+    seconds `nvcc` took, or None when the library was there. The
+    compiler's output (ptxas register/spill report) is kept beside the
+    library as `<lib>.log`."""
+    out = _target(name)
+    if out.exists():
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = {}
-    for name in names:
-        out = _target(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, tmp, out, time.perf_counter())
-    seconds = {}
-    for name, (proc, tmp, out, t0) in started.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-        os.replace(tmp, out)  # atomic: concurrent builds agree
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    out.with_suffix(".log").write_text(res.stdout)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stdout}")
+    os.replace(tmp, out)  # atomic: concurrent builds agree
     return seconds
 
 
@@ -77,7 +72,7 @@ def library(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name])
+            build(name)
             lib = ctypes.CDLL(str(_target(name)))
             _LIBS[name] = lib
         return lib

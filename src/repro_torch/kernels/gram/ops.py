@@ -21,8 +21,8 @@ from . import ref
 # One count per launched kernel pass; reset with `reset_launches()`.
 LAUNCHES = {"gram": 0, "gram_reduce": 0, "xtv": 0, "xtv_reduce": 0}
 
-_DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
-               torch.float16: 3}
+# the instantiations of gram.cu; float16 has none and is refused on the card
+_DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
 _TILE = 64             # gram output tile edge (BN in gram.cu)
 _XTV_COLS = 256        # xtv columns per block (XTV_THREADS in gram.cu)
 _MIN_SPLIT_ROWS = 64   # never split the rows finer than this
@@ -149,7 +149,7 @@ def xtv_cuda(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def gram(x: torch.Tensor) -> torch.Tensor:
-    """G = X^T X (bfloat16/float16 accumulate and return float32)."""
+    """G = X^T X (bfloat16 accumulates and returns float32)."""
     if x.device.type == "cpu":
         return ref.gram(x)
     return gram_cuda(x)

@@ -3,7 +3,8 @@
 Port of `repro.kernels.gram.ref` with the same dtype rule: float64 and
 float32 compute and return in their own dtype; bfloat16/float16 inputs
 accumulate and return float32. The CPU path of the runtime runs these,
-and `chip_smoke.py` holds the CUDA kernels against them on the card.
+and `chip_smoke.py` holds the CUDA kernels against them on the card,
+entry by entry with `scaled_err`.
 """
 from __future__ import annotations
 
@@ -29,3 +30,15 @@ def xtv(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """X^T v (v may be 1-D or have several columns)."""
     acc = acc_dtype(x.dtype)
     return torch.matmul(x.to(acc).mT, v.to(acc))
+
+
+def scaled_err(got: torch.Tensor, want: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor) -> float:
+    """max |got - want| of a product aᵀb, each entry over |a_i| |b_j|, the
+    column norms of its two factors (its Cauchy-Schwarz bound), in
+    float64. Two sums of the same products in another order differ by a
+    few rounding units of this scale; a wrong entry by far more."""
+    na = torch.linalg.vector_norm(a.double(), dim=0)
+    nb = torch.linalg.vector_norm(b.double(), dim=0)
+    scale = (na[:, None] * nb[None, :]).clamp_min(1e-300)
+    return ((got.double() - want.double()).abs() / scale).max().item()

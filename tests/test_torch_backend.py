@@ -25,7 +25,7 @@ def _run(op, attrs, arrays, dtype=np.float64):
     want = rb.execute_op(op, dict(attrs), [jnp.asarray(a) for a in arrays])
     t = from_reference({str(i): a for i, a in enumerate(arrays)}, "cpu")
     got = tb.execute_op(op, dict(attrs), [t[str(i)] for i in range(len(arrays))],
-                        dtype=dtype)
+                        dtype=dtype, device="cpu")
     return np.asarray(want), tb.to_numpy(got)
 
 
@@ -195,9 +195,21 @@ def test_generators_default_float64(op, attrs):
     _check(want, got)
 
 
+def test_execute_op_defaults_to_cuda():
+    """Like every entry point, `execute_op` builds generators on `cuda`
+    unless the CPU is asked for, and raises without a GPU."""
+    if torch.cuda.is_available():
+        out = tb.execute_op("eye", {"_shape": (3, 3)}, [])
+        assert out.device.type == "cuda" and out.dtype == torch.float64
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tb.execute_op("eye", {"_shape": (3, 3)}, [])
+
+
 def test_rand_is_refused():
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tb.execute_op("rand", {"_shape": (2, 2), "seed": 0}, [])
+        tb.execute_op("rand", {"_shape": (2, 2), "seed": 0}, [],
+                      device="cpu")
 
 
 def test_chunk_ops_are_their_base_ops():
@@ -208,5 +220,5 @@ def test_chunk_ops_are_their_base_ops():
     comb = make_node("combine", (cg,), (3, 3), np.float64, 1.0)
     t = torch.from_numpy(_mat(50, shape=(8, 3)))
     g = tb.kernel_for_node(cg, torch.device("cpu"))(t)
-    assert torch.equal(g, tb.execute_op("gram", {}, [t]))
+    assert torch.equal(g, tb.execute_op("gram", {}, [t], device="cpu"))
     assert tb.kernel_for_node(comb, torch.device("cpu"))(g) is g

@@ -7,8 +7,12 @@ torch version. Tolerances: float64 rel 1e-12 (both sides compute in
 float64; only the summation order differs), float32 2e-4 and bfloat16
 2e-2 (those of tests/test_kernels.py). The CUDA kernels themselves run
 only on the card: the `cuda`-marked case holds them against the plain
-version there; this module imports jax only inside the `reference`
-fixture, so that case also runs where jax is not installed.
+version there, each entry within `KERNEL_RTOL` of the product of the
+norms of the two columns it combines (the Cauchy-Schwarz bound of the
+entry; both sides accumulate float32/bfloat16 in float32, so 1e-5 is
+far above their rounding and far below any wrong entry). This module
+imports jax only inside the `reference` fixture, so that case also
+runs where jax is not installed.
 """
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ from repro_torch.kernels.gram import ops as tops
 from repro_torch.kernels.gram import ref as tref
 
 RTOL = {"float64": 1e-12, "float32": 2e-4, "bfloat16": 2e-2}
+KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-5}
 TORCH_DTYPE = {"float64": torch.float64, "float32": torch.float32,
                "bfloat16": torch.bfloat16}
 
@@ -128,6 +133,20 @@ def test_interop_keeps_dtype_and_strides():
     assert np.array_equal(t["b"].float().numpy(), b.astype(np.float32))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_tolerance_passes_reordering_and_fails_a_wrong_entry(dtype):
+    """The on-card limit holds a float32-accumulated gram against float64
+    arithmetic on the same inputs, and rejects one entry that is wrong by
+    a typical off-diagonal value."""
+    x = torch.from_numpy(_data(2048, 200, "float64", seed=8)).to(
+        TORCH_DTYPE[dtype])
+    g, exact = tref.gram(x), x.double().mT @ x.double()
+    assert tref.scaled_err(g, exact, x, x) <= KERNEL_RTOL[dtype]
+    bad = g.clone()
+    bad[3, 7] += exact[0, 1:].abs().mean().item()
+    assert tref.scaled_err(bad, g, x, x) > 100 * KERNEL_RTOL[dtype]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -151,9 +170,20 @@ def test_cuda_kernels_match_plain_version(cuda_device, m, n, c, dtype):
     assert tops.LAUNCHES["gram"] == before["gram"] + 1
     assert tops.LAUNCHES["xtv"] == before["xtv"] + 1
     assert torch.equal(g, g.mT)
-    assert _rel(g.cpu().numpy(), tref.gram(t["x"]).cpu().numpy()) \
-        <= RTOL[dtype]
-    assert _rel(xv.cpu().numpy(), tref.xtv(t["x"], t["v"]).cpu().numpy()) \
-        <= RTOL[dtype]
+    assert tref.scaled_err(g, tref.gram(t["x"]), t["x"], t["x"]) \
+        <= KERNEL_RTOL[dtype]
+    assert tref.scaled_err(xv, tref.xtv(t["x"], t["v"]), t["x"], t["v"]) \
+        <= KERNEL_RTOL[dtype]
     # fixed-order reduction: bitwise reproducible from call to call
     assert torch.equal(g, tops.gram(t["x"]))
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_float16(cuda_device):
+    """gram.cu has no float16 instantiation: the card refuses it rather
+    than computing it unchecked (the CPU's plain version serves it)."""
+    x = torch.ones(8, 4, dtype=torch.float16, device=cuda_device)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        tops.gram(x)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        tops.xtv(x, x[:, :1])

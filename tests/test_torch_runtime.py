@@ -50,10 +50,14 @@ def _jit_delta(pk, before):
                 evictions=s.evictions - before[2])
 
 
-def _jit_mark(pk):
-    pk.clear_jit_cache()
+def _jit_now(pk):
     s = pk.get_jit_cache().stats
     return s.hits, s.misses, s.evictions
+
+
+def _jit_mark(pk):
+    pk.clear_jit_cache()
+    return _jit_now(pk)
 
 
 def _quickstart(pk, rt, xn, yn):
@@ -128,34 +132,70 @@ def test_prepared_script_replays_hit_without_rebuilds():
         assert _rel(a, b) <= RTOL
 
 
-def test_streaming_lane_matches_reference(monkeypatch):
-    monkeypatch.setattr(rcm, "CHUNK_MEM_BUDGET", 1 << 16)
-    monkeypatch.setattr(tcm, "CHUNK_MEM_BUDGET", 1 << 16)
+@pytest.mark.parametrize("m,n,budget,buckets,warm_rebuilds", [
+    (4096, 8, 1 << 16, 32, 0), (1024, 512, 1 << 19, 64, 1)])
+def test_streaming_lane_matches_reference(monkeypatch, m, n, budget, buckets,
+                                          warm_rebuilds):
+    """Cold fit, two warm refits and a fit on appended rows: the same
+    streaming meter, reuse counters and jit-cache hits/misses per fit as
+    the reference. At the wider shape the generator segment (the literal
+    reg, then eye(n)) ends in an eye worth a reuse probe; the first warm
+    refit hits it and builds one compensation closure for the literal, in
+    both packages. The second warm refit builds none."""
+    monkeypatch.setattr(rcm, "CHUNK_MEM_BUDGET", budget)
+    monkeypatch.setattr(tcm, "CHUNK_MEM_BUDGET", budget)
     rng = np.random.default_rng(3)
-    xn, yn = rng.normal(size=(4096, 8)), rng.normal(size=(4096, 1))
-    x2 = np.vstack([xn, rng.normal(size=(700, 8))])
+    xn, yn = rng.normal(size=(m, n)), rng.normal(size=(m, 1))
+    x2 = np.vstack([xn, rng.normal(size=(700, n))])
     y2 = np.vstack([yn, rng.normal(size=(700, 1))])
     out = {}
     for key, pk in PKGS.items():
         lmDS = import_module(f"{pk.__name__.split('.')[0]}.lifecycle"
                              ".regression").lmDS
         rt = _rt(key, cache=pk.ReuseCache())
-        fits, streams = [], []
-        for xa, ya in ((xn, yn), (xn, yn), (x2, y2)):
+        fits, streams, jits = [], [], []
+        for xa, ya in ((xn, yn), (xn, yn), (xn, yn), (x2, y2)):
+            mark = _jit_mark(pk) if not fits else _jit_now(pk)
             fits.append(lmDS(pk.input_tensor("X", xa), pk.input_tensor("y", ya),
                              reg=1e-3, runtime=rt))
             streams.append(dict(rt.stats.streaming.as_dict()))
-        out[key] = (fits, streams, rt.cache.stats.as_dict(), _counters(rt))
-    want = np.linalg.solve(xn.T @ xn + 1e-3 * np.eye(8), xn.T @ yn)
+            jits.append(_jit_delta(pk, mark))
+        out[key] = (fits, streams, jits, rt.cache.stats.as_dict(),
+                    _counters(rt))
+    want = np.linalg.solve(xn.T @ xn + 1e-3 * np.eye(n), xn.T @ yn)
     assert _rel(out["port"][0][0], want) <= RTOL
     for a, b in zip(out["port"][0], out["ref"][0]):
         assert _rel(a, b) <= RTOL
-    streams = out["port"][1]
-    assert streams[0]["chunks"] == 32 and streams[0]["full_hits"] == 0
-    assert streams[1]["full_hits"] == 1                      # warm refit
-    assert streams[2]["chunks_reused"] == 32                 # appended rows:
-    assert streams[2]["chunks"] - streams[1]["chunks"] == 6  # new buckets only
+    streams, jits = out["port"][1], out["port"][2]
+    assert streams[0]["chunks"] == buckets and streams[0]["full_hits"] == 0
+    assert streams[1]["full_hits"] == 1                      # warm refits
+    assert streams[2]["full_hits"] == 2
+    assert streams[3]["chunks_reused"] == buckets            # appended rows:
+    rows = m // buckets                                      # new buckets only
+    assert (streams[3]["chunks"] - streams[2]["chunks"]
+            == -(-(m + 700) // rows) - buckets)
+    assert jits[0]["misses"] > 0
+    assert [j["misses"] for j in jits[1:3]] == [warm_rebuilds, 0]
     assert out["port"][1:] == out["ref"][1:]
+
+
+def test_streaming_lane_times_its_host_steps(monkeypatch):
+    """The bucket loop times each host step into the streaming meter, apart
+    from the counters that compare with the reference; a whole-stream
+    reuse hit adds no bucket time."""
+    monkeypatch.setattr(tcm, "CHUNK_MEM_BUDGET", 1 << 16)
+    xn, yn = _data(4096, 8, seed=4)
+    from repro_torch.lifecycle import lmDS
+    rt = _rt("port", cache=T.ReuseCache())
+    lmDS(T.input_tensor("X", xn), T.input_tensor("y", yn), runtime=rt)
+    cold = rt.stats.streaming.spans()
+    assert set(cold) == {"fingerprint_s", "upload_s", "dispatch_s",
+                         "download_s", "combine_s"}
+    assert all(v > 0 for v in cold.values())
+    assert not set(cold) & set(rt.stats.streaming.as_dict())
+    lmDS(T.input_tensor("X", xn), T.input_tensor("y", yn), runtime=rt)
+    assert rt.stats.streaming.full_hits == 1
+    assert rt.stats.streaming.spans() == cold
 
 
 def test_jit_cache_lru_and_pins_match_reference():
