@@ -7,21 +7,32 @@ Drives the port's main path through the entry points a user calls and
 holds every hand-written kernel against its plain PyTorch version on the
 card. One JSON line per phase:
 
-  1. device     — the card (and `nvidia-smi`'s name and power limit line)
-  2. build      — compile `src/repro_torch/csrc/*.cu` for sm_90a
-  3. kernel     — gram/xtv against the plain version at the path's shapes
-                  in float64/float32/bfloat16, with kernel, plain, library
-                  (one torch.matmul, a yardstick the port never calls) and
-                  bound times
-  4. quickstart — the 5000 x 64 lambda sweep with a ReuseCache: reuse
-                  hits, bitwise fuse=True/fuse=False parity, PreparedScript
-                  replays without rebuilds
-  5. lmds       — lmDS at the paper's 100,000 x 1,000 float64 point: the
-                  plan streams X in 13 row buckets, each a gram and an xtv
-                  launch; beta against numpy's float64 solve; warm refits;
-                  the streaming lane's host spans and a device trace
-  6. steplm     — stepwise selection at 20,000 x 32, against the CPU run
-  7. kernels    — the summary line of every ported kernel
+  1. device        — the card (and `nvidia-smi`'s name and power limit)
+  2. build         — compile `src/repro_torch/csrc/*.cu` for sm_90a, one
+                     `nvcc` per source, all started together
+  3. kernel        — gram/xtv against the plain version at the path's
+                     shapes in float64/float32/bfloat16, with kernel, plain,
+                     library (one torch.matmul, a yardstick the port never
+                     calls) and bound times
+  4. sparse_kernel — the block-sparse gram_bs/xtv_bs/spmm kernels against
+                     their plain version at the bcoo paths' shapes (blocky,
+                     uniform and a ragged tail), bitwise against the same
+                     kernel with an all-ones mask, with times and bounds
+                     over the dense layout and over the populated blocks
+  5. quickstart    — the 5000 x 64 lambda sweep with a ReuseCache: reuse
+                     hits, bitwise fuse=True/fuse=False parity,
+                     PreparedScript replays without rebuilds
+  6. lmds          — lmDS at the paper's 100,000 x 1,000 float64 point: the
+                     plan streams X in 13 row buckets, each a gram and an
+                     xtv launch; beta against numpy's float64 solve; warm
+                     refits; the streaming lane's host spans and a trace
+  7. steplm        — stepwise selection at 20,000 x 32, against the CPU run
+  8. sparse_lm     — the bcoo lane (`sparse_inputs=True`) on block-sparse
+                     float64 data: lm -> lmDS at 100,000 x 1,000 in memory,
+                     lmCG at 100,000 x 2,000 (20 iterations), lmDS streamed
+                     at 400,000 x 1,000 in 13 bcoo buckets; betas against
+                     numpy and the dense lane, launch counts, reuse
+  9. kernels       — the summary line of every ported kernel
 
 then the card line of `nvidia-smi` and, last, the contract line
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -35,11 +46,13 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 0
+DEVICE = "cuda"
 # kernel against its plain version, per entry over the product of the
 # norms of the two columns it combines (the entry's Cauchy-Schwarz
 # bound): both sides read the same inputs and accumulate float64 in
@@ -347,6 +360,394 @@ def phase_steplm() -> None:
         raise AssertionError(f"steplm failed: {row}")
 
 
+# ---------------------------------------------------------------------------
+# the bcoo lane: block-sparse data, kernels, paths
+# ---------------------------------------------------------------------------
+
+ROW_GROUP, COL_GROUP = 1024, 128   # the data's block structure
+BLOCKY = (0.25, 0.2)      # p_block, p_in: density 0.05 (lmDS, streamed)
+BLOCKY_WIDE = (0.1, 0.1)  # density 0.01 (lmCG)
+UNIFORM = (1.0, 0.05)     # every block populated: the mask skips nothing
+
+
+def blocky(rng, m: int, n: int, p_block: float, p_in: float):
+    """float64 X (m, n) of ROW_GROUP x COL_GROUP blocks, each populated
+    with probability `p_block`, an entry of a populated block N(0, 1) with
+    probability `p_in`, else 0; and the (row group, column group) map of
+    populated blocks."""
+    import numpy as np
+    keep = rng.random((-(-m // ROW_GROUP), -(-n // COL_GROUP))) < p_block
+    x = np.zeros((m, n))
+    for g, row in enumerate(keep):
+        cols = _group_cols(row, n)
+        if cols.size:
+            r0, r1 = g * ROW_GROUP, min(m, (g + 1) * ROW_GROUP)
+            shape = (r1 - r0, cols.size)
+            x[r0:r1, cols] = rng.standard_normal(shape) * (
+                rng.random(shape) < p_in)
+    return x, keep
+
+
+def _group_cols(row, n: int):
+    import numpy as np
+    groups = np.flatnonzero(row)
+    cols = (groups[:, None] * COL_GROUP + np.arange(COL_GROUP)).ravel()
+    return cols[cols < n]
+
+
+def blocky_gram(x, keep):
+    """XᵀX in float64 on the host from the populated blocks only."""
+    import numpy as np
+    n = x.shape[1]
+    g = np.zeros((n, n))
+    for r, row in enumerate(keep):
+        cols = _group_cols(row, n)
+        if cols.size:
+            xs = x[r * ROW_GROUP:(r + 1) * ROW_GROUP][:, cols]
+            g[np.ix_(cols, cols)] += xs.T @ xs
+    return g
+
+
+def sparse_bounds(kind: str, mask, m: int, n: int, c: int, dtype: str,
+                  peaks: dict) -> dict:
+    """Least times over the dense layout and over the populated blocks
+    only (what this data needs): max(bytes / bandwidth, operations / peak),
+    each needed input byte read once, each output byte written once."""
+    import numpy as np
+    from repro_torch.kernels.spmm.ops import ROWS, TILE
+    size = {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
+    out = 8 if dtype == "float64" else 4
+    pop = mask.cpu().numpy() > 0
+    rows = np.minimum(ROWS, m - ROWS * np.arange(pop.shape[0]))
+    width = np.minimum(TILE, n - TILE * np.arange(pop.shape[1]))
+    cols = (pop * width).sum(axis=1)          # populated columns per chunk
+    x_bytes = float((rows * cols).sum()) * size
+    if kind == "gram_bs":
+        ops = float((rows * cols * (cols + 1)).sum())
+        nbytes = x_bytes + n * n * out
+        dense = bound("gram", m, n, 1, dtype, peaks)
+    elif kind == "xtv_bs":
+        ops = 2.0 * float((rows * cols).sum()) * c
+        nbytes = (x_bytes + float(rows[pop.any(axis=1)].sum()) * c * size
+                  + n * c * out)
+        dense = bound("xtv", m, n, c, dtype, peaks)
+    else:  # spmm: X (m, n) @ W (n, c)
+        ops = 2.0 * float((rows * cols).sum()) * c
+        used = float(width[pop.any(axis=0)].sum())
+        nbytes = x_bytes + used * c * size + m * c * out
+        t_ops = 2.0 * m * n * c / peaks[dtype]
+        t_bytes = ((m * n + n * c) * size + m * c * out) / peaks["bw"]
+        dense = (1e3 * max(t_ops, t_bytes),
+                 "operations" if t_ops >= t_bytes else "bytes")
+    t_ops, t_bytes = ops / peaks[dtype], nbytes / peaks["bw"]
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_dense_ms=dense[0], bound_dense_by=dense[1])
+
+
+def phase_sparse_kernels(peaks: dict, scale: int = 1) -> dict:
+    """Each block-sparse kernel against its plain version at the bcoo
+    paths' shapes (`scale` divides the rows, for a rehearsal)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.backend import sparsify, to_device
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.gram.ref import scaled_err
+    from repro_torch.kernels.spmm import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = {"float64": torch.float64, "float32": torch.float32,
+          "bfloat16": torch.bfloat16}
+    m, tail = 100_000 // scale, 6784 // scale
+    # (kernel, rows, cols, v/W columns, pattern)
+    cases = [("gram_bs", m, 1000, 0, BLOCKY), ("gram_bs", m, 1000, 0, UNIFORM),
+             ("gram_bs", tail, 1000, 0, BLOCKY),
+             ("xtv_bs", m, 1000, 1, BLOCKY), ("xtv_bs", m, 2000, 1, BLOCKY_WIDE),
+             ("xtv_bs", tail, 1000, 1, BLOCKY),
+             ("spmm", m, 2000, 1, BLOCKY_WIDE), ("spmm", tail, 1000, 1, BLOCKY)]
+    main = {}
+    rng = np.random.default_rng(SEED)
+    for kind, rows, cols, c, pattern in cases:
+        xh, _ = blocky(rng, rows, cols, *pattern)
+        xs = to_device(sparsify(xh), DEVICE)
+        del xh
+        xd = xs.todense()
+        mask = ops.block_mask_from_indices(xs)
+        if not torch.equal(mask, ref.block_mask(xd, ops.ROWS, ops.TILE)):
+            raise AssertionError(f"{kind}: the mask from the indices "
+                                 "differs from the dense block counts")
+        ones = torch.ones_like(mask)
+        zero_share = float((mask == 0).float().mean().item())
+        nnz = int(mask.sum().item())
+        pair_skip = None
+        if kind == "gram_bs":
+            pop = (mask > 0).double()
+            pairs = pop.shape[1] * (pop.shape[1] + 1) / 2 * pop.shape[0]
+            both = ((pop.sum(1) * (pop.sum(1) + 1)) / 2).sum().item()
+            pair_skip = 1 - both / pairs
+        other = torch.from_numpy(rng.standard_normal(
+            (rows if kind == "xtv_bs" else cols, max(c, 1)))).to(DEVICE)
+        densify_ms = cuda_ms(xs.todense, iters=5)
+        mask_ms = cuda_ms(lambda: ops.block_mask_from_indices(xs), iters=5)
+        for name, dtype in dt.items():
+            x = xd.to(dtype)
+            if kind == "gram_bs":
+                kern = lambda mk, x=x: ops.gram_bs_cuda(x, mk)
+                plain = lambda x=x: ref.gram(x, mask, ops.ROWS, ops.TILE)
+                lib = lambda x=x: torch.matmul(x.mT, x)
+                unmasked = lambda x=x: gops.gram_cuda(x)
+                a, b = x, x
+            else:
+                w = other.to(dtype)
+                if kind == "xtv_bs":
+                    kern = lambda mk, x=x, w=w: ops.xtv_bs_cuda(x, w, mk)
+                    plain = lambda x=x, w=w: ref.xtv(x, w, mask, ops.ROWS,
+                                                     ops.TILE)
+                    lib = lambda x=x, w=w: torch.matmul(x.mT, w)
+                    unmasked = lambda x=x, w=w: gops.xtv_cuda(x, w)
+                    a, b = x, w
+                else:
+                    kern = lambda mk, x=x, w=w: ops.spmm_cuda(x, w, mk)
+                    plain = lambda x=x, w=w: ref.spmm(x, w, mask, ops.ROWS,
+                                                      ops.TILE)
+                    lib = lambda x=x, w=w: torch.matmul(x, w)
+                    unmasked = None  # no dense port kernel: matmul is torch's
+                    a, b = x.mT, w
+            saved = dict(ops.LAUNCHES), dict(gops.LAUNCHES)
+            got, want = kern(mask), plain()
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs().max().item()
+            scaled = scaled_err(got, want, a, b)
+            checks = dict(tol=scaled <= TOL[name],
+                          all_ones_bitwise=torch.equal(got, kern(ones)),
+                          repeat_bitwise=torch.equal(got, kern(mask)))
+            if kind == "gram_bs":
+                checks["symmetric_bitwise"] = torch.equal(got, got.mT)
+            ms = cuda_ms(lambda: kern(mask))
+            _, _, dev_s, _ = device_trace(
+                lambda: [kern(mask) for _ in range(10)])
+            # the same X through the dense port kernel, which masks nothing
+            unmasked_ms = None if unmasked is None else cuda_ms(unmasked)
+            ops.LAUNCHES.update(saved[0])  # these launches are not the path's
+            gops.LAUNCHES.update(saved[1])
+            plain_ms = cuda_ms(plain)
+            library_ms = cuda_ms(lib)
+            row = dict(phase="sparse_kernel", kernel=kind, m=rows, n=cols,
+                       c=c or None, pattern=dict(p_block=pattern[0],
+                                                 p_in=pattern[1]),
+                       density=nnz / (rows * cols),
+                       dtype=name, max_abs_err=err, scaled_err=scaled,
+                       tol=TOL[name], checks=checks, ok=all(checks.values()),
+                       skipped_tile_share=zero_share,
+                       skipped_pair_share=pair_skip, ms=ms,
+                       device_ms=None if dev_s is None else 100 * dev_s,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       unmasked_kernel_ms=unmasked_ms,
+                       **sparse_bounds(kind, mask, rows, cols, max(c, 1),
+                                       name, peaks))
+            if name == "float64":
+                row.update(densify_ms=densify_ms, mask_ms=mask_ms)
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"{kind} {rows}x{cols} {name} failed "
+                                     f"its checks: {row}")
+            if name == "float64" and rows == m and pattern != UNIFORM \
+                    and kind not in main:
+                main[kind] = row
+        del xs, xd, mask, ones, other
+        torch.cuda.empty_cache()
+    return main
+
+
+def phase_sparse_lm(scale: int = 1) -> dict:
+    """The bcoo lane end to end through lm / lmCG (`scale` divides the
+    rows, for a rehearsal). Returns the kernels' launches per path."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (LineageRuntime, ReuseCache, clear_jit_cache,
+                                  costmodel, get_jit_cache, input_tensor)
+    from repro_torch.core.backend import _bucket_nse, sparsify
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.lifecycle import lm, lmCG
+    reg = 1e-7
+    rng = np.random.default_rng(SEED)
+    jc = get_jit_cache().stats
+
+    def reset():
+        gops.reset_launches()
+        sops.reset_launches()
+        torch.cuda.synchronize()
+
+    def launches():
+        return {**{k: v for k, v in sops.LAUNCHES.items()},
+                "gram": gops.LAUNCHES["gram"], "xtv": gops.LAUNCHES["xtv"]}
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+    def data(m, n, pattern):
+        xh, keep = blocky(rng, m, n, *pattern)
+        yh = (xh @ rng.standard_normal((n, 1))
+              + 0.1 * rng.standard_normal((m, 1)))
+        return xh, keep, yh, float(np.count_nonzero(xh)) / xh.size
+
+    by_path = {}
+
+    # ---- lm -> lmDS, in memory -------------------------------------------
+    m, n = 100_000 // scale, 1_000
+    xh, keep, yh, density = data(m, n, BLOCKY)
+    want = np.linalg.solve(blocky_gram(xh, keep) + reg * np.eye(n),
+                           xh.T @ yh)
+
+    def fit(rt):
+        X = input_tensor("X", xh, sparsity=density)
+        y = input_tensor("y", yh)
+        h0 = rt.cache.stats.hits
+        reset()
+        t0 = time.perf_counter()
+        beta = lm(X, y, reg=reg, runtime=rt)
+        return beta, dict(wall_s=time.perf_counter() - t0,
+                          rel_err=rel(beta, want), launches=launches(),
+                          cache_hits=rt.cache.stats.hits - h0)
+
+    rt = LineageRuntime(cache=ReuseCache(), sparse_inputs=True)
+    beta, cold = fit(rt)                 # the path: counts set to 0 inside
+    _, warm = fit(rt)
+    beta_interp, interp = fit(LineageRuntime(cache=ReuseCache(),
+                                             sparse_inputs=True, fuse=False))
+    beta_dense, dense = fit(LineageRuntime(cache=ReuseCache()))
+    _, trace_wall, busy, by_name = device_trace(
+        lambda: fit(LineageRuntime(cache=ReuseCache(), sparse_inputs=True)))
+    t0 = time.perf_counter()
+    sparsify(xh)  # the host conversion every bind of X repeats
+    sparsify_s = time.perf_counter() - t0
+    row = dict(phase="sparse_lm", path="sparse_lmds", shape=[m, n],
+               density=density, reg=reg, sparsify_s=sparsify_s,
+               cold=cold, warm=warm,
+               fuse_false=interp, dense_lane=dense,
+               rel_to_dense_lane=rel(beta, beta_dense),
+               fuse_bitwise=bool(np.array_equal(beta, beta_interp)),
+               traced=_traced(trace_wall, busy, by_name))
+    emit(row)
+    lc, lw = cold["launches"], warm["launches"]
+    if not (cold["rel_err"] <= 1e-9 and row["rel_to_dense_lane"] <= 1e-10
+            and row["fuse_bitwise"] and lc["gram_bs"] == lc["xtv_bs"] == 1
+            and lc["gram"] == lc["xtv"] == lc["spmm"] == 0
+            and warm["cache_hits"] >= 2 and not any(lw.values())
+            and interp["launches"]["gram_bs"] == 1
+            and dense["launches"]["gram"] == 1):
+        raise AssertionError(f"sparse lmDS failed: {row}")
+    by_path["sparse_lmds"] = lc
+    del xh, keep, yh
+
+    # ---- lm's CG branch (n > 1024): lmCG, 20 iterations ------------------
+    m, n, iters = 100_000 // scale, 2_000, 20
+    xh, keep, yh, density = data(m, n, BLOCKY_WIDE)
+    xty = xh.T @ yh
+
+    def cg(rt):
+        X = input_tensor("X", xh, sparsity=density)
+        y = input_tensor("y", yh)
+        calls = [0]
+        run = rt.evaluate
+
+        def counted(outputs):
+            calls[0] += 1
+            return run(outputs)
+        rt.evaluate = counted
+        reset()
+        t0 = time.perf_counter()
+        beta = lmCG(X, y, reg=reg, max_iter=iters, runtime=rt)
+        return beta, dict(wall_s=time.perf_counter() - t0,
+                          iterations=calls[0] - 1, launches=launches())
+
+    rt = LineageRuntime(sparse_inputs=True)
+    X = input_tensor("X", xh, sparsity=density)
+    r0 = rt.evaluate([X.T @ input_tensor("y", yh)])[0]
+    r0_err = float(np.max(np.abs(r0 - xty)) / np.max(np.abs(xty)))
+    beta_s, sparse = cg(rt)              # the path
+    beta_d, dense = cg(LineageRuntime())
+    ls = sparse["launches"]
+    row = dict(phase="sparse_lm", path="sparse_lmcg", shape=[m, n],
+               density=density, reg=reg, max_iter=iters, sparse=sparse,
+               dense_lane=dense, xty_rel_err=r0_err,
+               rel_to_dense_lane=rel(beta_s, beta_d))
+    emit(row)
+    k = sparse["iterations"]
+    if not (k == dense["iterations"] == iters and r0_err <= 1e-12
+            and row["rel_to_dense_lane"] <= 1e-9
+            and ls["spmm"] == k and ls["xtv_bs"] == 1 + k
+            and ls["gram"] == ls["xtv"] == ls["gram_bs"] == 0
+            and dense["launches"]["xtv"] == 1 + k):
+        raise AssertionError(f"sparse lmCG failed: {row}")
+    by_path["sparse_lmcg"] = ls
+    del xh, keep, yh, X
+
+    # ---- lmDS streamed in bcoo buckets -----------------------------------
+    m, n = 400_000 // scale, 1_000
+    xh, keep, yh, density = data(m, n, BLOCKY)
+    nnz = np.count_nonzero(xh)
+    # the runtime's own sizing: bcoo X at 2 nnz/row (data + 2 int32), y dense
+    c = costmodel.chunk_rows(2.0 * nnz / m * 16 + 8)
+    buckets = -(-m // c)
+    sigs = set()
+    for s0 in range(0, m, c):
+        rows = min(c, m - s0)
+        sigs.add((rows, min(_bucket_nse(int(np.count_nonzero(
+            xh[s0:s0 + rows]))), rows * n)))
+    want = np.linalg.solve(blocky_gram(xh, keep) + reg * np.eye(n),
+                           xh.T @ yh)
+
+    def stream(rt):
+        X = input_tensor("X", xh, sparsity=density)
+        y = input_tensor("y", yh)
+        s0, t0s = rt.stats.streaming.as_dict(), rt.stats.streaming.spans()
+        reset()
+        t0 = time.perf_counter()
+        beta = lm(X, y, reg=reg, runtime=rt)
+        return dict(wall_s=time.perf_counter() - t0, rel_err=rel(beta, want),
+                    launches=launches(),
+                    streaming={k: v - s0[k] for k, v in
+                               rt.stats.streaming.as_dict().items()
+                               if k != "peak_live_bytes"},
+                    spans={k: v - t0s[k] for k, v in
+                           rt.stats.streaming.spans().items()})
+
+    clear_jit_cache()
+    m0 = jc.misses
+    rt = LineageRuntime(cache=ReuseCache(), sparse_inputs=True)
+    cold = stream(rt)                    # the path
+    cold["rebuilds"] = jc.misses - m0
+    bcoo_builds = sum(1 for _, sig in get_jit_cache().keys()
+                      if any(a[0] == "bcoo" for a in sig))
+    warm = stream(rt)
+    _, trace_wall, busy, by_name = device_trace(
+        lambda: stream(LineageRuntime(cache=ReuseCache(), sparse_inputs=True)))
+    row = dict(phase="sparse_lm", path="sparse_stream", shape=[m, n],
+               density=density, reg=reg, bucket_rows=c, buckets=buckets,
+               bucket_signatures=sorted(sigs), bcoo_closure_builds=bcoo_builds,
+               cold=cold, warm=warm, traced=_traced(trace_wall, busy, by_name))
+    emit(row)
+    lc = cold["launches"]
+    want_buckets = 13 if scale == 1 else buckets
+    if not (buckets == want_buckets and cold["streaming"]["chunks"] == buckets
+            and lc["gram_bs"] == lc["xtv_bs"] == buckets
+            and lc["gram"] == lc["xtv"] == 0 and cold["rel_err"] <= 1e-9
+            and bcoo_builds == len(sigs)
+            and warm["streaming"]["full_hits"] == 1
+            and not any(warm["launches"].values())):
+        raise AssertionError(f"sparse streamed lmDS failed: {row}")
+    by_path["sparse_stream"] = lc
+    return by_path
+
+
+def _traced(wall: float, busy, by_name: dict) -> dict:
+    return dict(wall_s=wall, device_busy_s=busy,
+                idle_share=None if busy is None else 1 - busy / wall,
+                top_device_s=dict(sorted(by_name.items(),
+                                         key=lambda kv: -kv[1])[:6]))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -364,16 +765,22 @@ def main() -> int:
               torch=torch.__version__, cuda=torch.version.cuda))
 
     t0 = time.perf_counter()
-    built = build.build("gram")
+    sources = ("gram", "spmm")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        built = dict(zip(sources, pool.map(build.build, sources)))
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=built,
-              ptxas=[ln.strip() for ln in build.build_log("gram").splitlines()
-                     if "registers" in ln or "spill" in ln]))
+              ptxas={src: [ln.strip() for ln in
+                           build.build_log(src).splitlines()
+                           if "registers" in ln or "spill" in ln]
+                     for src in sources}))
 
     main_rows = phase_kernels(peaks)
+    sparse_rows = phase_sparse_kernels(peaks)
     phase_quickstart()
     launches = phase_lmds()
     phase_steplm()
+    sparse_launches = phase_sparse_lm()
 
     kernels = []
     for kind, line in (("gram", 49), ("xtv", 83)):
@@ -387,6 +794,19 @@ def main() -> int:
             device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
+    for kind, line in (("gram_bs", 63), ("spmm", 112), ("xtv_bs", 158)):
+        r = sparse_rows[kind]
+        by_path = {p: v[kind] for p, v in sparse_launches.items() if v[kind]}
+        kernels.append(dict(
+            name=kind, route="cuda", source="src/repro_torch/csrc/spmm.cu",
+            replaces=f"src/repro/kernels/spmm/kernel.py:{line}",
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            reduce_launches=sum(v.get(f"{kind}_reduce", 0)
+                                for v in sparse_launches.values()),
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            bound_dense_ms=r["bound_dense_ms"], library_ms=r["library_ms"]))
     emit(dict(kernels=kernels))
     print(smi, flush=True)
     emit(dict(ok=True, device=dict(platform="gpu", kind=name,

@@ -1,9 +1,9 @@
 """Runtime operation library (the TensorBlock operation layer, §3.2/§3.3).
 
-Port of `repro.core.backend`, dense lane. Every HOP is implemented as a
-*kernel builder*: `attrs -> fn(*inputs)`, registered in
-`_KERNEL_BUILDERS`. The returned kernels are plain functions on torch
-tensors, so the same registry serves both execution modes:
+Port of `repro.core.backend`. Every HOP is implemented as a *kernel
+builder*: `attrs -> fn(*inputs)`, registered in `_KERNEL_BUILDERS`. The
+returned kernels are plain functions on torch tensors, so the same
+registry serves both execution modes:
 
   * standalone — `execute_op` builds and calls one kernel eagerly (the
                  per-instruction interpreter / `fuse=False` path)
@@ -11,22 +11,31 @@ tensors, so the same registry serves both execution modes:
                  kernels of a segment into one closure (cached by
                  `repro_torch.core.jit_cache`)
 
+Two physical representations, as in the reference:
+
+  * dense — torch tensors (float64 on the lifecycle path)
+  * bcoo  — `sparse.BCOO`, the port's own copy of jax's BCOO value:
+            int32 row-major (nse, 2) indices beside an (nse,) data
+            tensor, for 2-D matrices below `dag.SPARSE_THRESHOLD`
+
+Formats are assigned at compile time (`compiler.assign_formats`) and
+kernels are selected per (op, input formats) when a closure is built
+(`register_sparse_kernel`, `get_kernel`): ops without a sparse variant
+get the dense kernel behind a densify boundary. `gram`/`xtv` route
+through `repro_torch.kernels.gram.ops` on dense operands and through
+`repro_torch.kernels.spmm.ops` (with `matmul`) on bcoo ones: the
+hand-written CUDA kernels on a CUDA tensor, the plain torch versions on a
+CPU tensor.
+
 Kernels take device tensors and return device tensors; generators
 (`literal`, `full`, `eye`, `seq`) are built for an explicit device and
 take their dtype from the node, never from torch's default dtype.
-`gram`/`xtv` (and their `chunk_*` forms) route through
-`repro_torch.kernels.gram.ops`: the hand-written CUDA kernels on a CUDA
-tensor, the plain torch version on a CPU tensor.
 
 Dtype rules follow the reference's observable behaviour: comparison
 and logical ops return float32 (SystemDS 0/1 matrices), `nnz` returns
 float64, `solve`/`cholesky`/`inv` compute in float64, and binary ops
 promote both operands to their common dtype first (torch would let a
 0-d operand lose to a dimensioned one; jax does not).
-
-Format metadata (`leaf_format`, `infer_format`, `HAS_SPARSE`) is carried
-unchanged so the compiler and cost model make the reference's decisions;
-the `bcoo` kernel variants are not ported yet (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -37,10 +46,10 @@ import numpy as np
 import torch
 
 from .dag import SPARSE_THRESHOLD, Node
+from .sparse import BCOO as SparseMatrix  # the value; BCOO below is the name
 
-# The sparse format exists in the plan vocabulary (the compiler and cost
-# model read it exactly like the reference); executing it is refused by
-# the runtime until the bcoo kernels are ported.
+# The bcoo lane is ported: `sparse.BCOO` values, their kernels in
+# `repro_torch.kernels.spmm`.
 HAS_SPARSE = True
 
 # physical format names used across compiler/segments/runtime
@@ -50,10 +59,61 @@ BCOO = "bcoo"
 # Minimum element count before a leaf is worth converting to BCOO.
 SPARSE_MIN_NUMEL = 1 << 12
 
-# Unary ops with f(0) == 0: the sparsity structure survives them.
-ZERO_PRESERVING_UNARY = frozenset({
-    "neg", "abs", "sqrt", "sign", "round", "floor", "ceil",
-})
+# Unary ops with f(0) == 0: applying them to BCOO data preserves the
+# sparsity structure exactly. Single source for both the format rule
+# (infer_format) and the sparse kernel registrations below.
+_ZERO_PRESERVING_FNS = {
+    "neg": torch.neg, "abs": torch.abs, "sqrt": torch.sqrt,
+    "sign": torch.sign, "round": torch.round, "floor": torch.floor,
+    "ceil": torch.ceil,
+}
+ZERO_PRESERVING_UNARY = frozenset(_ZERO_PRESERVING_FNS)
+
+
+def is_sparse(x) -> bool:
+    return isinstance(x, SparseMatrix)
+
+
+def densify(x):
+    return x.todense() if isinstance(x, SparseMatrix) else x
+
+
+def block_ready(x) -> None:
+    """Wait for the device work that produces `x` (dense or BCOO)."""
+    buf = x.data if isinstance(x, SparseMatrix) else x
+    if isinstance(buf, torch.Tensor) and buf.device.type == "cuda":
+        torch.cuda.current_stream(buf.device).synchronize()
+
+
+def _bucket_nse(nse: int) -> int:
+    """Round a buffer size up to its power-of-two bucket (min 256)."""
+    return 256 if nse <= 256 else 1 << (nse - 1).bit_length()
+
+
+def sparsify(arr):
+    """Host dense -> BCOO conversion (leaf binding on the bcoo format),
+    the reference's `sparsify` in numpy: row-major sorted int32 indices,
+    nse padded up to its power-of-two bucket with zero-valued duplicates
+    of the last index (nse is part of every closure's signature, so
+    batches of similar density share warm closures), `unique_indices`
+    always False. The result holds CPU tensors; `to_device` uploads it.
+    A non-matrix stays dense."""
+    a = np.asarray(arr)
+    if a.ndim != 2:
+        return a
+    rows, cols = np.nonzero(a)
+    indices = np.ascontiguousarray(
+        np.stack([rows, cols], axis=1).astype(np.int32))
+    data = a[rows, cols]
+    nse = len(data)
+    pad = min(_bucket_nse(nse), a.size) - nse
+    if pad > 0:
+        tail = indices[-1:] if nse else np.zeros((1, 2), dtype=np.int32)
+        indices = np.concatenate([indices, np.repeat(tail, pad, axis=0)])
+        data = np.concatenate([data, np.zeros(pad, dtype=data.dtype)])
+    cpu = torch.device("cpu")
+    return SparseMatrix(to_device(data, cpu), torch.from_numpy(indices),
+                        a.shape, indices_sorted=True, unique_indices=False)
 
 
 def leaf_format(node: Node) -> str:
@@ -119,10 +179,11 @@ def torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
-def to_device(arr, device: torch.device) -> torch.Tensor:
+def to_device(arr, device: torch.device):
     """Upload a host value (numpy array or scalar) to `device`, keeping
-    its dtype and strides; tensors pass through (moved if elsewhere)."""
-    if isinstance(arr, torch.Tensor):
+    its dtype and strides; tensors and BCOO values pass through (moved if
+    elsewhere)."""
+    if isinstance(arr, (torch.Tensor, SparseMatrix)):
         return arr.to(device)
     a = np.asarray(arr)
     if a.dtype.name == "bfloat16":
@@ -136,7 +197,9 @@ def to_device(arr, device: torch.device) -> torch.Tensor:
 
 def to_numpy(x) -> np.ndarray:
     """Host numpy copy of a runtime value (never a view of runtime or
-    cache state, so callers may mutate results)."""
+    cache state, so callers may mutate results); a BCOO densifies."""
+    if isinstance(x, SparseMatrix):
+        x = x.todense()
     if not isinstance(x, torch.Tensor):
         return np.asarray(x)
     t = x.detach().to("cpu", copy=True)
@@ -313,6 +376,15 @@ CHUNK_BASE_OPS: dict[str, Optional[str]] = {
 NON_TRACEABLE_OPS: frozenset[str] = frozenset({"quantile"})
 
 
+# Sparse kernel variants, keyed by (op, input format tuple) and mapping
+# to (builder, output format). A variant is only picked when its output
+# format matches the one the compiler assigned (`mul(bcoo, scalar)`
+# keeps BCOO, `mul(bcoo, matrix)` takes the dense kernel behind a
+# densify boundary).
+_SPARSE_KERNEL_BUILDERS: dict[tuple[str, tuple[str, ...]],
+                              tuple[Any, str]] = {}
+
+
 def register_kernel(op: str):
     """Register `builder(attrs) -> fn(*inputs)` for an op."""
     def deco(builder):
@@ -321,14 +393,40 @@ def register_kernel(op: str):
     return deco
 
 
-def get_kernel(op: str, attrs: dict[str, Any]) -> KernelFn:
+def register_sparse_kernel(op: str, in_fmts: tuple[str, ...],
+                           out_fmt: str = DENSE):
+    """Register a sparse variant for (op, input formats) -> out_fmt."""
+    def deco(builder):
+        _SPARSE_KERNEL_BUILDERS[(op, tuple(in_fmts))] = (builder, out_fmt)
+        return builder
+    return deco
+
+
+def _densifying(kern: KernelFn) -> KernelFn:
+    return lambda *xs: kern(*[densify(x) for x in xs])
+
+
+def get_kernel(op: str, attrs: dict[str, Any],
+               in_fmts: Optional[tuple[str, ...]] = None,
+               out_fmt: str = DENSE) -> KernelFn:
     """Build the kernel for one instruction. `attrs` is the node's
     attribute dict plus `_shape` (output shape), `_dtype` (output numpy
-    dtype) and `_device` (torch device) for generator ops."""
+    dtype) and `_device` (torch device) for generator ops; `in_fmts` /
+    `out_fmt` are the compile-time formats (an all-dense tuple for dense
+    operands; None when unknown, as for `execute_op`). A BCOO input with a
+    registered variant producing `out_fmt` selects it here, when the
+    closure is built; otherwise the dense kernel densifies its inputs."""
+    if in_fmts and BCOO in in_fmts:
+        entry = _SPARSE_KERNEL_BUILDERS.get((op, tuple(in_fmts)))
+        if entry is not None and entry[1] == out_fmt:
+            return entry[0](attrs)
     builder = _KERNEL_BUILDERS.get(op)
     if builder is None:
         raise NotImplementedError(f"op {op!r}")
-    return builder(attrs)
+    kern = builder(attrs)
+    if in_fmts is None or BCOO in in_fmts:
+        return _densifying(kern)
+    return kern
 
 
 def _register_table(table: dict[str, Any]) -> None:
@@ -438,33 +536,72 @@ def _build_rand(attrs):
         "bit-exact generator is not written yet (ROADMAP Queue 1 item 2)")
 
 
+# -- sparse (bcoo) kernel variants -------------------------------------------
+
+def _spmm_ops():
+    from repro_torch.kernels.spmm import ops as spmm_ops
+    return spmm_ops
+
+
+register_sparse_kernel("gram", (BCOO,))(
+    lambda attrs: _spmm_ops().gram_bcoo)
+register_sparse_kernel("xtv", (BCOO, DENSE))(
+    lambda attrs: _spmm_ops().xtv_bcoo)
+register_sparse_kernel("matmul", (BCOO, DENSE))(
+    lambda attrs: _spmm_ops().matmul_bcoo)
+# (DENSE, BCOO) needs no entry: the dense kernel's densify boundary
+# computes the same dense @ todense(b)
+register_sparse_kernel("matmul", (BCOO, BCOO))(
+    lambda attrs: lambda a, b: _spmm_ops().matmul_bcoo(a, b.todense()))
+register_sparse_kernel("t", (BCOO,), BCOO)(lambda attrs: lambda x: x.T)
+
+for _op, _fn in _ZERO_PRESERVING_FNS.items():
+    register_sparse_kernel(_op, (BCOO,), BCOO)(
+        (lambda fn: lambda attrs: lambda x: x.with_data(fn(x.data)))(_fn))
+
+# only selected when the compiler assigned a BCOO output, i.e. the dense
+# operand is a scalar (see infer_format)
+register_sparse_kernel("mul", (BCOO, DENSE), BCOO)(
+    lambda attrs: lambda x, s: x.with_data(torch.mul(*_promote(x.data, s))))
+register_sparse_kernel("mul", (DENSE, BCOO), BCOO)(
+    lambda attrs: lambda s, x: x.with_data(torch.mul(*_promote(s, x.data))))
+
+
 @lru_cache(maxsize=4096)
 def _kernel_cached(op: str, attrs: tuple, shape: tuple, dtype: np.dtype,
-                   device: torch.device) -> KernelFn:
+                   device: torch.device, in_fmts: Optional[tuple],
+                   out_fmt: str) -> KernelFn:
     if op in CHUNK_BASE_OPS:
         # chunk partials ARE the base op over the rows they are handed
+        # (sparse variants included)
         base = CHUNK_BASE_OPS[op]
         if base is None:  # combine: the accumulator handoff
-            return lambda x: x
+            return densify
         op = base
     d = dict(attrs)
     d.update(_shape=shape, _dtype=dtype, _device=device)
-    return get_kernel(op, d)
+    return get_kernel(op, d, in_fmts=in_fmts, out_fmt=out_fmt)
 
 
-def kernel_for_node(node: Node, device: torch.device) -> KernelFn:
+def kernel_for_node(node: Node, device: torch.device,
+                    in_fmts: Optional[tuple[str, ...]] = None,
+                    out_fmt: str = DENSE) -> KernelFn:
     """Memoized kernel lookup for a HOP node on `device` — kernels depend
-    only on (op, attrs, shape, dtype, device), so repeated plan
-    executions reuse one closure instead of rebuilding."""
+    only on (op, attrs, shape, dtype, device, formats), so repeated plan
+    executions reuse one closure instead of rebuilding. `in_fmts` None
+    means all-dense operands."""
+    if in_fmts is None:
+        in_fmts = (DENSE,) * len(node.inputs)
     return _kernel_cached(node.op, node.attrs, node.shape, node.dtype,
-                          torch.device(device))
+                          torch.device(device), tuple(in_fmts), out_fmt)
 
 
 def execute_op(op: str, attrs: dict[str, Any], inputs: list,
                dtype=np.float64, device=None) -> Any:
     """Execute one instruction eagerly on tensors (the reference's
-    `execute_op`; `dtype`/`device` only matter for generators, which are
-    built on `cuda` unless another device is asked for)."""
+    `execute_op`: the dense kernel, which densifies BCOO inputs;
+    `dtype`/`device` only matter for generators, which are built on
+    `cuda` unless another device is asked for)."""
     d = dict(attrs)
     d.setdefault("_dtype", np.dtype(dtype))
     d.setdefault("_device", resolve_device(device))

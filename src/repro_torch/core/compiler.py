@@ -12,8 +12,8 @@ identical instruction streams (modulo node uids) and identical
 Compile-time physical decisions:
 
   * format assignment (`assign_formats` / `Plan.formats_for`) — values
-    are pinned to `dense` or `bcoo` from their sparsity estimates (the
-    sparse lane itself is not ported; `sparse=False` maps all-dense);
+    are pinned to `dense` or `bcoo` from their sparsity estimates
+    (`sparse=False` maps all-dense);
   * probe-point selection (`Instruction.probe`) — only intermediates
     whose estimated cost clears the reuse cache's worth-keeping
     threshold become lineage-reuse probe points;
@@ -157,9 +157,8 @@ class Plan:
 def assign_formats(plan: "Plan", sparse: bool) -> dict[int, str]:
     """Format-assignment pass: pin every value to `dense` or `bcoo` (a
     forward walk using the propagated sparsity estimates; see
-    `repro.core.compiler.assign_formats`). Kept so `explain(sparse=True)`
-    reads like the reference; the runtime refuses `sparse_inputs=True`
-    until the sparse kernels are ported."""
+    `repro.core.compiler.assign_formats`); the runtime selects each
+    kernel from it when `sparse_inputs=True`."""
     from . import backend
     fmt: dict[int, str] = {}
     if not sparse or not backend.HAS_SPARSE:

@@ -27,6 +27,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .sparse import BCOO
+
 DEFAULT_CAPACITY = int(os.environ.get("REPRO_JIT_CACHE_ENTRIES", 512))
 DEFAULT_BYTE_CAPACITY = int(
     os.environ.get("REPRO_JIT_CACHE_BYTES", 256 << 20))
@@ -56,10 +58,16 @@ class JitCacheStats:
 
 
 def arg_signature(args, device: torch.device) -> tuple:
-    """Device plus shape/dtype signature of concrete call arguments."""
+    """Device plus shape/dtype signature of concrete call arguments. A
+    BCOO argument also carries its nse and index flags, as in the
+    reference: two sparse matrices of one shape with different nse
+    buckets get separate closures (the count of builds must match)."""
     out = [("device", str(device))]
     for a in args:
-        if isinstance(a, torch.Tensor):
+        if isinstance(a, BCOO):
+            out.append(("bcoo", tuple(a.shape), str(a.dtype), a.nse,
+                        a.indices_sorted, a.unique_indices))
+        elif isinstance(a, torch.Tensor):
             out.append((tuple(a.shape), str(a.dtype)))
         else:
             a = np.asarray(a)
@@ -86,6 +94,10 @@ class JitProgramCache:
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    def keys(self) -> list[tuple]:
+        """The cached (segment key, signature) pairs, oldest first."""
+        return list(self._entries)
 
     def lookup(self, seg_key: str, args, device: torch.device
                ) -> tuple[tuple, Optional[Callable]]:

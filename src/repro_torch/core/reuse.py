@@ -15,6 +15,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 # Below this compute cost (seconds) an intermediate is not worth caching.
@@ -32,20 +33,29 @@ ALWAYS_CACHE_BYTES = 1 << 12
 
 def nbytes(value) -> int:
     """True byte size of a cached value: a torch tensor (device or host),
-    a host numpy array (streamed partial aggregates), or a tuple of them
-    (the streaming executor caches one partial tuple per row bucket).
+    a host numpy array (streamed partial aggregates), a tuple of them
+    (the streaming executor caches one partial tuple per row bucket), or
+    a `BCOO` matrix, charged its sparse size — data + int32 indices, as
+    in the reference.
 
     Tensors are counted first, by their element payload: a tensor also
-    answers to `.data` and `.indices`, which the reference's sparse-pair
-    accounting would misread. The port has no sparse or federated values
-    yet, so those branches of `repro.core.reuse.nbytes` are not carried.
+    answers to `.data`, which the BCOO branch must not misread. The
+    reference's federated branch is not carried (no federated values
+    yet).
     """
     if isinstance(value, torch.Tensor):
         return value.numel() * value.element_size()
     if isinstance(value, (tuple, list)):
         return sum(nbytes(v) for v in value)
+    data = getattr(value, "data", None)  # BCOO
+    indices = getattr(value, "indices", None)
+    if data is not None and indices is not None:
+        return nbytes(data) + nbytes(indices)
     if hasattr(value, "nbytes"):
         return int(value.nbytes)
+    size, dtype = getattr(value, "size", None), getattr(value, "dtype", None)
+    if size is not None and dtype is not None:
+        return int(size) * np.dtype(dtype).itemsize
     return 64
 
 

@@ -13,11 +13,18 @@ never falls back to the CPU: without a GPU, the default raises. Bound
 leaves stay host numpy arrays (as in the reference) and are uploaded at
 dispatch; results come back as numpy arrays.
 
+Sparse lane (`sparse_inputs=True`): leaves the compiler pins to `bcoo`
+are sparsified on the host at every bind (`backend.sparsify`) and
+uploaded as `BCOO` values; each closure's kernels are selected from the
+plan's formats, segment keys carry the boundary formats, and a reuse hit
+is coerced to the format the plan assigned. The streaming lane charges a
+bcoo leaf its sparse bytes per row and sparsifies each bucket it uploads.
+
 Not ported yet (each refuses rather than degrading silently): the
-sparse `bcoo` lane (`sparse_inputs=True`, ROADMAP Queue 1 item 5), the
-batched/parfor lane (item 6), federated execution (item 8), serving
-(`PreparedScript.prepare_batched`, item 9), the asynchronous pipeline
-(item 10), the fault policy (item 11) and sharded execution (item 12).
+batched/parfor lane (ROADMAP Queue 1 item 6), federated execution
+(item 8), serving (`PreparedScript.prepare_batched`, item 9), the
+asynchronous pipeline (item 10), the fault policy (item 11) and sharded
+execution (item 12).
 
 `PreparedScript` is the JMLC analogue: trace a python function once into
 a DAG with placeholder leaves, then re-execute with new in-memory inputs
@@ -59,7 +66,8 @@ class StreamLog:
     # host-clock seconds of each step of the bucket loop; port-only, kept
     # out of `as_dict` so the counters compare with the reference's
     fingerprint_s: float = 0.0  # content fingerprints (reuse keys)
-    upload_s: float = 0.0       # host -> device copies of bucket slices
+    upload_s: float = 0.0       # bucket slices (sparsified for a bcoo
+                                # leaf) copied host -> device
     dispatch_s: float = 0.0     # segment closure on a bucket, device synced
     download_s: float = 0.0     # partials device -> host numpy
     combine_s: float = 0.0      # host adds of the partials
@@ -120,10 +128,8 @@ class LineageRuntime:
     def __init__(self, cache: Optional[ReuseCache] = None,
                  opt_level: int = 2, sparse_inputs: bool = False,
                  fuse: bool = True, device=None):
-        if sparse_inputs:
-            raise NotImplementedError(
-                "sparse_inputs=True: the bcoo format and its kernels are "
-                "not ported yet (ROADMAP Queue 1 item 5)")
+        # sparse_inputs: allow the BCOO physical representation (off by
+        # default, as in the reference)
         self.cache = cache
         self.opt_level = opt_level
         self.sparse_inputs = sparse_inputs
@@ -156,16 +162,26 @@ class LineageRuntime:
                      leaf_values: Optional[dict[int, Any]],
                      leaf_lineage: Optional[dict[int, str]]
                      ) -> tuple[dict[int, Any], dict[int, str]]:
-        """Bind every input leaf to its host array. Leaves stay on the
-        host here: `_arg` uploads each one at its first dispatch, and
-        chunk-sliced leaves consumed only by the streaming lane are never
-        uploaded whole."""
+        """Bind every input leaf to its host array, sparsified (per bind,
+        never memoized, so in-place mutation of the source is seen) where
+        the plan pins it to bcoo. Leaves stay on the host here: `_arg`
+        uploads each one at its first dispatch, and chunk-sliced leaves
+        consumed only by the streaming lane stay host-dense — the bucket
+        loop sparsifies and uploads one bucket at a time."""
         values: dict[int, Any] = {}
         lin: dict[int, str] = {}
         if self.cache is not None:  # lineage only drives reuse probing
             lin = dict(LEAVES.lineage)
             if leaf_lineage:
                 lin.update(leaf_lineage)
+        fmts = plan.formats_for(self.sparse_inputs)
+        stream_host: set[int] = set()
+        if plan.chunk_sliced and self.fuse:
+            non_chunk = {u for ins in plan.instructions
+                         if ins.target != "chunked"
+                         for u in ins.input_ids}
+            stream_host = {u for u in plan.chunk_sliced
+                           if u not in non_chunk}
         for ins in plan.instructions:
             for inp in ins.node.inputs:
                 if inp.op == "input" and inp.uid not in values:
@@ -176,7 +192,11 @@ class LineageRuntime:
                     else:
                         raise KeyError(
                             f"unbound input leaf {inp.attr('name')}")
-                    values[inp.uid] = np.asarray(src)
+                    arr = np.asarray(src)
+                    if (fmts.get(inp.uid) == backend.BCOO
+                            and inp.uid not in stream_host):
+                        arr = backend.sparsify(arr)
+                    values[inp.uid] = arr
         for r in plan.roots:  # outputs that are themselves leaves
             if r.op == "input" and r.uid not in values:
                 if leaf_values and r.uid in leaf_values:
@@ -185,12 +205,13 @@ class LineageRuntime:
                     values[r.uid] = LEAVES.values[r.uid]
         return values, lin
 
-    def _arg(self, values: dict[int, Any], uid: int) -> torch.Tensor:
-        """The value of `uid` as a tensor on this runtime's device,
-        uploading a host value once (the upload replaces it in the
-        environment, so later consumers reuse the device copy)."""
+    def _arg(self, values: dict[int, Any], uid: int):
+        """The value of `uid` as a tensor (or BCOO) on this runtime's
+        device, uploading a host value once (the upload replaces it in
+        the environment, so later consumers reuse the device copy)."""
         v = values[uid]
-        if not isinstance(v, torch.Tensor) or v.device != self.device:
+        if not isinstance(v, (torch.Tensor, backend.SparseMatrix)) \
+                or v.device != self.device:
             v = backend.to_device(v, self.device)
             values[uid] = v
         return v
@@ -201,6 +222,7 @@ class LineageRuntime:
         """Per-instruction interpreter (the `fuse=False` path); probes and
         populates the reuse cache at the same cost-gated probe points the
         segment executor uses, so hit behaviour is identical."""
+        fmts = plan.formats_for(self.sparse_inputs)
         lmemo: dict[int, str] = {}
         for ins in plan.instructions:
             self.stats.instructions += 1
@@ -210,12 +232,13 @@ class LineageRuntime:
                 lhash = _lhash_rec(node, lin, lmemo)
                 hit = self.cache.probe(lhash)
                 if hit is not None:
-                    values[ins.out_id] = hit
+                    values[ins.out_id] = _coerce_format(
+                        hit, fmts.get(ins.out_id, backend.DENSE))
                     self.stats.reused += 1
                     self._free(values, ins.last_use_of)
                     continue
             t0 = time.perf_counter()
-            out = self._exec_one(ins, values)
+            out = self._exec_one(ins, values, fmts)
             self.stats.executed += 1
             self.stats.exec_time += time.perf_counter() - t0
             values[ins.out_id] = out
@@ -235,17 +258,27 @@ class LineageRuntime:
         output afterwards."""
         reuse = self.cache is not None
         segments = plan.segments_for(reuse)
+        fmts = plan.formats_for(self.sparse_inputs)
         jcache = get_jit_cache()
         lmemo: dict[int, str] = {}
         for seg in segments:
             self.stats.segments += 1
             self.stats.instructions += len(seg.instructions)
             last = seg.instructions[-1]
+            seg_key = seg.key
+            # physical formats are part of the closure; all-dense
+            # segments share one closure across sparse_inputs modes
+            # (internal formats derive from the boundary ones)
+            boundary = (*seg.input_uids, *seg.output_uids)
+            if fmts and any(u in fmts for u in boundary):
+                fsig = ",".join(fmts.get(u, backend.DENSE)
+                                for u in boundary)
+                seg_key = f"{seg_key}|f:{fsig}"
             if seg.chunked:
                 # streaming lane: dispatch the segment once per row
                 # bucket and sum the partial aggregates
-                self._run_chunked_segment(plan, seg, values, lin, lmemo,
-                                          jcache)
+                self._run_chunked_segment(plan, seg, seg_key, fmts, values,
+                                          lin, lmemo, jcache)
                 self._free(values, seg.frees)
                 continue
             args = [self._arg(values, u) for u in seg.input_uids]
@@ -254,25 +287,27 @@ class LineageRuntime:
                 lhash = _lhash_rec(last.node, lin, lmemo)
                 hit = self.cache.probe(lhash)
                 if hit is not None:
-                    values[last.out_id] = hit
+                    values[last.out_id] = _coerce_format(
+                        hit, fmts.get(last.out_id, backend.DENSE))
                     self.stats.reused += 1
                     rest = tuple(u for u in seg.output_uids
                                  if u != last.out_id)
                     if rest:
-                        self._run_compensation(seg, args, rest,
-                                               last.out_id, jcache, values)
+                        self._run_compensation(seg, seg_key, fmts, args,
+                                               rest, last.out_id, jcache,
+                                               values)
                     self._free(values, seg.frees)
                     continue
             if last.node.op in backend.NON_TRACEABLE_OPS:
                 # host-path segment (always single-instruction): the SAME
                 # `_exec_one` the interpreter uses
                 t0 = time.perf_counter()
-                outs = (self._exec_one(last, values),)
+                outs = (self._exec_one(last, values, fmts),)
                 self.stats.exec_time += time.perf_counter() - t0
                 self.stats.executed += 1
             else:
                 outs = self._execute_cached(
-                    seg.key, self._seg_builder(seg), args, jcache)
+                    seg_key, self._seg_builder(seg, fmts), args, jcache)
                 self.stats.executed += len(seg.instructions)
             for uid, val in zip(seg.output_uids, outs, strict=True):
                 values[uid] = val
@@ -282,10 +317,11 @@ class LineageRuntime:
             self._free(values, seg.frees)
 
     # ------------------------------------------------------------------
-    def _seg_builder(self, seg, drop_output: Optional[int] = None):
+    def _seg_builder(self, seg, fmts: dict,
+                     drop_output: Optional[int] = None):
         """Deferred closure builder, only called on a jit-cache miss."""
         from .segments import build_segment_fn
-        return lambda: build_segment_fn(seg, self.device,
+        return lambda: build_segment_fn(seg, self.device, fmts,
                                         drop_output=drop_output)
 
     # ------------------------------------------------------------------
@@ -306,13 +342,15 @@ class LineageRuntime:
         return outs
 
     # ------------------------------------------------------------------
-    def _run_compensation(self, seg, args, rest: tuple, probe_uid: int,
-                          jcache, values: dict[int, Any]) -> None:
+    def _run_compensation(self, seg, seg_key: str, fmts: dict, args,
+                          rest: tuple, probe_uid: int, jcache,
+                          values: dict[int, Any]) -> None:
         """Execute a probe-hit segment's remaining outputs (the segment
         with the cached value dead-code eliminated)."""
         outs = self._execute_cached(
-            f"{seg.key}|comp", self._seg_builder(seg, drop_output=probe_uid),
-            args, jcache)
+            f"{seg_key}|comp",
+            self._seg_builder(seg, fmts, drop_output=probe_uid), args,
+            jcache)
         # interpreter-equivalent accounting: it would execute every
         # instruction except the one reused
         self.stats.executed += len(seg.instructions) - 1
@@ -320,7 +358,8 @@ class LineageRuntime:
             values[uid] = val
 
     # ------------------------------------------------------------------
-    def _run_chunked_segment(self, plan: Plan, seg, values: dict[int, Any],
+    def _run_chunked_segment(self, plan: Plan, seg, seg_key: str,
+                             fmts: dict, values: dict[int, Any],
                              lin: dict[int, str], lmemo: dict[int, str],
                              jcache) -> None:
         """Streaming executor for a chunked-target segment (the
@@ -328,7 +367,9 @@ class LineageRuntime:
 
         The segment's sliced inputs (`plan.chunk_sliced`) stay on the
         host and are visited in row buckets of `costmodel.chunk_rows`
-        rows (from the actual per-row payload); each bucket is uploaded,
+        rows (from the actual per-row payload, a bcoo leaf charged its
+        sparse data + int32 index bytes); each bucket is sparsified where
+        the plan pins the leaf to bcoo and uploaded,
         the segment closure runs on it, and its partial aggregates come
         back to host numpy, where they are summed. The bucket size is a
         power of two independent of the total row count, so every full
@@ -364,7 +405,8 @@ class LineageRuntime:
                         for uid in seg.output_uids):
             for uid in seg.output_uids:
                 if uid in hits:
-                    values[uid] = hits[uid]
+                    values[uid] = _coerce_format(
+                        hits[uid], fmts.get(uid, backend.DENSE))
                 else:
                     values[uid] = backend.kernel_for_node(
                         out_ins[uid].node, self.device)()
@@ -376,7 +418,7 @@ class LineageRuntime:
         sliced = [u for u in seg.input_uids if u in plan.chunk_sliced]
         if not sliced:  # nothing to stream over: one whole-input dispatch
             outs = self._execute_cached(
-                seg.key, self._seg_builder(seg),
+                seg_key, self._seg_builder(seg, fmts),
                 [self._arg(values, u) for u in seg.input_uids], jcache)
             for uid, val in zip(seg.output_uids, outs, strict=True):
                 values[uid] = val
@@ -384,6 +426,8 @@ class LineageRuntime:
             return
 
         log.chunked_segments += 1
+        # a sparse interior value entering the stream densifies here
+        # (leaves are kept host-dense by _bind_leaves)
         host = {u: backend.to_numpy(values[u]) for u in sliced}
         rows = host[sliced[0]].shape[0]
         for u in sliced[1:]:
@@ -391,7 +435,17 @@ class LineageRuntime:
                 raise ValueError(
                     f"chunked segment {seg.index}: sliced inputs "
                     f"disagree on rows ({host[u].shape[0]} vs {rows})")
-        row_bytes = sum(host[u].nbytes / max(rows, 1) for u in sliced)
+        row_bytes = 0.0
+        for u in sliced:
+            a = host[u]
+            if fmts.get(u) == backend.BCOO:
+                # BCOO slice payload: data + 2 int32 index columns,
+                # charged at 2x for the nse power-of-two padding bucket
+                nnz = int(np.count_nonzero(a))
+                row_bytes += (2.0 * nnz / max(rows, 1)
+                              * (a.dtype.itemsize + 8))
+            else:
+                row_bytes += a.nbytes / max(rows, 1)
         c = costmodel.chunk_rows(row_bytes)
         n_chunks = max(1, -(-rows // c))
         # replicated operands are fingerprinted once: they are part of
@@ -405,7 +459,7 @@ class LineageRuntime:
             log.fingerprint_s += time.perf_counter() - t0
         cost_each = (sum(i.est_cost_s for i in out_ins.values())
                      / n_chunks)
-        builder = self._seg_builder(seg)
+        builder = self._seg_builder(seg, fmts)
         # per-output accumulation: chunk_* partials SUM across buckets; an
         # escaping chunked-placement value CONCATs back to full rows; a
         # target-neutral generator that rode along KEEPs its first value
@@ -428,7 +482,7 @@ class LineageRuntime:
                 fps = ",".join(_fingerprint(host[u][s:e]) for u in sliced)
                 log.fingerprint_s += time.perf_counter() - t0
                 ckey = hashlib.sha1(
-                    f"chunkpart|{seg.key}|{s}:{e}|{rep_fp}|{fps}"
+                    f"chunkpart|{seg_key}|{s}:{e}|{rep_fp}|{fps}"
                     .encode()).hexdigest()
                 parts = self.cache.probe(ckey)
                 if parts is not None:
@@ -439,12 +493,14 @@ class LineageRuntime:
                 for u in seg.input_uids:
                     if u in host:
                         a = host[u][s:e]
-                        live += a.nbytes
+                        if fmts.get(u) == backend.BCOO:
+                            a = backend.sparsify(a)
+                        live += _reuse_nbytes(a)
                         args.append(backend.to_device(a, self.device))
                     else:
                         args.append(self._arg(values, u))
                 t1 = time.perf_counter()
-                outs = self._execute_cached(seg.key, builder, args, jcache)
+                outs = self._execute_cached(seg_key, builder, args, jcache)
                 t2 = time.perf_counter()
                 # partials come back to HOST arrays, as in the reference:
                 # their only consumer is the `combine` boundary, and host
@@ -479,7 +535,8 @@ class LineageRuntime:
         # and populate the cache
         for uid in seg.output_uids:
             if uid in hits:
-                values[uid] = hits[uid]
+                values[uid] = _coerce_format(
+                    hits[uid], fmts.get(uid, backend.DENSE))
             else:
                 values[uid] = accs[uid]
                 if uid in lhashes:
@@ -489,11 +546,15 @@ class LineageRuntime:
         self.stats.executed += len(seg.instructions) - len(hits)
 
     # ------------------------------------------------------------------
-    def _exec_one(self, ins, values: dict[int, Any]):
+    def _exec_one(self, ins, values: dict[int, Any], fmts: dict):
         """Execute one instruction eagerly and wait for the device — the
         single implementation shared by the interpreter loop and the
         segment executor's host path."""
-        kern = backend.kernel_for_node(ins.node, self.device)
+        kern = backend.kernel_for_node(
+            ins.node, self.device,
+            in_fmts=tuple(fmts.get(u, backend.DENSE)
+                          for u in ins.input_ids),
+            out_fmt=fmts.get(ins.out_id, backend.DENSE))
         out = kern(*[self._arg(values, u) for u in ins.input_ids])
         backend.synchronize(self.device)
         return out
@@ -502,6 +563,18 @@ class LineageRuntime:
     def _free(values: dict[int, Any], uids: tuple[int, ...]):
         for uid in uids:
             values.pop(uid, None)
+
+
+def _coerce_format(value: Any, fmt: str) -> Any:
+    """Align a reuse-cache hit with the plan's assigned physical format:
+    lineage hashes identify values, not representations, so a cache
+    shared across runtimes (or sparse_inputs settings) can hand back a
+    dense value where this plan assigned BCOO, or the reverse."""
+    if fmt == backend.BCOO and not backend.is_sparse(value):
+        return backend.sparsify(backend.to_numpy(value))
+    if fmt == backend.DENSE and backend.is_sparse(value):
+        return value.todense()
+    return value
 
 
 # ---------------------------------------------------------------------------

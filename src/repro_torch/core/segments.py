@@ -159,6 +159,7 @@ def segment_plan(plan: "Plan", reuse_active: bool) -> list[Segment]:
 
 
 def build_segment_fn(seg: Segment, device: torch.device,
+                     formats: Optional[dict[int, str]] = None,
                      drop_output: Optional[int] = None):
     """Lower a segment to one closure over the kernel registry.
 
@@ -167,13 +168,16 @@ def build_segment_fn(seg: Segment, device: torch.device,
     `seg.output_uids` values. It runs the kernels eagerly in instruction
     order — the same calls, in the same order, as the per-instruction
     interpreter, which is why `fuse=True` and `fuse=False` agree bit for
-    bit.
+    bit. Each step's kernel is selected from the compile-time formats
+    (`formats`: uid -> 'dense' | 'bcoo', absent meaning dense) of its
+    inputs and output, so BCOO values flow through the closure.
 
     `drop_output` builds the *compensation* variant used on a reuse-cache
     hit in a multi-output segment: the given uid (served from the cache)
     is removed from the outputs and every instruction not needed for the
     remaining ones is dead-code eliminated.
     """
+    fmts = formats or {}
     out_uids = tuple(u for u in seg.output_uids if u != drop_output)
     instructions = seg.instructions
     if drop_output is not None:
@@ -185,7 +189,11 @@ def build_segment_fn(seg: Segment, device: torch.device,
                 needed.update(ins.input_ids)
         instructions = keep[::-1]
     steps = [(ins.out_id, ins.input_ids,
-              backend.kernel_for_node(ins.node, device))
+              backend.kernel_for_node(
+                  ins.node, device,
+                  in_fmts=tuple(fmts.get(u, backend.DENSE)
+                                for u in ins.input_ids),
+                  out_fmt=fmts.get(ins.out_id, backend.DENSE)))
              for ins in instructions]
     in_pos = {uid: i for i, uid in enumerate(seg.input_uids)}
 

@@ -1,0 +1,285 @@
+"""Dispatching wrappers for the block-sparse gram / SpMM / xtv family.
+
+These are the kernels behind the `bcoo` physical format in
+`repro_torch.core.backend` (port of `repro.kernels.spmm.ops`):
+
+  * `gram_bcoo`, `xtv_bcoo`, `matmul_bcoo` take a `BCOO` X: each densifies
+    it on its device, counts the nonzeros of every (row chunk, column tile)
+    block from the indices (`block_mask_from_indices`) and runs the masked
+    product over the dense layout;
+  * `*_dense_masked` run that product: on a CUDA tensor the hand-written
+    sm_90a kernels of `repro_torch/csrc/spmm.cu` (through the `*_cuda`
+    entry points, raising on anything they do not take; there is no
+    fallback), on a CPU tensor the plain torch version in `ref`.
+
+The blocks are the card's (`ROWS` x `TILE`, the kernels' row chunk and
+gram tile edge), not the TPU's (512, 256), and nothing is padded. Each
+CUDA wrapper counts its launches in `LAUNCHES`, one count per kernel pass
+(the reduce passes, which run `gram.cu`'s reduce kernels, apart).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.gram import ops as gram_ops
+from repro_torch.kernels.gram import ref as gram_ref
+from repro_torch.kernels.gram.ops import (_DTYPE_CODE, _MAX_SPLITS,
+                                          _check_matrix, _check_rc, _splits,
+                                          _stream)
+
+from . import ref
+
+# One count per launched kernel pass; reset with `reset_launches()`.
+LAUNCHES = {"gram_bs": 0, "gram_bs_reduce": 0, "spmm": 0, "xtv_bs": 0,
+            "xtv_bs_reduce": 0}
+
+ROWS = 256   # rows per mask chunk (RC in spmm.cu)
+TILE = 64    # columns per mask tile (BN in spmm.cu and gram.cu)
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from repro_torch.kernels.build import library
+        lib = library("spmm")
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.repro_gram_bs_partial.argtypes = [i32, p, i64, i64, i64, p, i64,
+                                              i64, i32, p, p]
+        lib.repro_xtv_bs_partial.argtypes = [i32, p, p, i64, i64, i64, i64,
+                                             i64, p, i64, i64, i32, p, p]
+        lib.repro_spmm.argtypes = [i32, p, p, i64, i64, i64, i64, i64, p,
+                                   i64, p, p]
+        lib.repro_spmm_row_chunk.argtypes = []
+        lib.repro_spmm_col_tile.argtypes = []
+        for fn in (lib.repro_gram_bs_partial, lib.repro_xtv_bs_partial,
+                   lib.repro_spmm, lib.repro_spmm_row_chunk,
+                   lib.repro_spmm_col_tile):
+            fn.restype = ctypes.c_int
+        if (lib.repro_spmm_row_chunk(), lib.repro_spmm_col_tile()) \
+                != (ROWS, TILE):
+            raise RuntimeError("spmm.cu's mask blocks differ from ops.py's")
+        _lib = lib
+    return _lib
+
+
+def block_mask_from_indices(x, bm: int = ROWS,
+                            bn: int = TILE) -> torch.Tensor:
+    """int32 (ceil(m/bm), ceil(n/bn)) count of the nonzeros of BCOO `x` in
+    each block, from its indices on its device. Entries whose value is 0
+    (the nse padding) are not counted, so the mask equals the dense
+    matrix's block counts exactly."""
+    m, n = x.shape
+    kr, kc = -(-m // bm), -(-n // bn)
+    idx = x.indices[x.data != 0].long()
+    flat = (idx[:, 0] // bm) * kc + idx[:, 1] // bn
+    return torch.bincount(flat, minlength=kr * kc).view(kr, kc).to(
+        torch.int32)
+
+
+def _check_mask(mask: torch.Tensor, m: int, n: int, x: torch.Tensor,
+                what: str) -> None:
+    want = (-(-m // ROWS), -(-n // TILE))
+    if mask.dtype != torch.int32 or tuple(mask.shape) != want \
+            or mask.device != x.device or not mask.is_contiguous():
+        raise ValueError(f"{what}: mask must be a contiguous int32 {want} "
+                         f"tensor on {x.device}, got {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
+
+
+def _check_pair(x: torch.Tensor, v: torch.Tensor, what: str) -> None:
+    _check_matrix(v, what)
+    if v.dtype != x.dtype or v.device != x.device:
+        raise TypeError(f"{what}: x is {x.dtype} on {x.device}, the other "
+                        f"operand {v.dtype} on {v.device}")
+
+
+def _row_splits(m: int, blocks_per_split: int, device) -> tuple[int, int]:
+    """`gram.ops._splits`'s plan with every split starting on a row chunk
+    (a kernel skips whole chunks)."""
+    _, rows = _splits(m, blocks_per_split, device)
+    rows = -(-rows // ROWS) * ROWS
+    return -(-m // rows), rows
+
+
+def _chunk_splits(m: int) -> tuple[int, int]:
+    """One row chunk per split (several only past the grid's limit): an
+    xtv thread walks its rows one load at a time, so the fewer rows a
+    split holds, the shorter the longest thread."""
+    rows = ROWS * -(-m // (ROWS * _MAX_SPLITS))
+    return -(-m // rows), rows
+
+
+def gram_bs_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """G = XᵀX on the card, skipping masked blocks (replaces
+    `gram_block_sparse`)."""
+    _check_matrix(x, "gram_bs")
+    m, n = x.shape
+    _check_mask(mask, m, n, x, "gram_bs")
+    acc = gram_ref.acc_dtype(x.dtype)
+    out = torch.empty((n, n), dtype=acc, device=x.device)
+    if m == 0 or n == 0:
+        return out.zero_()
+    tiles = -(-n // TILE)
+    splits, rows = _row_splits(m, tiles * (tiles + 1) // 2, x.device)
+    ws = torch.empty((splits, n, n), dtype=acc, device=x.device)
+    lib, glib = _library(), gram_ops._library()
+    with torch.cuda.device(x.device):
+        st = _stream(x)
+        _check_rc(lib.repro_gram_bs_partial(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), m, n, x.stride(0),
+            mask.data_ptr(), mask.shape[1], rows, splits, ws.data_ptr(), st),
+            "gram_bs")
+        LAUNCHES["gram_bs"] += 1
+        _check_rc(glib.repro_gram_reduce(
+            _DTYPE_CODE[acc], ws.data_ptr(), splits, n, out.data_ptr(), st),
+            "gram_bs_reduce")
+        LAUNCHES["gram_bs_reduce"] += 1
+    return out
+
+
+def xtv_bs_cuda(x: torch.Tensor, v: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """Xᵀv on the card for a 2-D v, skipping masked blocks of X (replaces
+    `xtv_block_sparse`)."""
+    _check_matrix(x, "xtv_bs")
+    _check_pair(x, v, "xtv_bs")
+    m, n = x.shape
+    if v.shape[0] != m:
+        raise ValueError(f"xtv_bs: rows differ, {tuple(x.shape)} vs "
+                         f"{tuple(v.shape)}")
+    _check_mask(mask, m, n, x, "xtv_bs")
+    c = v.shape[1]
+    acc = gram_ref.acc_dtype(x.dtype)
+    out = torch.empty((n, c), dtype=acc, device=x.device)
+    if m == 0 or n == 0 or c == 0:
+        return out.zero_()
+    splits, rows = _chunk_splits(m)
+    ws = torch.empty((splits, n, c), dtype=acc, device=x.device)
+    lib, glib = _library(), gram_ops._library()
+    with torch.cuda.device(x.device):
+        st = _stream(x)
+        _check_rc(lib.repro_xtv_bs_partial(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), v.data_ptr(), m, n, c,
+            x.stride(0), v.stride(0), mask.data_ptr(), mask.shape[1], rows,
+            splits, ws.data_ptr(), st), "xtv_bs")
+        LAUNCHES["xtv_bs"] += 1
+        _check_rc(glib.repro_xtv_reduce(
+            _DTYPE_CODE[acc], ws.data_ptr(), splits, n * c, out.data_ptr(),
+            st), "xtv_bs_reduce")
+        LAUNCHES["xtv_bs_reduce"] += 1
+    return out
+
+
+def spmm_cuda(x: torch.Tensor, w: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """Y = X @ W on the card for a 2-D W, skipping masked blocks of X
+    (replaces `spmm_block_sparse`)."""
+    _check_matrix(x, "spmm")
+    _check_pair(x, w, "spmm")
+    m, k = x.shape
+    if w.shape[0] != k:
+        raise ValueError(f"spmm: inner sizes differ, {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    _check_mask(mask, m, k, x, "spmm")
+    c = w.shape[1]
+    acc = gram_ref.acc_dtype(x.dtype)
+    out = torch.empty((m, c), dtype=acc, device=x.device)
+    if m == 0 or c == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    lib = _library()
+    with torch.cuda.device(x.device):
+        _check_rc(lib.repro_spmm(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), m, k, c,
+            x.stride(0), w.stride(0), mask.data_ptr(), mask.shape[1],
+            out.data_ptr(), _stream(x)), "spmm")
+        LAUNCHES["spmm"] += 1
+    return out
+
+
+# -- dense layout + mask -----------------------------------------------------
+
+def _cuda_blocks(bm: int, bn: int, what: str) -> None:
+    if (bm, bn) != (ROWS, TILE):
+        raise ValueError(f"{what}: the CUDA kernels take {ROWS} x {TILE} "
+                         f"blocks, not {bm} x {bn}")
+
+
+def gram_dense_masked(xd: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                      bm: int = ROWS, bn: int = TILE) -> torch.Tensor:
+    """Block-masked XᵀX over a dense-layout X (mask from the dense values
+    when not given)."""
+    if mask is None:
+        mask = ref.block_mask(xd, bm, bn)
+    if xd.device.type == "cpu":
+        return ref.gram(xd, mask, bm, bn)
+    _cuda_blocks(bm, bn, "gram_bs")
+    return gram_bs_cuda(xd, mask)
+
+
+def spmm_dense_masked(xd: torch.Tensor, w: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None, bm: int = ROWS,
+                      bk: int = TILE) -> torch.Tensor:
+    """Block-masked X @ W over a dense-layout X."""
+    if mask is None:
+        mask = ref.block_mask(xd, bm, bk)
+    if xd.device.type == "cpu":
+        return ref.spmm(xd, w, mask, bm, bk)
+    _cuda_blocks(bm, bk, "spmm")
+    return spmm_cuda(xd, w, mask)
+
+
+def xtv_dense_masked(xd: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None, bm: int = ROWS,
+                     bn: int = TILE) -> torch.Tensor:
+    """Block-masked Xᵀv over a dense-layout X."""
+    if mask is None:
+        mask = ref.block_mask(xd, bm, bn)
+    if xd.device.type == "cpu":
+        return ref.xtv(xd, v, mask, bm, bn)
+    _cuda_blocks(bm, bn, "xtv_bs")
+    return xtv_bs_cuda(xd, v, mask)
+
+
+# -- BCOO entry points (the backend's bcoo-format kernels) -------------------
+
+def _operand(x: torch.Tensor, v: torch.Tensor):
+    """`v` in X's promoted dtype, 2-D (a 1-D v as one column) with
+    contiguous rows; returns (x, v, squeeze)."""
+    dt = torch.promote_types(x.dtype, v.dtype)
+    x, v = x.to(dt), v.to(dt)
+    squeeze = v.ndim == 1
+    if squeeze:
+        v = v[:, None]
+    elif v.shape[1] > 1 and v.stride(1) != 1:
+        v = v.contiguous()
+    return x, v, squeeze
+
+
+def gram_bcoo(x) -> torch.Tensor:
+    """G = XᵀX for a BCOO X."""
+    return gram_dense_masked(x.todense(), block_mask_from_indices(x))
+
+
+def xtv_bcoo(x, v: torch.Tensor) -> torch.Tensor:
+    """Xᵀv for a BCOO X and dense v; a 1-D v gives a 1-D result."""
+    xd, v, squeeze = _operand(x.todense(), v)
+    out = xtv_dense_masked(xd, v, block_mask_from_indices(x))
+    return out[:, 0] if squeeze else out
+
+
+def matmul_bcoo(a, b: torch.Tensor) -> torch.Tensor:
+    """A @ B for a BCOO A and dense B; a 1-D B gives a 1-D result."""
+    ad, b, squeeze = _operand(a.todense(), b)
+    out = spmm_dense_masked(ad, b, block_mask_from_indices(a))
+    return out[:, 0] if squeeze else out

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -47,12 +48,18 @@ import repro_torch
 from repro_torch.core import LineageRuntime, input_tensor
 from repro_torch.lifecycle import lmDS, steplm
 from repro_torch.kernels.gram import ops
+from repro_torch.kernels.spmm import ops as sops
 from repro_torch import interop
 rng = np.random.default_rng(0)
 xn = rng.normal(size=(200, 5)); yn = xn @ np.arange(1.0, 6.0)[:, None]
 beta = lmDS(input_tensor("X", xn), input_tensor("y", yn), reg=1e-9,
             runtime=LineageRuntime(device="cpu"))
 assert np.allclose(beta.ravel(), np.arange(1.0, 6.0), atol=1e-6)
+xs = xn * (rng.random(xn.shape) < 0.1)
+X = input_tensor("Xs", np.vstack([xs] * 5), sparsity=0.1)
+Y = input_tensor("ys", np.vstack([yn] * 5))
+rt = LineageRuntime(device="cpu", sparse_inputs=True)
+assert np.isfinite(lmDS(X, Y, reg=1e-3, runtime=rt)).all()
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, v in sys.modules.items() if v is not None)
 print("ok")
@@ -94,3 +101,19 @@ def test_cuda_wrappers_never_fall_back():
         ops.gram_cuda(x)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         ops.xtv_cuda(x, x[:, :1])
+    from repro_torch.core.backend import sparsify
+    from repro_torch.kernels.spmm import ops as sops
+    xs = sparsify(np.ones((4, 3)))
+    before = dict(sops.LAUNCHES)
+    assert torch.equal(sops.gram_bcoo(xs), torch.full((3, 3), 4.0,
+                                                      dtype=torch.float64))
+    assert torch.equal(sops.matmul_bcoo(xs, x[:3, :1]),
+                       torch.full((4, 1), 3.0, dtype=torch.float64))
+    assert sops.LAUNCHES == before
+    mask = sops.block_mask_from_indices(xs)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        sops.gram_bs_cuda(x, mask)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        sops.xtv_bs_cuda(x, x[:, :1], mask)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        sops.spmm_cuda(x, x[:1, :].mT, mask)
