@@ -8,8 +8,9 @@ holds every hand-written kernel against its plain PyTorch version on the
 card. One JSON line per phase:
 
   1. device        — the card (and `nvidia-smi`'s name and power limit)
-  2. build         — compile `src/repro_torch/csrc/*.cu` for sm_90a, one
-                     `nvcc` per source, all started together
+  2. build         — compile `src/repro_torch/csrc/*.cu` (gram, spmm,
+                     flash) for sm_90a, one `nvcc` per source, all started
+                     together
   3. kernel        — gram/xtv against the plain version at the path's
                      shapes in float64/float32/bfloat16, with kernel, plain,
                      library (one torch.matmul, a yardstick the port never
@@ -19,20 +20,36 @@ card. One JSON line per phase:
                      uniform and a ragged tail), bitwise against the same
                      kernel with an all-ones mask, with times and bounds
                      over the dense layout and over the populated blocks
-  5. quickstart    — the 5000 x 64 lambda sweep with a ReuseCache: reuse
+  5. flash_kernel  — the flash-attention kernel against its plain version
+                     computed in float32 from the same inputs, each entry
+                     within a bound of its own envelope, at the
+                     serving path's shapes (qwen3-0.6b and llama3.2-1b
+                     heads, ragged prompts, non-causal, float32), bitwise
+                     repeatable, with kernel, plain, library (one
+                     scaled_dot_product_attention, a yardstick the port
+                     never calls) and bound times
+  6. quickstart    — the 5000 x 64 lambda sweep with a ReuseCache: reuse
                      hits, bitwise fuse=True/fuse=False parity,
                      PreparedScript replays without rebuilds
-  6. lmds          — lmDS at the paper's 100,000 x 1,000 float64 point: the
+  7. lmds          — lmDS at the paper's 100,000 x 1,000 float64 point: the
                      plan streams X in 13 row buckets, each a gram and an
                      xtv launch; beta against numpy's float64 solve; warm
                      refits; the streaming lane's host spans and a trace
-  7. steplm        — stepwise selection at 20,000 x 32, against the CPU run
-  8. sparse_lm     — the bcoo lane (`sparse_inputs=True`) on block-sparse
+  8. steplm        — stepwise selection at 20,000 x 32, against the CPU run
+  9. sparse_lm     — the bcoo lane (`sparse_inputs=True`) on block-sparse
                      float64 data: lm -> lmDS at 100,000 x 1,000 in memory,
                      lmCG at 100,000 x 2,000 (20 iterations), lmDS streamed
                      at 400,000 x 1,000 in 13 bcoo buckets; betas against
                      numpy and the dense lane, launch counts, reuse
-  9. kernels       — the summary line of every ported kernel
+ 10. lm_serve      — the dense LM family served at qwen3-0.6b's full width
+                     (28 layers, bf16, seeded weights): `generate` for a
+                     batch of 8 2,048-token prompts and 32 greedy tokens,
+                     its own steps read for launches (one flash launch per
+                     layer in prefill, none in decode) and times;
+                     teacher-forced decode against prefill logits, kernel
+                     against plain attention and against two planted
+                     faults; tokens/s, peak memory, a traced idle share
+ 11. kernels       — the summary line of every ported kernel
 
 then the card line of `nvidia-smi` and, last, the contract line
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -41,6 +58,7 @@ result. Imports neither jax nor the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -58,6 +76,25 @@ DEVICE = "cuda"
 # bound): both sides read the same inputs and accumulate float64 in
 # float64 and float32/bfloat16 in float32, so only summation order differs
 TOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-5}
+
+# flash kernel against its plain version computed in float32 from the same
+# inputs, per entry over its envelope Σ p_j |v_j| (flash ref.scaled_err):
+# the bf16 kernel rounds p to bf16 before PV and its output to bf16, each
+# moving an entry by at most 2^-8 of its envelope, so 2^-7 bounds both;
+# 2^-16 is float32's share (score sums and exp in another order), which
+# is all the f32 kernel may differ by. tests/test_torch_flash.py holds a
+# dropped kv block and a shifted causal mask above these limits
+FLASH_TOL = {"float32": 2.0 ** -16, "bfloat16": 2.0 ** -7 + 2.0 ** -16}
+# the served model in bf16 along two sound routes (flash kernel vs the
+# plain attention; the prefill's kernel vs decode's plain attention over
+# the cache), which differ by bf16 roundings that add up over 28 layers:
+# last-position logits, max|a - b| over max|b| (SERVE_TOL), and every
+# position's final hidden state, each row over its own max (HIDDEN_TOL).
+# On an H100 the sound routes read <= 2.2 % and 4.7 %, and the planted
+# faults (a causal mask off by one; one kv block dropped from the last q
+# tile) >= 25.6 % and 38.7 %: each limit lies between the two
+SERVE_TOL = 5e-2
+HIDDEN_TOL = 1e-1
 
 # Published dense peaks (NVIDIA data sheets): FLOP/s by input dtype and
 # memory bytes/s. float64 counts the FP64 tensor-core rate; float32 the
@@ -741,6 +778,305 @@ def phase_sparse_lm(scale: int = 1) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# the dense LM family: flash attention and serving
+# ---------------------------------------------------------------------------
+
+# (name, B, Sq, Sk, Hq, Hkv, hd, causal, dtype); the first is the path's
+FLASH_CASES = [
+    ("qwen3-0.6b", 8, 2048, 2048, 16, 8, 128, True, "bfloat16"),
+    ("llama3.2-1b", 8, 2048, 2048, 32, 8, 64, True, "bfloat16"),
+    ("ragged-1000", 8, 1000, 1000, 16, 8, 128, True, "bfloat16"),
+    ("ragged-17", 8, 17, 17, 16, 8, 128, True, "bfloat16"),
+    ("non-causal", 8, 2048, 1024, 16, 8, 128, False, "bfloat16"),
+    ("qwen3-0.6b-f32", 8, 2048, 2048, 16, 8, 128, True, "float32"),
+]
+
+
+def flash_bound(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
+                causal: bool, dtype: str, peaks: dict) -> tuple[float, str]:
+    """Least time for one attention call: the visible (q, k) pairs each
+    take 2·hd operations for QKᵀ and 2·hd for PV; q, k, v read once and
+    the output written once."""
+    size = {"float32": 4, "bfloat16": 2}[dtype]
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    ops = 4.0 * hd * pairs * B * Hq
+    nbytes = (2 * B * Sq * Hq * hd + 2 * B * Sk * Hkv * hd) * size
+    t_ops, t_bytes = ops / peaks[dtype], nbytes / peaks["bw"]
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_flash_kernels(peaks: dict, cases=FLASH_CASES) -> dict:
+    """The flash kernel against its plain version at the serving path's
+    shapes; returns the path's row (the first case)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    main = None
+    for name, B, Sq, Sk, Hq, Hkv, hd, causal, dtype in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE
+                               ).to(dt[dtype])
+                   for shape in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd),
+                                 (B, Sk, Hkv, hd)))
+        saved = dict(ops.LAUNCHES)  # these launches are not the path's
+        got = ops.flash_attention_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = ref.attention(q.float(), k.float(), v.float(), causal=causal)
+        err = (got.float() - want).abs().max().item()
+        scaled = ref.scaled_err(got, want, q, k, v, causal=causal)
+        del want
+        checks = dict(
+            tol=scaled <= FLASH_TOL[dtype],
+            finite=bool(torch.isfinite(got).all().item()),
+            repeat_bitwise=torch.equal(
+                got, ops.flash_attention_cuda(q, k, v, causal=causal)))
+        kern = lambda: ops.flash_attention_cuda(q, k, v, causal=causal)
+        ms = cuda_ms(kern)
+        _, _, dev_s, _ = device_trace(lambda: [kern() for _ in range(10)])
+        ops.LAUNCHES.update(saved)
+        plain_ms = cuda_ms(lambda: ref.attention(q, k, v, causal=causal),
+                           iters=5)
+        # the yardstick: one library call on (B, H, S, hd) copies
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        del qt, kt, vt
+        bms, by = flash_bound(B, Sq, Sk, Hq, Hkv, hd, causal, dtype, peaks)
+        row = dict(phase="flash_kernel", case=name, B=B, Sq=Sq, Sk=Sk, Hq=Hq,
+                   Hkv=Hkv, hd=hd, causal=causal, dtype=dtype,
+                   max_abs_err=err, scaled_err=scaled,
+                   tol=FLASH_TOL[dtype], checks=checks,
+                   ok=all(checks.values()), ms=ms,
+                   device_ms=None if dev_s is None else 100 * dev_s,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+                   bound_by=by)
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"flash {name} failed its checks: {row}")
+        if main is None:
+            main = row
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return main
+
+
+@contextlib.contextmanager
+def _probed_steps():
+    """Wrap the step functions `launch.serve.generate` makes, so each of
+    its own steps notes the flash launches it made and CUDA events around
+    it; yields the list of (kind, launches, start event, end event)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import serve
+    makers = serve.make_prefill_step, serve.make_decode_step
+    log = []
+
+    def probe(kind, step):
+        def run(*args):
+            n0 = fops.LAUNCHES["flash"]
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(*args)
+            e1.record()
+            log.append((kind, fops.LAUNCHES["flash"] - n0, e0, e1))
+            return out
+        return run
+
+    serve.make_prefill_step = \
+        lambda *a, **kw: probe("prefill", makers[0](*a, **kw))
+    serve.make_decode_step = \
+        lambda *a, **kw: probe("decode", makers[1](*a, **kw))
+    try:
+        yield log
+    finally:
+        serve.make_prefill_step, serve.make_decode_step = makers
+
+
+@contextlib.contextmanager
+def _prefill_attention(fn):
+    """Prefill attention computed by `fn(q, k, v)` inside the block: the
+    plain route and the planted faults the kernel route is held against
+    (the port has no option for this; decode is untouched)."""
+    from repro_torch.models import attention as attn_mod
+    core = attn_mod.attention_core
+    attn_mod.attention_core = lambda q, k, v, **_: fn(q, k, v)
+    try:
+        yield
+    finally:
+        attn_mod.attention_core = core
+
+
+def _masked_attention(mask_of):
+    """Plain attention (the reference's formula) under the (Sq, Sk) mask
+    `mask_of(S, device)` in place of the causal one."""
+    import torch
+
+    def attend(q, k, v):
+        B, S, Hq, hd = q.shape
+        Hkv = k.shape[2]
+        qg = q.reshape(B, S, Hkv, Hq // Hkv, hd) * float(hd ** -0.5)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
+        s = torch.where(mask_of(S, q.device), s, -1e30)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bhgqk,bkhd->bqhgd", p, v).reshape(B, S, Hq, hd)
+    return attend
+
+
+def _shifted_mask(S, device):
+    """Off by one: each query also sees the next key."""
+    import torch
+    pos = torch.arange(S, device=device)
+    return pos[:, None] + 1 >= pos[None, :]
+
+
+def _late_block_dropped(S, device):
+    """Causal, but the last 64 queries miss the 64 keys from S/2 on: one kv
+    block of the kernel's last q tile."""
+    import torch
+    pos = torch.arange(S, device=device)
+    lost = ((pos[:, None] >= S - 64) & (pos[None, :] >= S // 2)
+            & (pos[None, :] < S // 2 + 64))
+    return (pos[:, None] >= pos[None, :]) & ~lost
+
+
+def phase_lm_serve(peaks: dict, cfg=None, batch: int = 8, prompt: int = 2048,
+                   new: int = 32) -> dict:
+    """The dense LM family served at qwen3-0.6b's full width (`cfg` and the
+    sizes may be cut for a rehearsal). Returns the flash launches of the
+    main path, by step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import ref_attention
+    cfg = cfg or get_config("qwen3-0.6b")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    max_len = prompt + new
+    generate(model, prompts[:, :64], max_new=2, max_len=66)  # warm cuBLAS
+
+    # the main path: counts set to 0 just before, read just after; its own
+    # steps note their launches and times
+    with _probed_steps() as steps:
+        fops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model, prompts, max_new=new, max_len=max_len)
+        wall = time.perf_counter() - t0
+        launches = fops.LAUNCHES["flash"]
+    peak_bytes = torch.cuda.max_memory_allocated()
+    prefills = [st for st in steps if st[0] == "prefill"]
+    decodes = [st for st in steps if st[0] == "decode"]
+    prefill_launches = sum(st[1] for st in prefills)
+    decode_launches = sum(st[1] for st in decodes)
+    prefill_ms = prefills[0][2].elapsed_time(prefills[0][3])
+    decode_ms = decodes[0][2].elapsed_time(decodes[-1][3]) / len(decodes)
+
+    # teacher-forced decode against a full prefill (the reference's
+    # test_decode_matches_prefill, at full width and in bf16)
+    tokens = torch.from_numpy(prompts).to(dev)
+    n0 = prompt - 16
+    full, _ = model.prefill(tokens, max_len=prompt)
+    tf, cache = model.prefill(tokens[:, :n0], max_len=prompt)
+    for t in range(n0, prompt):
+        tf, cache = model.decode_step(tokens[:, t:t + 1], cache, t)
+    del cache
+    finite = bool(torch.isfinite(full).all().item())
+    scale = full.float().abs().max().item()
+    tf_err = (tf.float() - full.float()).abs().max().item() / scale
+    del tf
+
+    # the kernel route against the plain attention on the card, and against
+    # planted faults: last-position logits over max|logit|, and the final
+    # hidden state of every position, each row over its own max
+    h_kernel = model(tokens)[0]
+
+    def route(fn):
+        with _prefill_attention(fn):
+            h = model(tokens)[0]
+            logits, _ = model.prefill(tokens, max_len=prompt)
+        row_err = ((h.float() - h_kernel.float()).abs().amax(-1)
+                   / h_kernel.float().abs().amax(-1).clamp_min(1e-30))
+        return dict(
+            logits_rel_err=(logits.float() - full.float()).abs().max().item()
+            / scale,
+            hidden_rel_err=row_err.max().item(),
+            argmax_agree=float((logits.argmax(-1) == full.argmax(-1))
+                               .float().mean().item()))
+    plain = route(lambda q, k, v: ref_attention(q, k, v, causal=True))
+    controls = {name: route(_masked_attention(mask)) for name, mask in
+                (("mask_shifted", _shifted_mask),
+                 ("late_block_dropped", _late_block_dropped))}
+    del full, h_kernel
+    torch.cuda.empty_cache()
+    fops.reset_launches()
+
+    # the card's busy and idle share over the main path once more, traced
+    _, trace_wall, busy, by_name = device_trace(
+        lambda: generate(model, prompts, max_new=new, max_len=max_len))
+    fops.reset_launches()
+
+    # least times: every weight read once per step (bf16) plus the KV
+    # cache; prefill's products at the bf16 peak
+    D, L = cfg.d_model, cfg.n_layers
+    per_layer = (cfg.param_counts()["attn_per_layer"]
+                 + cfg.param_counts()["mlp_per_layer"])
+    kv_bytes = 2 * L * batch * max_len * cfg.kv_heads * cfg.head_dim * 2
+    decode_bound_ms = 1e3 * ((per_layer * L + D * cfg.vocab_size) * 2
+                             + kv_bytes) / peaks["bw"]
+    attn_ops = 4.0 * cfg.head_dim * cfg.n_heads * batch * L \
+        * prompt * (prompt + 1) / 2
+    prefill_bound_ms = 1e3 * (2.0 * per_layer * L * batch * prompt
+                              + attn_ops + 2.0 * D * cfg.vocab_size * batch
+                              ) / peaks["bfloat16"]
+    row = dict(phase="lm_serve", arch=cfg.name, n_params=model.n_params(),
+               dtype=cfg.dtype, batch=batch, prompt=prompt, new_tokens=new,
+               max_len=max_len, init_s=init_s, generate_wall_s=wall,
+               tokens_per_s=batch * new / wall,
+               flash_launches=dict(generate=launches,
+                                   prefill=prefill_launches,
+                                   decode=decode_launches),
+               steps=dict(prefill=len(prefills), decode=len(decodes)),
+               prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound_ms,
+               decode_ms_per_token=decode_ms,
+               decode_bound_ms=decode_bound_ms,
+               peak_memory_gb=peak_bytes / 1e9, logits_finite=finite,
+               tokens_in_vocab=bool(0 <= toks.min()
+                                    and toks.max() < cfg.vocab_size),
+               teacher_forced_rel_err=tf_err, kernel_vs_plain=plain,
+               planted_faults=controls, tol=SERVE_TOL,
+               hidden_tol=HIDDEN_TOL,
+               traced=_traced(trace_wall, busy, by_name))
+    emit(row)
+    caught = all(c["logits_rel_err"] > SERVE_TOL
+                 and c["hidden_rel_err"] > HIDDEN_TOL
+                 for c in controls.values())
+    if not (launches == prefill_launches == L and decode_launches == 0
+            and len(prefills) == 1 and len(decodes) == new - 1
+            and finite and row["tokens_in_vocab"]
+            and toks.shape == (batch, new) and tf_err <= SERVE_TOL
+            and plain["logits_rel_err"] <= SERVE_TOL
+            and plain["hidden_rel_err"] <= HIDDEN_TOL and caught):
+        raise AssertionError(f"lm_serve failed: {row}")
+    del model
+    torch.cuda.empty_cache()
+    return row["flash_launches"]
+
+
 def _traced(wall: float, busy, by_name: dict) -> dict:
     return dict(wall_s=wall, device_busy_s=busy,
                 idle_share=None if busy is None else 1 - busy / wall,
@@ -765,7 +1101,7 @@ def main() -> int:
               torch=torch.__version__, cuda=torch.version.cuda))
 
     t0 = time.perf_counter()
-    sources = ("gram", "spmm")
+    sources = ("gram", "spmm", "flash")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         built = dict(zip(sources, pool.map(build.build, sources)))
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
@@ -777,10 +1113,12 @@ def main() -> int:
 
     main_rows = phase_kernels(peaks)
     sparse_rows = phase_sparse_kernels(peaks)
+    flash_row = phase_flash_kernels(peaks)
     phase_quickstart()
     launches = phase_lmds()
     phase_steplm()
     sparse_launches = phase_sparse_lm()
+    serve_launches = phase_lm_serve(peaks)
 
     kernels = []
     for kind, line in (("gram", 49), ("xtv", 83)):
@@ -807,6 +1145,16 @@ def main() -> int:
             device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             bound_dense_ms=r["bound_dense_ms"], library_ms=r["library_ms"]))
+    r = flash_row
+    kernels.append(dict(
+        name="flash", route="cuda", source="src/repro_torch/csrc/flash.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:83",
+        launches=serve_launches["generate"],
+        launches_by_path=dict(lm_serve_prefill=serve_launches["prefill"],
+                              lm_serve_decode=serve_launches["decode"]),
+        max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"]))
     emit(dict(kernels=kernels))
     print(smi, flush=True)
     emit(dict(ok=True, device=dict(platform="gpu", kind=name,

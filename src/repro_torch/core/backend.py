@@ -204,7 +204,17 @@ def to_numpy(x) -> np.ndarray:
         return np.asarray(x)
     t = x.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
-        import ml_dtypes  # numpy's bfloat16, only needed for bf16 results
+        # numpy has no bfloat16 of its own: a bf16 result comes back as
+        # `ml_dtypes.bfloat16` (the reference's type) where that package
+        # is installed, and raises where it is not. Nothing else of the
+        # port needs it: the serving path returns int tokens.
+        try:
+            import ml_dtypes
+        except ImportError as e:
+            raise RuntimeError(
+                "to_numpy: a bfloat16 result needs the `ml_dtypes` package "
+                "for numpy's bfloat16, and it is not installed; cast the "
+                "value to float32 first") from e
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
 

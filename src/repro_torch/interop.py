@@ -5,10 +5,12 @@ The lifecycle path has no learned weights: its state is the bound data
 arrays a caller binds to `repro` into tensors for `repro_torch`, so the
 tests and `chip_smoke.py` feed both packages the same bytes;
 `bcoo_from_reference` carries a reference BCOO (its numpy buffers) over.
+`params_from_reference` turns the reference's LM parameter pytree into
+the state dict of the port's `Model`.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -36,3 +38,35 @@ def bcoo_from_reference(data: np.ndarray, indices: np.ndarray, shape,
                 to_device(np.asarray(indices), dev), shape,
                 indices_sorted=indices_sorted,
                 unique_indices=unique_indices)
+
+
+def params_from_reference(params: Mapping[str, Any], cfg,
+                          device) -> dict[str, torch.Tensor]:
+    """The state dict of `repro_torch.models.Model(cfg)` holding the
+    values of the reference's `Model.init` pytree `params` (nested dicts
+    of numpy arrays, `periods` stacked on axis 0 under keys "{i}:{kind}",
+    weights laid out (d_in, d_out), which the port keeps). The float32
+    values are copied exactly; `load_state_dict` casts each to its
+    parameter's dtype, the reference's `astype(cfg.dtype)`."""
+    flat = dict(_flatten({k: v for k, v in params.items()
+                          if k != "periods"}))
+    n = cfg.n_periods()
+    for key, stacked in _flatten(params["periods"]):
+        if stacked.shape[0] != n:
+            raise ValueError(f"periods.{key}: {stacked.shape[0]} stacked "
+                             f"periods, expected {n}")
+        for i in range(n):
+            flat[f"periods.{i}.{key}"] = stacked[i]
+    dev = torch.device(device)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+            for k, v in flat.items()}
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = ""):
+    """(dotted path, leaf) pairs of a nested dict."""
+    for key, sub in tree.items():
+        path = f"{prefix}.{key}" if prefix else key
+        if isinstance(sub, Mapping):
+            yield from _flatten(sub, path)
+        else:
+            yield path, np.asarray(sub)

@@ -71,6 +71,63 @@ print("ok")
     assert res.stdout.strip() == "ok"
 
 
+def test_serves_reduced_qwen3_with_jax_and_ml_dtypes_blocked():
+    """The LM path builds and generates on the CPU with jax, `repro` and
+    `ml_dtypes` unimportable; a bfloat16 `to_numpy` then raises a clear
+    RuntimeError naming the missing package."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.modules["ml_dtypes"] = None
+import numpy as np
+import torch
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.launch.serve import generate
+from repro_torch.core.backend import to_numpy
+cfg = get_config("qwen3-0.6b").reduced().with_(dtype="bfloat16")
+model = build_model(cfg, device="cpu").init(seed=0)
+prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12))
+toks = generate(model, prompts, max_new=4, max_len=16)
+assert toks.shape == (2, 4) and toks.dtype == np.int32
+assert 0 <= toks.min() and toks.max() < cfg.vocab_size
+try:
+    to_numpy(torch.ones(2, dtype=torch.bfloat16))
+except RuntimeError as e:
+    assert "ml_dtypes" in str(e)
+else:
+    raise AssertionError("to_numpy returned a bfloat16 array")
+assert not any(m in ("jax", "ml_dtypes") or m.startswith(
+    ("jax.", "repro.", "ml_dtypes.")) for m, v in sys.modules.items()
+    if v is not None)
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_to_numpy_keeps_bfloat16_where_ml_dtypes_is_installed():
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    from repro_torch.core.backend import to_numpy
+    got = to_numpy(torch.tensor([1.5, -2.0], dtype=torch.bfloat16))
+    assert got.dtype == ml_dtypes.bfloat16
+    assert got.astype(np.float32).tolist() == [1.5, -2.0]
+
+
+def test_flash_wrapper_never_falls_back():
+    from repro_torch.kernels.flash_attention import ops as fops
+    q = torch.zeros(1, 4, 2, 32)
+    before = dict(fops.LAUNCHES)
+    assert fops.flash_attention(q, q, q).shape == q.shape
+    assert fops.LAUNCHES == before
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        fops.flash_attention_cuda(q, q, q)
+
+
 def test_default_device_is_cuda():
     from repro_torch.core import LineageRuntime, runtime
     if torch.cuda.is_available():

@@ -1,0 +1,200 @@
+"""The port's dense LM family against the reference's.
+
+For each dense config's `reduced()` (qwen3-0.6b with qk_norm, llama3.2-1b
+and -3b, phi3-medium-14b, lm-100m): the reference's `Model.init(
+PRNGKey(0))` parameters carried over with `params_from_reference`, then
+the same seeded numpy tokens through both packages on the CPU. Prefill
+runs at S ≤ attn_chunk (the "ref" attention path in both) and at
+S > attn_chunk ("chunked" in both); logits and K/V caches agree within
+rtol/atol 1e-4 in float32 (the same operations in another summation
+order; observed ≤ 2e-5). Decode is compared step by step, greedy
+`generate` token for token, and one bfloat16 case within the bfloat16
+tolerance of `tests/test_kernels.py` (2e-2). The port's own mirror of
+`tests/test_models.py::test_decode_matches_prefill` keeps its 5e-3.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.interop import params_from_reference
+from repro_torch.launch.serve import generate
+from repro_torch.models import build_model
+
+DENSE = ["qwen3_0_6b", "llama3_2_1b", "llama3_2_3b", "phi3_medium_14b",
+         "lm_100m"]
+MODEL_ARCHS = [a for a in ARCHS if a != "paper_hpo"]
+TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+
+
+def _pair(arch, dtype=None):
+    """(reference model, its params, the port's model on the CPU holding
+    the same values), for the reduced config."""
+    from repro.configs import get_config as ref_config
+    from repro.models import build_model as ref_build
+    rcfg, cfg = ref_config(arch).reduced(), get_config(arch).reduced()
+    if dtype:
+        rcfg, cfg = rcfg.with_(dtype=dtype), cfg.with_(dtype=dtype)
+    ref = ref_build(rcfg)
+    params = ref.init(jax.random.PRNGKey(0))
+    port = build_model(cfg, device="cpu")
+    port.load_state_dict(params_from_reference(
+        jax.tree_util.tree_map(np.asarray, params), cfg, "cpu"))
+    return ref, params, port
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def pair(request):
+    return _pair(request.param)
+
+
+def _tokens(seed, cfg, batch, seq):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+
+
+def _caches(caches):
+    return [np.asarray(t, np.float32) for t in caches["periods"]["0:attn"]]
+
+
+def _port_caches(caches):
+    return [t.float().numpy() for t in caches["periods"]["0:attn"]]
+
+
+@pytest.mark.parametrize("seq", [32, 128])  # ≤ and > attn_chunk (64)
+def test_prefill_matches_reference(pair, seq):
+    ref, params, port = pair
+    toks = _tokens(1, port.cfg, 2, seq)
+    want, wcache = ref.prefill(params, jnp.asarray(toks), max_len=seq + 8)
+    got, gcache = port.prefill(torch.from_numpy(toks), max_len=seq + 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for g, w in zip(_port_caches(gcache), _caches(wcache)):
+        assert g.shape == w.shape == (port.cfg.n_layers, 2, seq + 8,
+                                      port.cfg.kv_heads, port.cfg.head_dim)
+        np.testing.assert_allclose(g, w, **TOL)
+
+
+def test_decode_steps_match_reference(pair):
+    ref, params, port = pair
+    toks = _tokens(2, port.cfg, 2, 32)
+    n0 = 24
+    want, wcache = ref.prefill(params, jnp.asarray(toks[:, :n0]), max_len=32)
+    got, gcache = port.prefill(torch.from_numpy(toks[:, :n0]), max_len=32)
+    step = jax.jit(ref.decode_step)
+    for t in range(n0, n0 + 8):
+        nxt = toks[:, t:t + 1]
+        want, wcache = step(params, jnp.asarray(nxt), wcache, jnp.int32(t))
+        got, gcache = port.decode_step(torch.from_numpy(nxt), gcache, t)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for g, w in zip(_port_caches(gcache), _caches(wcache)):
+        np.testing.assert_allclose(g, w, **TOL)
+
+
+def test_greedy_generate_matches_reference(pair):
+    from repro.launch.serve import generate as ref_generate
+    ref, params, port = pair
+    prompts = _tokens(3, port.cfg, 2, 16)
+    want = ref_generate(ref, params, prompts, max_new=8, max_len=24)
+    got = generate(port, prompts, max_new=8, max_len=24)
+    assert got.dtype == np.int32 and got.shape == (2, 8)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_prefill(arch):
+    """Teacher-forced decode reproduces prefill logits (the port's mirror
+    of the reference's test of the same name, same tolerance)."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device="cpu").init(seed=0)
+    toks = torch.from_numpy(_tokens(0, cfg, 2, 24))
+    n0, total = 16, 24
+    full, _ = model.prefill(toks, max_len=total)
+    logits, caches = model.prefill(toks[:, :n0], max_len=total)
+    for t in range(n0, total):
+        logits, caches = model.decode_step(toks[:, t:t + 1], caches, t)
+    np.testing.assert_allclose(logits.numpy(), full.numpy(), rtol=5e-3,
+                               atol=5e-3)
+
+
+def test_bfloat16_prefill_and_decode_match_reference():
+    ref, params, port = _pair("qwen3_0_6b", dtype="bfloat16")
+    assert port.embed.tok.dtype == torch.bfloat16
+    assert port.final_norm.scale.dtype == torch.float32
+    toks = _tokens(4, port.cfg, 2, 40)
+    want, wcache = ref.prefill(params, jnp.asarray(toks[:, :32]), max_len=40)
+    got, gcache = port.prefill(torch.from_numpy(toks[:, :32]), max_len=40)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16_TOL)
+    step = jax.jit(ref.decode_step)
+    for t in range(32, 36):
+        nxt = toks[:, t:t + 1]
+        want, wcache = step(params, jnp.asarray(nxt), wcache, jnp.int32(t))
+        got, gcache = port.decode_step(torch.from_numpy(nxt), gcache, t)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **BF16_TOL)
+
+
+def test_temperature_sampling_is_seeded():
+    cfg = get_config("qwen3-0.6b").reduced()
+    model = build_model(cfg, device="cpu").init(seed=1)
+    prompts = _tokens(5, cfg, 3, 8)
+    a = generate(model, prompts, max_new=6, max_len=14, temperature=0.8,
+                 seed=7)
+    b = generate(model, prompts, max_new=6, max_len=14, temperature=0.8,
+                 generator=torch.Generator().manual_seed(7))
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (3, 6) and a.min() >= 0 and a.max() < cfg.vocab_size
+
+
+# ---------------------------------------------------------------------------
+# configs and parameter counts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_configs_and_counts_match_reference(arch):
+    from repro.configs import get_config as ref_config
+    from repro.models import build_model as ref_build
+    cfg, rcfg = get_config(arch), ref_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
+    assert dataclasses.asdict(cfg.reduced()) == \
+        dataclasses.asdict(rcfg.reduced())
+    assert cfg.param_counts() == rcfg.param_counts()
+    assert cfg.total_params() == rcfg.total_params()
+    assert cfg.active_params() == rcfg.active_params()
+    if cfg.family != "dense":
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            build_model(cfg, device="meta")
+        return
+    # the reference's n_params counts the norm scales, which
+    # total_params leaves out: two per layer, the final norm, and the
+    # q/k norms of qk_norm
+    n = build_model(cfg, device="meta").n_params()
+    scales = cfg.n_layers * (2 * cfg.d_model
+                             + (2 * cfg.head_dim if cfg.qk_norm else 0))
+    assert n == ref_build(rcfg).n_params() == \
+        cfg.total_params() + scales + cfg.d_model
+
+
+def test_aliases_resolve_like_the_reference():
+    from repro.configs import _ALIAS as ref_alias
+    from repro_torch.configs import _ALIAS
+    assert _ALIAS == ref_alias
+    for alias, name in _ALIAS.items():
+        assert get_config(alias) is get_config(name)
+
+
+def test_build_model_needs_a_gpu_unless_asked_for_the_cpu():
+    cfg = get_config("qwen3-0.6b").reduced()
+    if torch.cuda.is_available():
+        assert build_model(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_model(cfg)
+    assert build_model(cfg, device="cpu").device == torch.device("cpu")
