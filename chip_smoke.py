@@ -9,8 +9,8 @@ card. One JSON line per phase:
 
   1. device        — the card (and `nvidia-smi`'s name and power limit)
   2. build         — compile `src/repro_torch/csrc/*.cu` (gram, spmm,
-                     flash) for sm_90a, one `nvcc` per source, all started
-                     together
+                     flash, wkv6) for sm_90a, one `nvcc` per source, all
+                     started together
   3. kernel        — gram/xtv against the plain version at the path's
                      shapes in float64/float32/bfloat16, with kernel, plain,
                      library (one torch.matmul, a yardstick the port never
@@ -49,7 +49,27 @@ card. One JSON line per phase:
                      teacher-forced decode against prefill logits, kernel
                      against plain attention and against two planted
                      faults; tokens/s, peak memory, a traced idle share
- 11. kernels       — the summary line of every ported kernel
+ 11. wkv6_kernel   — the WKV6 kernel against its plain version
+                     (wkv_chunked) computed in float32 from the same
+                     inputs, each y and state entry within a bound of its
+                     own envelope: rwkv6-3b's prefill shape (B 8, S 2,048,
+                     40 heads of 64, chunk 128) in bf16 and float32, ragged
+                     S 1,000 and 17, dh 32, extreme (≡ -5) and slow
+                     (~-1e-4) decay, a nonzero initial state; bitwise
+                     repeatable; kernel, plain and bound times (no single
+                     PyTorch call computes WKV6: no library time)
+ 12. rwkv_serve    — the ssm family served at rwkv6-3b's full width and
+                     depth (32 layers, bf16, seeded weights), the same
+                     traffic as lm_serve: 32 wkv6 launches in prefill, none
+                     in decode; each layer's kernel call on its served
+                     inputs against the plain WKV, and the routes' split
+                     layer by layer against a kernel-free float64 route;
+                     teacher-forced decode from the kernel's final state,
+                     kernel against plain WKV and against two planted
+                     faults (the state zeroed 4 positions before the end,
+                     the decay off by one position); tokens/s, peak
+                     memory, a traced idle share
+ 13. kernels       — the summary line of every ported kernel
 
 then the card line of `nvidia-smi` and, last, the contract line
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -59,6 +79,7 @@ result. Imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -95,6 +116,39 @@ FLASH_TOL = {"float32": 2.0 ** -16, "bfloat16": 2.0 ** -7 + 2.0 ** -16}
 # tile) >= 25.6 % and 38.7 %: each limit lies between the two
 SERVE_TOL = 5e-2
 HIDDEN_TOL = 1e-1
+# WKV6 kernel against its plain version (wkv_chunked) computed in float32
+# from the same inputs, per y and state entry over its envelope (the same
+# recurrence on |r|, |k|, |v|, |u|, |state|; rwkv6 ref.scaled_err): both
+# compute in float32, so float32 differs in summation order and in the
+# rounding of the cumulative log-decays only (a chunked float32 sum reads
+# <= 2.1e-5 against a float64 scan on the CPU); a bf16 kernel also rounds
+# y to bf16, at most 2^-8 of its envelope. tests/test_torch_rwkv6.py holds
+# a dropped sub-block pair, a decay off by one step and a state not
+# carried across chunks >= 10x above these limits
+WKV6_TOL = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -8 + 2.0 ** -12}
+# rwkv6-3b's seeded weights checked in float32 along two sound routes (the
+# WKV kernel vs the plain wkv_chunked; decode's wkv_step from the kernel's
+# final state vs a full prefill): last-position logits over max|logit|
+# (RWKV_SERVE_TOL) and every position's final hidden state, each row over
+# its own max (RWKV_HIDDEN_TOL). The seeded model amplifies the rounding
+# of y's row 0 (position 0, the bonus term alone) with depth: layer by
+# layer on an H100, a kernel-free route (the per-step oracle in float64)
+# splits from the plain route's residual stream from 5.1e-6 after layer 1
+# to 0.195 after layer 32, and as far with only its row 0 swapped in,
+# while the kernel route with the plain version's row 0 reaches 5.9e-4
+# (0.387 without). So the hidden rows are held with row 0 pinned to the
+# plain version on every route compared (each layer's kernel call holds
+# row 0 within WKV6_TOL). Both limits lie between the sound route (1.6e-4
+# on the logits, 5.9e-4 on the hidden rows) and the planted faults (the
+# decay off by one 0.87 / 1.37, the state zeroed 4 positions before the
+# end 1.36 / 1.68), on an H100; bf16 amplifies every row
+# (0.42 between two kernel-free chunkings), so its end-to-end routes are
+# recorded, not held. After the first layer, before depth amplifies, the
+# kernel route's split must stay within RWKV_FIRST_LAYER_RATIO of the
+# kernel-free route's (1.45 float32 / 0.99 bf16)
+RWKV_SERVE_TOL = 1e-2
+RWKV_HIDDEN_TOL = 1e-2
+RWKV_FIRST_LAYER_RATIO = 4.0
 
 # Published dense peaks (NVIDIA data sheets): FLOP/s by input dtype and
 # memory bytes/s. float64 counts the FP64 tensor-core rate; float32 the
@@ -864,25 +918,27 @@ def phase_flash_kernels(peaks: dict, cases=FLASH_CASES) -> dict:
 
 
 @contextlib.contextmanager
-def _probed_steps():
+def _probed_steps(launches=None, key: str = "flash"):
     """Wrap the step functions `launch.serve.generate` makes, so each of
-    its own steps notes the flash launches it made and CUDA events around
-    it; yields the list of (kind, launches, start event, end event)."""
+    its own steps notes the launches it made of kernel `key` (counted in
+    the dict `launches`, flash's by default) and CUDA events around it;
+    yields the list of (kind, launches, start event, end event)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.launch import serve
+    launches = fops.LAUNCHES if launches is None else launches
     makers = serve.make_prefill_step, serve.make_decode_step
     log = []
 
     def probe(kind, step):
         def run(*args):
-            n0 = fops.LAUNCHES["flash"]
+            n0 = launches[key]
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             out = step(*args)
             e1.record()
-            log.append((kind, fops.LAUNCHES["flash"] - n0, e0, e1))
+            log.append((kind, launches[key] - n0, e0, e1))
             return out
         return run
 
@@ -1067,7 +1123,7 @@ def phase_lm_serve(peaks: dict, cfg=None, batch: int = 8, prompt: int = 2048,
                  for c in controls.values())
     if not (launches == prefill_launches == L and decode_launches == 0
             and len(prefills) == 1 and len(decodes) == new - 1
-            and finite and row["tokens_in_vocab"]
+            and row["logits_finite"] and row["tokens_in_vocab"]
             and toks.shape == (batch, new) and tf_err <= SERVE_TOL
             and plain["logits_rel_err"] <= SERVE_TOL
             and plain["hidden_rel_err"] <= HIDDEN_TOL and caught):
@@ -1075,6 +1131,465 @@ def phase_lm_serve(peaks: dict, cfg=None, batch: int = 8, prompt: int = 2048,
     del model
     torch.cuda.empty_cache()
     return row["flash_launches"]
+
+
+# ---------------------------------------------------------------------------
+# the ssm family: the WKV6 kernel and RWKV-6 serving
+# ---------------------------------------------------------------------------
+
+# (name, B, S, H, dh, chunk, dtype, decay, state scale); the first is the
+# path's (rwkv6-3b prefill: 40 heads of 64, chunk 128)
+WKV6_CASES = [
+    ("rwkv6-3b", 8, 2048, 40, 64, 128, "bfloat16", "mixed", 0.0),
+    ("rwkv6-3b-f32", 8, 2048, 40, 64, 128, "float32", "mixed", 0.0),
+    ("ragged-1000", 8, 1000, 40, 64, 128, "bfloat16", "mixed", 0.0),
+    ("ragged-17", 8, 17, 40, 64, 128, "bfloat16", "mixed", 0.0),
+    ("dh-32", 8, 2048, 4, 32, 16, "bfloat16", "mixed", 0.0),
+    ("extreme-decay", 2, 2048, 8, 64, 128, "float32", "extreme", 0.0),
+    ("slow-decay", 2, 2048, 8, 64, 128, "float32", "slow", 0.0),
+    ("initial-state", 8, 2048, 40, 64, 128, "bfloat16", "mixed", 0.1),
+]
+
+
+def wkv6_bound(B: int, S: int, H: int, dh: int, dtype: str, peaks: dict
+               ) -> tuple[float, str]:
+    """Least time for one WKV6 call, from the least work the recurrence
+    needs, whatever the algorithm: per row and (b, h), y = rᵀS (2·dh²
+    operations) and S = w ⊙ S + k vᵀ (3·dh²), in float32; r, k, v read and
+    y written once in `dtype`, logw, u and the state in and out in
+    float32."""
+    size = {"float32": 4, "bfloat16": 2}[dtype]
+    ops = 5.0 * dh * dh * B * S * H
+    nbytes = (4 * size + 4) * B * S * H * dh + 4 * H * dh \
+        + 2 * 4 * B * H * dh * dh
+    t_ops, t_bytes = ops / peaks["float32"], nbytes / peaks["bw"]
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _wkv6_inputs(gen, B, S, H, dh, dtype, decay, state_scale):
+    """r, k, v in `dtype` and logw, u, state in float32, on the card: logw
+    as in the reference's kernel test (clip(-exp(1.5 N), -5, -1e-4)), ≡ -5
+    (its extreme-decay test), or near -1e-4 (the state carries across
+    every chunk)."""
+    import torch
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    r, k, v = (torch.randn((B, S, H, dh), generator=gen, device=DEVICE)
+               .to(dt) for _ in range(3))
+    n = torch.randn((B, S, H, dh), generator=gen, device=DEVICE)
+    if decay == "extreme":
+        logw = torch.full_like(n, -5.0)
+    elif decay == "slow":
+        logw = (-1e-4 * torch.exp(0.5 * n)).clamp(-5.0, -1e-4)
+    else:
+        logw = (-torch.exp(1.5 * n)).clamp(-5.0, -1e-4)
+    u = torch.randn((H, dh), generator=gen, device=DEVICE) * 0.1
+    state = torch.randn((B, H, dh, dh), generator=gen,
+                        device=DEVICE) * state_scale
+    return r, k, v, logw, u, state
+
+
+def phase_wkv6_kernels(peaks: dict, cases=WKV6_CASES) -> dict:
+    """The WKV6 kernel against its plain version (wkv_chunked) computed in
+    float32 from the same inputs, each y and state entry within WKV6_TOL of
+    its own envelope; returns the path's row (the first case)."""
+    import torch
+    from repro_torch.kernels.rwkv6 import ops, ref
+    from repro_torch.kernels.rwkv6.ref import wkv_chunked
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    main = None
+    for name, B, S, H, dh, chunk, dtype, decay, s0 in cases:
+        args = _wkv6_inputs(gen, B, S, H, dh, dtype, decay, s0)
+        saved = dict(ops.LAUNCHES)  # these launches are not the path's
+        got = ops.wkv6_cuda(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        f32 = [a.float() for a in args]
+        want = wkv_chunked(*f32, chunk)
+        err = max((g.float() - w).abs().max().item()
+                  for g, w in zip(got, want))
+        scaled = ref.scaled_err(got, want, *f32, chunk=chunk)
+        del want, f32
+        again = ops.wkv6_cuda(*args, chunk=chunk)
+        checks = dict(
+            tol=scaled <= WKV6_TOL[dtype],
+            finite=all(bool(torch.isfinite(t).all().item()) for t in got),
+            repeat_bitwise=all(torch.equal(a, b) for a, b in zip(got, again)))
+        del again
+        kern = lambda: ops.wkv6_cuda(*args, chunk=chunk)
+        ms = cuda_ms(kern, iters=10)
+        _, _, dev_s, _ = device_trace(lambda: [kern() for _ in range(10)])
+        ops.LAUNCHES.update(saved)
+        plain_ms = cuda_ms(lambda: wkv_chunked(*args, chunk), iters=3,
+                           warmup=1)
+        bms, by = wkv6_bound(B, S, H, dh, dtype, peaks)
+        row = dict(phase="wkv6_kernel", case=name, B=B, S=S, H=H, dh=dh,
+                   chunk=ops.chunk_rows(S, chunk), dtype=dtype, decay=decay,
+                   state_scale=s0, max_abs_err=err, scaled_err=scaled,
+                   tol=WKV6_TOL[dtype], checks=checks,
+                   ok=all(checks.values()), ms=ms,
+                   device_ms=None if dev_s is None else 100 * dev_s,
+                   plain_ms=plain_ms, library_ms=None,
+                   library="none: no single PyTorch call computes the WKV6 "
+                           "recurrence", bound_ms=bms, bound_by=by)
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"wkv6 {name} failed its checks: {row}")
+        if main is None:
+            main = row
+        del args, got
+        torch.cuda.empty_cache()
+    return main
+
+
+@contextlib.contextmanager
+def _prefill_wkv(fn):
+    """Prefill's WKV computed by `fn(r, k, v, logw, u, state, chunk)`
+    inside the block: the plain route and the planted faults the kernel
+    route is held against (the port has no option for this; decode's
+    wkv_step is untouched)."""
+    from repro_torch.kernels.rwkv6 import ops as wops
+    dispatch = wops.wkv6
+    wops.wkv6 = lambda r, k, v, logw, u, state, *, chunk: \
+        fn(r, k, v, logw, u, state, chunk)
+    try:
+        yield
+    finally:
+        wops.wkv6 = dispatch
+
+
+STATE_FAULT_AT = 4  # the state fault's distance from the prompt's end
+
+
+def _state_zeroed_near_end(r, k, v, logw, u, state, chunk):
+    """Plain WKV whose carried state is zeroed STATE_FAULT_AT positions
+    before the prompt's end: under the seeded decays (about e^-0.37 a
+    step) the last position still reads what it lost."""
+    import torch
+    from repro_torch.kernels.rwkv6.ref import wkv_chunked
+    at = r.shape[1] - STATE_FAULT_AT
+    y0, _ = wkv_chunked(r[:, :at], k[:, :at], v[:, :at], logw[:, :at],
+                        u, state, chunk)
+    y1, s1 = wkv_chunked(r[:, at:], k[:, at:], v[:, at:], logw[:, at:],
+                         u, torch.zeros_like(state), chunk)
+    return torch.cat([y0, y1], dim=1), s1
+
+
+def _decay_off_by_one(r, k, v, logw, u, state, chunk):
+    """Plain WKV whose exclusive cumulative log-decay is shifted by one
+    position: every row reads its history through its own decay too (lw
+    in place of lw − logw), the bonus term unchanged."""
+    import torch
+    from repro_torch.kernels.rwkv6.ref import wkv_chunked
+    w = torch.exp(logw)
+    y, s = wkv_chunked((r.float() * w).to(r.dtype), k, v, logw, u, state,
+                       chunk)
+    bonus = torch.einsum("bthd,hd,bthd->bth", r.float() * (1 - w), u,
+                         k.float())
+    return (y.float() + bonus[..., None] * v.float()).to(r.dtype), s
+
+
+def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
+                     prompt: int = 2048, new: int = 32) -> dict:
+    """The ssm family served at rwkv6-3b's full width and depth (`cfg` and
+    the sizes may be cut for a rehearsal). Returns the wkv6 launches of the
+    main path, by step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import ops as wops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    cfg = cfg or get_config("rwkv6-3b")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    max_len = prompt + new
+    generate(model, prompts[:, :64], max_new=2, max_len=66)  # warm cuBLAS
+
+    # the main path: counts set to 0 just before, read just after; its own
+    # steps note their launches and times
+    with _probed_steps(wops.LAUNCHES, "wkv6") as steps:
+        wops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model, prompts, max_new=new, max_len=max_len)
+        wall = time.perf_counter() - t0
+        launches = wops.LAUNCHES["wkv6"]
+    peak_bytes = torch.cuda.max_memory_allocated()
+    prefills = [st for st in steps if st[0] == "prefill"]
+    decodes = [st for st in steps if st[0] == "decode"]
+    prefill_launches = sum(st[1] for st in prefills)
+    decode_launches = sum(st[1] for st in decodes)
+    prefill_ms = prefills[0][2].elapsed_time(prefills[0][3])
+    decode_ms = decodes[0][2].elapsed_time(decodes[-1][3]) / len(decodes)
+
+    # the card's busy and idle share over the main path once more, traced
+    _, trace_wall, busy, by_name = device_trace(
+        lambda: generate(model, prompts, max_new=new, max_len=max_len))
+    wops.reset_launches()
+    tokens = torch.from_numpy(prompts).to(dev)
+    # the timed bf16 model: each layer's WKV kernel call against the plain
+    # version on its own served inputs (a measure no depth amplifies), and
+    # the routes' split layer by layer; the end-to-end sound routes are
+    # recorded, not held: 32 bf16 layers of the seeded model amplify
+    # rounding, so the end-to-end checks run in float32
+    bf16_layers = _rwkv_layers(model, tokens)
+    bf16_routes = _rwkv_routes(model, tokens, faults=False)
+    layer_mats = sum(p.numel() for p in model.periods[0].parameters()
+                     if p.ndim >= 2)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters()) \
+        - model.embed.tok.numel() * model.embed.tok.element_size()
+    n_params = model.n_params()
+    del model
+    torch.cuda.empty_cache()
+
+    # the checks: the same seeded weights in float32 (the kernel's float32
+    # instantiation), teacher-forced decode, kernel against plain and
+    # against the planted faults, read with row 0 pinned
+    model = build_model(cfg.with_(dtype="float32"), device=DEVICE).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    layers = _rwkv_layers(model, tokens)
+    routes = _rwkv_routes(model, tokens, faults=True)
+    wops.reset_launches()
+    del model
+    torch.cuda.empty_cache()
+    tf_err, plain = routes["teacher_forced_rel_err"], routes["kernel_vs_plain"]
+    pinned = routes["row0_pinned"]
+    controls = pinned["planted_faults"]
+
+    # least times: every weight read once per step (bf16) plus the WKV
+    # state read and written; prefill's products at the bf16 peak and the
+    # WKV calls at theirs
+    L, D, dh = cfg.n_layers, cfg.d_model, cfg.rwkv_head_dim
+    H = D // dh
+    state_bytes = 2 * L * batch * H * dh * dh * 4
+    decode_bound_ms = 1e3 * (weight_bytes + state_bytes) / peaks["bw"]
+    wkv_ms, _ = wkv6_bound(batch, prompt, H, dh, cfg.dtype, peaks)
+    prefill_bound_ms = 1e3 * (2.0 * layer_mats * L * batch * prompt
+                              + 2.0 * D * cfg.vocab_size * batch
+                              ) / peaks["bfloat16"] + L * wkv_ms
+    row = dict(phase="rwkv_serve", arch=cfg.name, n_params=n_params,
+               dtype=cfg.dtype, batch=batch, prompt=prompt, new_tokens=new,
+               max_len=max_len, init_s=init_s, generate_wall_s=wall,
+               tokens_per_s=batch * new / wall,
+               wkv6_launches=dict(generate=launches,
+                                  prefill=prefill_launches,
+                                  decode=decode_launches),
+               steps=dict(prefill=len(prefills), decode=len(decodes)),
+               prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound_ms,
+               decode_ms_per_token=decode_ms,
+               decode_bound_ms=decode_bound_ms,
+               peak_memory_gb=peak_bytes / 1e9,
+               logits_finite=routes["finite"] and bf16_routes["finite"],
+               tokens_in_vocab=bool(0 <= toks.min()
+                                    and toks.max() < cfg.vocab_size),
+               bf16_sound_routes=dict(
+                   teacher_forced_rel_err=bf16_routes[
+                       "teacher_forced_rel_err"],
+                   kernel_vs_plain=bf16_routes["kernel_vs_plain"]),
+               layers=dict(bfloat16=bf16_layers, float32=layers),
+               checks_dtype="float32", teacher_forced_rel_err=tf_err,
+               kernel_vs_plain=plain, row0_pinned=pinned,
+               tol=RWKV_SERVE_TOL, hidden_tol=RWKV_HIDDEN_TOL,
+               traced=_traced(trace_wall, busy, by_name))
+    emit(row)
+    caught = all(c["logits_rel_err"] > RWKV_SERVE_TOL
+                 and c["hidden_rel_err"] > RWKV_HIDDEN_TOL
+                 for c in controls.values())
+    # each layer's kernel call within its limit on the served inputs; after
+    # the first layer (no depth to amplify yet) the kernel route splits
+    # from the plain one as little as the kernel-free route does
+    held = all(
+        ly["kernel_scaled_err"] <= WKV6_TOL[dt]
+        and ly["split"]["kernel_vs_plain"][0]
+        <= RWKV_FIRST_LAYER_RATIO * ly["split"]["oracle64_vs_plain"][0]
+        for dt, ly in (("bfloat16", bf16_layers), ("float32", layers)))
+    if not (launches == prefill_launches == L and decode_launches == 0
+            and len(prefills) == 1 and len(decodes) == new - 1
+            and row["logits_finite"] and row["tokens_in_vocab"]
+            and toks.shape == (batch, new) and tf_err <= RWKV_SERVE_TOL
+            and plain["logits_rel_err"] <= RWKV_SERVE_TOL
+            and pinned["kernel_vs_plain"]["logits_rel_err"] <= RWKV_SERVE_TOL
+            and pinned["kernel_vs_plain"]["hidden_rel_err"] <= RWKV_HIDDEN_TOL
+            and caught and held):
+        raise AssertionError(f"rwkv_serve failed: {row}")
+    return row["wkv6_launches"]
+
+
+def _row0_from(route, first):
+    """WKV by `route` with y's row 0 (position 0, the bonus term alone)
+    taken from `first`'s."""
+    def fn(r, k, v, logw, u, state, chunk):
+        y, s = route(r, k, v, logw, u, state, chunk)
+        y[:, 0] = first(r, k, v, logw, u, state, chunk)[0][:, 0]
+        return y, s
+    return fn
+
+
+def _bare_kernel(r, k, v, logw, u, state, chunk):
+    from repro_torch.kernels.rwkv6 import ops
+    return ops.wkv6_cuda(r, k, v, logw, u, state, chunk=chunk)
+
+
+def _rwkv_routes(model, tokens, faults: bool) -> dict:
+    """Teacher-forced decode (prefill all but the last 8 tokens, decode
+    those 8 from the kernel's final state) against a full prefill's last
+    logits, and the kernel route against the plain wkv_chunked. With
+    `faults`, `row0_pinned` reads every route with y's row 0 taken from
+    the plain version (row 0 is where the seeded model amplifies
+    rounding, see _rwkv_layers; each layer's kernel call holds it): the
+    plain route and the two planted faults against the kernel's. Each
+    read on the last-position logits over max|logit| and on the final
+    hidden state of every position, each row over its own max."""
+    import torch
+    from repro_torch.kernels.rwkv6.ref import wkv_chunked
+    prompt = tokens.shape[1]
+    n0 = prompt - 8
+    full, _ = model.prefill(tokens, max_len=prompt)
+    tf, cache = model.prefill(tokens[:, :n0], max_len=prompt)
+    for t in range(n0, prompt):
+        tf, cache = model.decode_step(tokens[:, t:t + 1], cache, t)
+    del cache
+    finite = bool(torch.isfinite(full).all().item())
+    tf_err = (tf.float() - full.float()).abs().max().item() \
+        / full.float().abs().max().item()
+    del tf, full
+
+    def hidden(fn):
+        with _prefill_wkv(fn):
+            return model(tokens)[0]
+
+    def read(h, base):
+        logits, want = model.head(h[:, -1]), model.head(base[:, -1])
+        row_err = ((h.float() - base.float()).abs().amax(-1)
+                   / base.float().abs().amax(-1).clamp_min(1e-30))
+        return dict(
+            logits_rel_err=(logits.float() - want.float()).abs().max().item()
+            / want.float().abs().max().item(),
+            hidden_rel_err=row_err.max().item(),
+            hidden_worst_position=int(row_err.amax(0).argmax().item()),
+            argmax_agree=float((logits.argmax(-1) == want.argmax(-1))
+                               .float().mean().item()))
+    h_plain = hidden(wkv_chunked)
+    out = dict(finite=finite, teacher_forced_rel_err=tf_err,
+               kernel_vs_plain=read(h_plain, model(tokens)[0]))
+    if faults:
+        base = hidden(_row0_from(_bare_kernel, wkv_chunked))
+        out["row0_pinned"] = dict(
+            kernel_vs_plain=read(h_plain, base),
+            planted_faults={
+                name: read(hidden(_row0_from(fn, wkv_chunked)), base)
+                for name, fn in (
+                    ("state_zeroed_near_end", _state_zeroed_near_end),
+                    ("decay_off_by_one", _decay_off_by_one))})
+        del base
+    del h_plain
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _after_each_layer(fn):
+    """`fn(layer, x)` on the residual stream after each block of a forward
+    pass inside the block (the port has no hook for this)."""
+    from repro_torch.models import blocks
+    forward = blocks.block_forward
+    layer = itertools.count()
+
+    def run(*args, **kw):
+        out = forward(*args, **kw)
+        fn(next(layer), out[0])
+        return out
+    blocks.block_forward = run
+    try:
+        yield
+    finally:
+        blocks.block_forward = forward
+
+
+def _row_split(a, b) -> float:
+    """Each row's max|a - b| over b's row max; the max over rows."""
+    return ((a.float() - b.float()).abs().amax(-1)
+            / b.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _rwkv_layers(model, tokens) -> dict:
+    """One prefill of `tokens`, layer by layer. `kernel_scaled_err`: each
+    layer's WKV kernel call against the plain wkv_chunked computed in
+    float32 from the same (served) inputs, per entry over its envelope
+    (ref.scaled_err). `split`: the residual stream after each layer along
+    the kernel route, the plain wkv_chunked route (chunk as served) and
+    routes that run no kernel (the plain version in chunks of 64; the
+    per-step oracle in float64), pairs read as the hidden rows are: each
+    row's max|diff| over its own max, the max over rows. Two more routes
+    take y's first row (position 0, the bonus term alone) from elsewhere:
+    the kernel with the plain version's row 0, and the plain version with
+    the float64 oracle's. Routes that run no kernel and split as far as
+    the kernel does show the model amplifying rounding with depth, not a
+    kernel fault; the row-0 routes show where."""
+    import torch
+    from repro_torch.kernels.rwkv6 import ops, ref
+    scaled = []
+    split = {f"{a}_vs_{b}": [] for a, b in (
+        ("oracle64", "plain"), ("chunk64", "plain"), ("chunk64", "oracle64"),
+        ("kernel", "plain"), ("kernel", "oracle64"),
+        ("kernel_row0_plain", "plain"), ("plain_row0_oracle64", "plain"))}
+
+    def kernel(r, k, v, logw, u, state, chunk):
+        got = ops.wkv6_cuda(r, k, v, logw, u, state, chunk=chunk)
+        f32 = [t.float() for t in (r, k, v, logw, u, state)]
+        scaled.append(ref.scaled_err(got, ref.wkv_chunked(*f32, chunk),
+                                     *f32, chunk=chunk))
+        return got
+
+    def oracle(r, k, v, logw, u, state, chunk):
+        y, s = ref.wkv6(r, k, v, logw, u, state, dtype=torch.float64)
+        return y.to(r.dtype), s.float()
+
+    plain, exact = [], []
+
+    def read_oracle(i, x):
+        exact.append(x)
+        split["oracle64_vs_plain"].append(_row_split(x, plain[i]))
+
+    def reader(name):
+        def read(i, x):
+            split[f"{name}_vs_plain"].append(_row_split(x, plain[i]))
+            split[f"{name}_vs_oracle64"].append(_row_split(x, exact[i]))
+        return read
+
+    def chunk64(r, k, v, logw, u, state, chunk):
+        return ref.wkv_chunked(r, k, v, logw, u, state, 64)
+
+    def oracle_row0(r, k, v, logw, u, state, chunk):
+        return oracle(r[:, :1], k[:, :1], v[:, :1], logw[:, :1], u, state,
+                      chunk)
+
+    def only_vs_plain(name):
+        return lambda i, x: split[f"{name}_vs_plain"].append(
+            _row_split(x, plain[i]))
+
+    for fn, read in ((ref.wkv_chunked, lambda i, x: plain.append(x)),
+                     (oracle, read_oracle), (chunk64, reader("chunk64")),
+                     (kernel, reader("kernel")),
+                     (_row0_from(_bare_kernel, ref.wkv_chunked),
+                      only_vs_plain("kernel_row0_plain")),
+                     (_row0_from(ref.wkv_chunked, oracle_row0),
+                      only_vs_plain("plain_row0_oracle64"))):
+        with _prefill_wkv(fn), _after_each_layer(read):
+            model(tokens)
+    del plain, exact
+    torch.cuda.empty_cache()
+    return dict(kernel_scaled_err=max(scaled),
+                kernel_scaled_err_by_layer=scaled, split=split)
 
 
 def _traced(wall: float, busy, by_name: dict) -> dict:
@@ -1101,7 +1616,7 @@ def main() -> int:
               torch=torch.__version__, cuda=torch.version.cuda))
 
     t0 = time.perf_counter()
-    sources = ("gram", "spmm", "flash")
+    sources = ("gram", "spmm", "flash", "wkv6")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         built = dict(zip(sources, pool.map(build.build, sources)))
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
@@ -1114,11 +1629,13 @@ def main() -> int:
     main_rows = phase_kernels(peaks)
     sparse_rows = phase_sparse_kernels(peaks)
     flash_row = phase_flash_kernels(peaks)
+    wkv6_row = phase_wkv6_kernels(peaks)
     phase_quickstart()
     launches = phase_lmds()
     phase_steplm()
     sparse_launches = phase_sparse_lm()
     serve_launches = phase_lm_serve(peaks)
+    rwkv_launches = phase_rwkv_serve(peaks)
 
     kernels = []
     for kind, line in (("gram", 49), ("xtv", 83)):
@@ -1155,6 +1672,17 @@ def main() -> int:
         max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    r = wkv6_row
+    kernels.append(dict(
+        name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
+        replaces="src/repro/kernels/rwkv6/kernel.py:99",
+        launches=rwkv_launches["generate"],
+        launches_by_path=dict(rwkv_serve_prefill=rwkv_launches["prefill"],
+                              rwkv_serve_decode=rwkv_launches["decode"]),
+        max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        library=r["library"]))
     emit(dict(kernels=kernels))
     print(smi, flush=True)
     emit(dict(ok=True, device=dict(platform="gpu", kind=name,

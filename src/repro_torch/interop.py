@@ -45,9 +45,11 @@ def params_from_reference(params: Mapping[str, Any], cfg,
     """The state dict of `repro_torch.models.Model(cfg)` holding the
     values of the reference's `Model.init` pytree `params` (nested dicts
     of numpy arrays, `periods` stacked on axis 0 under keys "{i}:{kind}",
-    weights laid out (d_in, d_out), which the port keeps). The float32
-    values are copied exactly; `load_state_dict` casts each to its
-    parameter's dtype, the reference's `astype(cfg.dtype)`."""
+    weights laid out (d_in, d_out), which the port keeps; nested leaves
+    such as rwkv6's `ln_x.scale` become dotted names). The float32 values
+    are copied exactly; `load_state_dict` casts each to its parameter's
+    dtype, the reference's `astype(cfg.dtype)`, and keeps the leaves the
+    port holds in float32 (rwkv6's `w0`, `u`, `ln_x`) in float32."""
     flat = dict(_flatten({k: v for k, v in params.items()
                           if k != "periods"}))
     n = cfg.n_periods()

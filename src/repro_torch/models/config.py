@@ -1,8 +1,8 @@
 """ModelConfig: one dataclass describing every supported architecture.
 
 Port of `repro.models.config`, copied whole (it is pure Python); the
-port serves the dense family, the others are described for their
-parameter counts.
+port serves the dense and ssm families, the others are described for
+their parameter counts.
 
 Families:
   dense  — llama-style GQA transformer (llama3.2, phi3, qwen3)

@@ -1,18 +1,24 @@
-"""Model: init / prefill / decode for the dense family.
+"""Model: init / prefill / decode for the dense and ssm families.
 
 Port of `repro.models.model` as an `nn.Module`. The layers are grouped
 into periods as in the reference (one "attn" layer per period for the
-dense family); `periods` is an `nn.ModuleList` of `nn.ModuleDict`s keyed
-"{i}:{kind}", so the module state mirrors the reference's pytree, with
-the stacked leading axis unrolled into the list. Caches keep the
-reference's structure, {"prefix": [], "periods": {"0:attn": (k, v)}}
-with k, v of shape (n_periods, B, max_len, Hkv, hd): the stacked layout
-of `scan_layers`. Prefill writes the prompt's K/V straight into caches
-allocated at `max_len`, the values `_pad_seq_caches` gives; decode
+dense family, one "rwkv6" layer for the ssm family); `periods` is an
+`nn.ModuleList` of `nn.ModuleDict`s keyed "{i}:{kind}", so the module
+state mirrors the reference's pytree, with the stacked leading axis
+unrolled into the list. Caches keep the reference's structure and its
+stacked layout of `scan_layers`: {"prefix": [], "periods": {key: spec}}
+with each kind's cache spec a pytree of tensors carrying a leading
+(n_periods,) axis, e.g. "0:attn": (k, v) of shape (n_periods, B,
+max_len, Hkv, hd), "0:rwkv6": {"wkv": (n_periods, B, H, dh, dh) float32,
+"shift_tm", "shift_cm": (n_periods, B, 1, D)}. Prefill writes each
+layer's cache into the leading slots of every axis of caches allocated
+at `max_len` (the values the reference's `_pad_seq_caches` gives: leaves
+with a sequence axis are padded, state leaves are written whole); decode
 updates them in place.
 
 Entry points compute on CUDA unless the caller passes `device="cpu"`
-(`build_model`); families other than dense raise `NotImplementedError`.
+(`build_model`); families other than dense and ssm raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -26,14 +32,34 @@ from . import blocks
 from .config import ModelConfig
 from .layers import Embedding, Head, RMSNorm
 
+_PORTED = ("dense", "ssm")
+
+
+def _is_spec(x) -> bool:
+    """A (shape, dtype) leaf of a cache spec."""
+    return (isinstance(x, tuple) and len(x) == 2
+            and isinstance(x[1], torch.dtype))
+
+
+def _tree_map(fn, tree, *rest):
+    """`fn` over the leaves (tensors or (shape, dtype) specs) of a cache
+    pytree of dicts and tuples, zipped with trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)) and not _is_spec(tree):
+        return type(tree)(_tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in _PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
-                "port serves the dense family (ROADMAP Queue 1 item 14)")
+                "port serves the dense and ssm families (ROADMAP Queue 1 "
+                "item 14)")
         self.cfg = cfg
         self.kinds = cfg.layer_kinds()
         self.embed = Embedding(cfg, device)
@@ -81,7 +107,8 @@ class Model(nn.Module):
                 max_len: Optional[int] = None):
         """Returns (h_final (B, S, D), aux_loss, caches-or-None). With
         `collect_cache`, caches are allocated at `max_len` (default S) and
-        hold the prompt's K/V in their first S slots."""
+        hold the prompt's K/V in their first S slots (and each recurrent
+        layer's final state)."""
         cfg = self.cfg
         x = self.embed(tokens)
         B, S = x.shape[0], x.shape[1]
@@ -91,13 +118,14 @@ class Model(nn.Module):
         caches = self.init_cache(B, max_len or S) if collect_cache else None
         for layer, period in enumerate(self.periods):
             for key, blk in period.items():
-                x, aux, kv = blocks.block_forward(
+                x, aux, cache = blocks.block_forward(
                     blk, cfg, key.split(":", 1)[1], x, positions,
                     collect_cache=collect_cache)
                 aux_total = aux_total + aux
                 if collect_cache:
-                    for buf, t in zip(caches["periods"][key], kv):
-                        buf[layer, :, :S] = t
+                    _tree_map(lambda buf, t: buf[layer][
+                        tuple(slice(0, n) for n in t.shape)].copy_(t),
+                        caches["periods"][key], cache)
         return self.final_norm(x), aux_total, caches
 
     # ------------------------------------------------------------------
@@ -120,9 +148,10 @@ class Model(nn.Module):
         x = self.embed(token)
         for layer, period in enumerate(self.periods):
             for key, blk in period.items():
-                k, v = caches["periods"][key]
+                layer_cache = _tree_map(lambda t: t[layer],
+                                        caches["periods"][key])
                 x, _ = blocks.block_decode(blk, cfg, key.split(":", 1)[1],
-                                           x, (k[layer], v[layer]), cur_len)
+                                           x, layer_cache, cur_len)
         x = self.final_norm(x)
         return self.head(x[:, -1]), caches
 
@@ -136,17 +165,12 @@ class Model(nn.Module):
                                                    max_len)
                   for i, kind in enumerate(self.kinds)}
         return {"prefix": [],
-                "periods": {key: tuple(((n,) + shape, dt)
-                                       for shape, dt in spec)
-                            for key, spec in period.items()}}
+                "periods": _tree_map(lambda s: ((n,) + s[0], s[1]), period)}
 
     def init_cache(self, batch: int, max_len: int):
-        shapes = self.cache_shapes(batch, max_len)
-        return {"prefix": [],
-                "periods": {key: tuple(torch.zeros(shape, dtype=dt,
-                                                   device=self.device)
-                                       for shape, dt in spec)
-                            for key, spec in shapes["periods"].items()}}
+        return _tree_map(lambda s: torch.zeros(s[0], dtype=s[1],
+                                               device=self.device),
+                         self.cache_shapes(batch, max_len))
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
