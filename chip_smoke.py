@@ -9,8 +9,8 @@ card. One JSON line per phase:
 
   1. device        — the card (and `nvidia-smi`'s name and power limit)
   2. build         — compile `src/repro_torch/csrc/*.cu` (gram, spmm,
-                     flash, wkv6) for sm_90a, one `nvcc` per source, all
-                     started together
+                     flash, wkv6, ssd) for sm_90a, one `nvcc` per source,
+                     all started together
   3. kernel        — gram/xtv against the plain version at the path's
                      shapes in float64/float32/bfloat16, with kernel, plain,
                      library (one torch.matmul, a yardstick the port never
@@ -69,7 +69,28 @@ card. One JSON line per phase:
                      faults (the state zeroed 4 positions before the end,
                      the decay off by one position); tokens/s, peak
                      memory, a traced idle share
- 13. kernels       — the summary line of every ported kernel
+ 13. ssm_kernel    — the selective-scan kernel against its plain version
+                     (ssm_scan) computed in float32 from the same inputs,
+                     each y and h entry within a bound of its own envelope:
+                     jamba's prefill shape (B 8, S 2,048, di 8,192, ds 16)
+                     in bf16 and float32, ragged S 1,000 and 17, ds 8, a
+                     nonzero initial state, a large dt (dA underflows to 0)
+                     and a tiny one (slow decay); bitwise repeatable;
+                     kernel, plain and bound times (no single PyTorch call
+                     computes the scan: no library time)
+ 14. hybrid_serve  — the hybrid family served at jamba-v0.1-52b's full
+                     width, its depth cut to one period (8 layers: 7 Mamba,
+                     1 attention, MoE 16 experts top-2 on every second;
+                     bf16, seeded weights), lm_serve's traffic: 7 ssm_scan
+                     and 1 flash launches in prefill, none in decode; each
+                     layer's scan call on its served inputs against the
+                     plain version; teacher-forced decode, the kernel route
+                     against the plain scan and against two planted faults
+                     (the state zeroed 4 positions before the end, the D
+                     skip dropped), each with the kernel route's MoE
+                     routing replayed and the routing flips counted;
+                     tokens/s, peak memory, a traced idle share
+ 15. kernels       — the summary line of every ported kernel
 
 then the card line of `nvidia-smi` and, last, the contract line
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -149,6 +170,27 @@ WKV6_TOL = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -8 + 2.0 ** -12}
 RWKV_SERVE_TOL = 1e-2
 RWKV_HIDDEN_TOL = 1e-2
 RWKV_FIRST_LAYER_RATIO = 4.0
+# selective-scan kernel against its plain version (ssd ref.ssm_scan)
+# computed in float32 from the same inputs, per y and h entry over its
+# envelope (the same scan on |x|, |B|, |C|, |D|, |h0|; ssd ref.scaled_err):
+# both read the same inputs (bf16 x, B, C convert exactly) and compute and
+# write float32, so bf16 and float32 differ alike, in summation order, FMA
+# contraction and expf's last bit only (a float32 scan reads <= 5e-6 of its
+# envelope against a float64 one on the CPU, S 2,048 with a slow decay).
+# tests/test_torch_ssd.py holds a dropped D skip, a state reset midway and
+# a decay one step late >= 10x above it
+SSM_TOL = 2.0 ** -14
+# jamba cut to one period, bf16, along two sound routes (the scan kernel vs
+# the plain ssm_scan; the prefill's kernel vs decode's plain
+# selective_scan), the compared route's MoE routing replayed from the
+# kernel route's: a rounding can flip a near-tied top-2 choice, which moves
+# that token's whole row and, through the scans, its sequence's later
+# positions (the flips are counted, the unpinned routes recorded).
+# Last-position logits over max|logit| (HYBRID_SERVE_TOL) and every
+# position's final hidden row over its own max (HYBRID_HIDDEN_TOL), as
+# lm_serve's
+HYBRID_SERVE_TOL = 5e-2
+HYBRID_HIDDEN_TOL = 1e-1
 
 # Published dense peaks (NVIDIA data sheets): FLOP/s by input dtype and
 # memory bytes/s. float64 counts the FP64 tensor-core rate; float32 the
@@ -918,27 +960,29 @@ def phase_flash_kernels(peaks: dict, cases=FLASH_CASES) -> dict:
 
 
 @contextlib.contextmanager
-def _probed_steps(launches=None, key: str = "flash"):
+def _probed_steps(*counters):
     """Wrap the step functions `launch.serve.generate` makes, so each of
-    its own steps notes the launches it made of kernel `key` (counted in
-    the dict `launches`, flash's by default) and CUDA events around it;
-    yields the list of (kind, launches, start event, end event)."""
+    its own steps notes the launches it made of each kernel in `counters`
+    ((launch dict, key) pairs; flash's by default) and CUDA events around
+    it; yields the list of (kind, {key: launches}, start event, end
+    event)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.launch import serve
-    launches = fops.LAUNCHES if launches is None else launches
+    counters = counters or ((fops.LAUNCHES, "flash"),)
     makers = serve.make_prefill_step, serve.make_decode_step
     log = []
 
     def probe(kind, step):
         def run(*args):
-            n0 = launches[key]
+            n0 = {key: launches[key] for launches, key in counters}
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             out = step(*args)
             e1.record()
-            log.append((kind, launches[key] - n0, e0, e1))
+            log.append((kind, {key: launches[key] - n0[key]
+                               for launches, key in counters}, e0, e1))
             return out
         return run
 
@@ -1037,8 +1081,8 @@ def phase_lm_serve(peaks: dict, cfg=None, batch: int = 8, prompt: int = 2048,
     peak_bytes = torch.cuda.max_memory_allocated()
     prefills = [st for st in steps if st[0] == "prefill"]
     decodes = [st for st in steps if st[0] == "decode"]
-    prefill_launches = sum(st[1] for st in prefills)
-    decode_launches = sum(st[1] for st in decodes)
+    prefill_launches = sum(st[1]["flash"] for st in prefills)
+    decode_launches = sum(st[1]["flash"] for st in decodes)
     prefill_ms = prefills[0][2].elapsed_time(prefills[0][3])
     decode_ms = decodes[0][2].elapsed_time(decodes[-1][3]) / len(decodes)
 
@@ -1315,7 +1359,7 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
 
     # the main path: counts set to 0 just before, read just after; its own
     # steps note their launches and times
-    with _probed_steps(wops.LAUNCHES, "wkv6") as steps:
+    with _probed_steps((wops.LAUNCHES, "wkv6")) as steps:
         wops.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1325,8 +1369,8 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
     peak_bytes = torch.cuda.max_memory_allocated()
     prefills = [st for st in steps if st[0] == "prefill"]
     decodes = [st for st in steps if st[0] == "decode"]
-    prefill_launches = sum(st[1] for st in prefills)
-    decode_launches = sum(st[1] for st in decodes)
+    prefill_launches = sum(st[1]["wkv6"] for st in prefills)
+    decode_launches = sum(st[1]["wkv6"] for st in decodes)
     prefill_ms = prefills[0][2].elapsed_time(prefills[0][3])
     decode_ms = decodes[0][2].elapsed_time(decodes[-1][3]) / len(decodes)
 
@@ -1592,6 +1636,450 @@ def _rwkv_layers(model, tokens) -> dict:
                 kernel_scaled_err_by_layer=scaled, split=split)
 
 
+# ---------------------------------------------------------------------------
+# the hybrid family: the selective-scan kernel and jamba serving
+# ---------------------------------------------------------------------------
+
+# (name, B, S, di, ds, dtype, dt, h0 scale); the first is the path's
+# (jamba's prefill: B 8, S 2,048, di 8,192, ds 16)
+SSM_CASES = [
+    ("jamba", 8, 2048, 8192, 16, "bfloat16", "model", 0.0),
+    ("jamba-f32", 8, 2048, 8192, 16, "float32", "model", 0.0),
+    ("ragged-1000", 8, 1000, 8192, 16, "bfloat16", "model", 0.0),
+    ("ragged-17", 8, 17, 8192, 16, "bfloat16", "model", 0.0),
+    ("ds-8", 8, 2048, 8192, 8, "bfloat16", "model", 0.0),
+    ("initial-state", 8, 2048, 8192, 16, "bfloat16", "model", 0.5),
+    ("large-dt", 2, 2048, 8192, 16, "float32", "large", 0.5),
+    ("tiny-dt", 2, 2048, 8192, 16, "float32", "tiny", 0.5),
+]
+
+
+def ssm_bound(B: int, S: int, di: int, ds: int, dtype: str, peaks: dict
+              ) -> tuple[float, str]:
+    """Least time for one selective-scan call, from the least work the
+    scan needs: per (b, t, d, s) one exp and six float32 operations (dt·A,
+    dA·h, u·B, their sum, h·C and its sum), per (b, t, d) three (u = dt·x,
+    D·x and its sum); x read in `dtype`, dt read and y written in float32
+    once, B and C read once per (b, t), A, D and h0 in and h out in
+    float32."""
+    size = {"float32": 4, "bfloat16": 2}[dtype]
+    ops = 7.0 * B * S * di * ds + 3.0 * B * S * di
+    nbytes = (size + 8) * B * S * di + 2 * size * B * S * ds \
+        + 4 * (di * ds + di) + 2 * 4 * B * di * ds
+    t_ops, t_bytes = ops / peaks["float32"], nbytes / peaks["bw"]
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _ssm_inputs(gen, B, S, di, ds, dtype, dt_kind, h0_scale):
+    """x, B, C in `dtype` and dt, A, D_skip, h0 in float32, on the card, as
+    the model makes them: B and C column views of one (B, S, r + 2 ds)
+    tensor (r = 256, jamba's dt rank); A the S4D init -(1..ds) per channel
+    times exp(0.3 N); dt log-uniform in [0.001, 0.1] as the init of
+    dt_bias gives it ("model"), 200 (dt·A <= -200: dA underflows to 0,
+    "large") or ~1e-4 (the state carries over the whole prompt, "tiny");
+    D 1."""
+    import math
+    import torch
+    dt_ = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    x = torch.randn((B, S, di), generator=gen, device=DEVICE).to(dt_)
+    dbc = torch.randn((B, S, 256 + 2 * ds), generator=gen,
+                      device=DEVICE).to(dt_)
+    _, Bv, Cv = torch.split(dbc, [256, ds, ds], dim=-1)
+    u = torch.rand((B, S, di), generator=gen, device=DEVICE)
+    if dt_kind == "large":
+        dt = torch.full_like(u, 200.0)
+    elif dt_kind == "tiny":
+        dt = 1e-4 * (0.5 + u)
+    else:
+        dt = torch.exp(u * (math.log(0.1) - math.log(0.001))
+                       + math.log(0.001))
+    A = -torch.arange(1, ds + 1, dtype=torch.float32, device=DEVICE) \
+        * torch.exp(0.3 * torch.randn((di, ds), generator=gen, device=DEVICE))
+    D = torch.ones((di,), device=DEVICE)
+    h0 = torch.randn((B, di, ds), generator=gen, device=DEVICE) * h0_scale
+    return x, dt, A, Bv, Cv, D, h0
+
+
+def phase_ssm_kernels(peaks: dict, cases=SSM_CASES) -> dict:
+    """The selective-scan kernel against its plain version (ref.ssm_scan)
+    computed in float32 from the same inputs, each y and h entry within
+    SSM_TOL of its own envelope; returns the path's row (the first
+    case)."""
+    import torch
+    from repro_torch.kernels.ssd import ops, ref
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    main = None
+    for name, B, S, di, ds, dtype, dt_kind, h0_scale in cases:
+        args = _ssm_inputs(gen, B, S, di, ds, dtype, dt_kind, h0_scale)
+        saved = dict(ops.LAUNCHES)  # these launches are not the path's
+        got = ops.ssm_scan_cuda(*args)
+        torch.cuda.synchronize()
+        want = ref.ssm_scan(*args)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        scaled = ref.scaled_err(got, want, *args)
+        del want
+        again = ops.ssm_scan_cuda(*args)
+        checks = dict(
+            tol=scaled <= SSM_TOL,
+            finite=all(bool(torch.isfinite(t).all().item()) for t in got),
+            repeat_bitwise=all(torch.equal(a, b) for a, b in zip(got, again)))
+        del again
+        kern = lambda: ops.ssm_scan_cuda(*args)
+        ms = cuda_ms(kern, iters=10)
+        _, _, dev_s, _ = device_trace(lambda: [kern() for _ in range(10)])
+        ops.LAUNCHES.update(saved)
+        plain_ms = cuda_ms(lambda: ref.ssm_scan(*args), iters=2, warmup=1)
+        bms, by = ssm_bound(B, S, di, ds, dtype, peaks)
+        row = dict(phase="ssm_kernel", case=name, B=B, S=S, di=di, ds=ds,
+                   dtype=dtype, dt=dt_kind, h0_scale=h0_scale,
+                   max_abs_err=err, scaled_err=scaled, tol=SSM_TOL,
+                   checks=checks, ok=all(checks.values()), ms=ms,
+                   device_ms=None if dev_s is None else 100 * dev_s,
+                   plain_ms=plain_ms, library_ms=None,
+                   library="none: no single PyTorch call computes the "
+                           "selective scan", bound_ms=bms, bound_by=by)
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"ssm_scan {name} failed its checks: {row}")
+        if main is None:
+            main = row
+        del args, got
+        torch.cuda.empty_cache()
+    return main
+
+
+@contextlib.contextmanager
+def _prefill_scan(fn):
+    """Prefill's selective scan computed by `fn(x, dt, A, B, C, D_skip,
+    h0)` inside the block: the plain route and the planted faults the
+    kernel route is held against (the port has no option for this;
+    decode's selective_scan is untouched)."""
+    from repro_torch.kernels.ssd import ops as sops
+    dispatch = sops.ssm_scan
+    sops.ssm_scan = fn
+    try:
+        yield
+    finally:
+        sops.ssm_scan = dispatch
+
+
+@contextlib.contextmanager
+def _moe_routing(choose):
+    """Each MoE call's router made by `choose(route, p, cfg, xf)` inside
+    the block, `route` being the port's own `moe.route` (the port has no
+    option for this)."""
+    from repro_torch.models import moe
+    route = moe.route
+    moe.route = lambda p, cfg, xf: choose(route, p, cfg, xf)
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def _recorded(log: list):
+    """The router as it is, each call's top-k experts appended to `log`."""
+    def choose(route, p, cfg, xf):
+        out = route(p, cfg, xf)
+        log.append(out[2])
+        return out
+    return choose
+
+
+def _replayed(choices, flips: list):
+    """The router's own probabilities at the experts `choices(call)` (the
+    top-k experts of the call-th MoE call, taken from another route);
+    appends to `flips` the tokens the router would have sent elsewhere."""
+    calls = itertools.count()
+
+    def choose(route, p, cfg, xf):
+        probs, _, own = route(p, cfg, xf)
+        idx = choices(next(calls))
+        flips.append(_flipped(own, idx).sum().item())
+        return probs, probs.gather(1, idx), idx
+    return choose
+
+
+def _flipped(a, b):
+    """Tokens whose top-k choices name other experts."""
+    return (a.sort(-1).values != b.sort(-1).values).any(-1)
+
+
+STATE_ZEROED_AT = 4  # the state fault's distance from the prompt's end
+
+
+def _scan_state_zeroed_near_end(x, dt, A, B, C, D_skip, h0):
+    """Plain scan whose state is zeroed STATE_ZEROED_AT positions before
+    the prompt's end, so the last position still reads what it lost."""
+    import torch
+    from repro_torch.kernels.ssd.ref import ssm_scan
+    at = x.shape[1] - STATE_ZEROED_AT
+    y0, _ = ssm_scan(x[:, :at], dt[:, :at], A, B[:, :at], C[:, :at],
+                     D_skip, h0)
+    y1, h = ssm_scan(x[:, at:], dt[:, at:], A, B[:, at:], C[:, at:], D_skip,
+                     torch.zeros_like(h0))
+    return torch.cat([y0, y1], dim=1), h
+
+
+def _scan_skip_dropped(x, dt, A, B, C, D_skip, h0):
+    """Plain scan without the D·x skip term."""
+    import torch
+    from repro_torch.kernels.ssd.ref import ssm_scan
+    return ssm_scan(x, dt, A, B, C, torch.zeros_like(D_skip), h0)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def phase_hybrid_serve(peaks: dict, cfg=None, batch: int = 8,
+                       prompt: int = 2048, new: int = 32) -> dict:
+    """The hybrid family served at jamba-v0.1-52b's full width, its depth
+    cut to one period (8 layers: "mamba" at 0, 2, 6, "mamba+moe" at 1, 3,
+    5, 7, "attn" at 4; `cfg` and the sizes may be cut for a rehearsal).
+    Returns the ssm_scan and flash launches of the main path, by step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    cfg = cfg or get_config("jamba-v0.1-52b").with_(n_layers=8)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    max_len = prompt + new
+    generate(model, prompts[:, :64], max_new=2, max_len=66)  # warm cuBLAS
+
+    # the main path: counts set to 0 just before, read just after; its own
+    # steps note their launches and times, and the router's choices are
+    # kept (a list append: no launch, no sync) to count the experts decode
+    # reads
+    routing = []
+    with _probed_steps((sops.LAUNCHES, "ssm_scan"),
+                       (fops.LAUNCHES, "flash")) as steps, \
+            _moe_routing(_recorded(routing)):
+        sops.reset_launches()
+        fops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model, prompts, max_new=new, max_len=max_len)
+        wall = time.perf_counter() - t0
+        launches = dict(ssm_scan=sops.LAUNCHES["ssm_scan"],
+                        flash=fops.LAUNCHES["flash"])
+    peak_bytes = torch.cuda.max_memory_allocated()
+    prefills = [st for st in steps if st[0] == "prefill"]
+    decodes = [st for st in steps if st[0] == "decode"]
+    by_step = {kind: {key: sum(st[1][key] for st in sts) for key in launches}
+               for kind, sts in (("prefill", prefills), ("decode", decodes))}
+    prefill_ms = prefills[0][2].elapsed_time(prefills[0][3])
+    decode_ms = decodes[0][2].elapsed_time(decodes[-1][3]) / len(decodes)
+    n_moe = sum(kind.endswith("+moe") for kind in model.kinds) \
+        * cfg.n_periods()
+    touched = float(np.mean([len(torch.unique(idx))
+                             for idx in routing[n_moe:]]))
+    del routing
+
+    # the card's busy and idle share over the main path once more, traced
+    _, trace_wall, busy, by_name = device_trace(
+        lambda: generate(model, prompts, max_new=new, max_len=max_len))
+    sops.reset_launches()
+    fops.reset_launches()
+
+    tokens = torch.from_numpy(prompts).to(dev)
+    layers = _hybrid_layers(model, tokens)
+    tf = _hybrid_teacher_forced(model, tokens)
+    routes = _hybrid_routes(model, tokens)
+    sops.reset_launches()
+    fops.reset_launches()
+
+    # least times: prefill's products at the bf16 peak (each weight a token
+    # uses, once per token; the head at the last position only), the
+    # visible attention pairs, and the scans at their bound; decode reads
+    # every weight but the embedding and the experts no token chose once a
+    # step, and the caches
+    D, V = cfg.d_model, cfg.vocab_size
+    counts = cfg.param_counts()
+    per_token = cfg.active_params() - counts["embed"] - counts["head"]
+    n_attn = sum(kind.startswith("attn") for kind in model.kinds) \
+        * cfg.n_periods()
+    n_mamba = sum(kind.startswith("mamba") for kind in model.kinds) \
+        * cfg.n_periods()
+    attn_ops = 4.0 * cfg.head_dim * cfg.n_heads * batch * n_attn \
+        * prompt * (prompt + 1) / 2
+    scan_ms, _ = ssm_bound(batch, prompt, cfg.d_inner, cfg.d_state,
+                           cfg.dtype, peaks)
+    prefill_bound_ms = 1e3 * (2.0 * per_token * batch * prompt + attn_ops
+                              + 2.0 * D * V * batch) / peaks["bfloat16"] \
+        + n_mamba * scan_ms
+    expert_bytes = 3 * D * (cfg.d_expert or cfg.d_ff) * 2
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters()) \
+        - model.embed.tok.numel() * model.embed.tok.element_size()
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(model.init_cache(batch, max_len)))
+    decode_bound_ms = 1e3 * (weight_bytes + cache_bytes - n_moe * (
+        cfg.n_experts - touched) * expert_bytes) / peaks["bw"]
+    n_params = model.n_params()
+    del model
+    torch.cuda.empty_cache()
+
+    row = dict(phase="hybrid_serve", arch=cfg.name, n_layers=cfg.n_layers,
+               kinds=cfg.layer_kinds(), n_params=n_params, dtype=cfg.dtype,
+               batch=batch, prompt=prompt, new_tokens=new, max_len=max_len,
+               init_s=init_s, generate_wall_s=wall,
+               tokens_per_s=batch * new / wall, launches=launches,
+               launches_by_step=by_step,
+               steps=dict(prefill=len(prefills), decode=len(decodes)),
+               prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound_ms,
+               decode_ms_per_token=decode_ms, decode_bound_ms=decode_bound_ms,
+               decode_experts_touched_per_layer=touched,
+               decode_host_syncs_per_step=n_moe,
+               peak_memory_gb=peak_bytes / 1e9,
+               tokens_in_vocab=bool(0 <= toks.min()
+                                    and toks.max() < cfg.vocab_size),
+               layers=layers, teacher_forced=tf, routes=routes,
+               tol=HYBRID_SERVE_TOL, hidden_tol=HYBRID_HIDDEN_TOL,
+               traced=_traced(trace_wall, busy, by_name))
+    emit(row)
+    faults = routes["planted_faults"]
+    plain = routes["kernel_vs_plain"]
+    caught = all(f["logits_rel_err"] > HYBRID_SERVE_TOL
+                 and f["hidden_rel_err"] > HYBRID_HIDDEN_TOL
+                 for f in faults.values())
+    held = len(layers["kernel_scaled_err"]) == n_mamba \
+        and max(layers["kernel_scaled_err"]) <= SSM_TOL
+    if not (launches["ssm_scan"] == by_step["prefill"]["ssm_scan"] == n_mamba
+            and launches["flash"] == by_step["prefill"]["flash"] == n_attn
+            and by_step["decode"] == dict(ssm_scan=0, flash=0)
+            and len(prefills) == 1 and len(decodes) == new - 1
+            and routes["finite"] and row["tokens_in_vocab"]
+            and toks.shape == (batch, new)
+            and tf["pinned"]["logits_rel_err"] <= HYBRID_SERVE_TOL
+            and plain["logits_rel_err"] <= HYBRID_SERVE_TOL
+            and plain["hidden_rel_err"] <= HYBRID_HIDDEN_TOL
+            and caught and held):
+        raise AssertionError(f"hybrid_serve failed: {row}")
+    return dict(generate=launches, **by_step)
+
+
+def _hybrid_layers(model, tokens) -> dict:
+    """One prefill of `tokens`: each Mamba layer's kernel call against the
+    plain ref.ssm_scan computed in float32 from the same (served) inputs,
+    per entry over its envelope (ref.scaled_err)."""
+    from repro_torch.kernels.ssd import ops, ref
+    scaled = []
+
+    def kernel(*args):
+        got = ops.ssm_scan_cuda(*args)
+        scaled.append(ref.scaled_err(got, ref.ssm_scan(*args), *args))
+        return got
+    with _prefill_scan(kernel):
+        model(tokens)
+    return dict(kernel_scaled_err=scaled)
+
+
+def _read(model, h, base, rows=None) -> dict:
+    """The last-position logits of `h` against `base`'s, over max|logit|,
+    and every position's final hidden row over its own max (the positions
+    `rows` keeps, when given)."""
+    logits, want = model.head(h[:, -1]), model.head(base[:, -1])
+    row_err = ((h.float() - base.float()).abs().amax(-1)
+               / base.float().abs().amax(-1).clamp_min(1e-30))
+    if rows is not None:
+        row_err = row_err[rows]
+    return dict(
+        logits_rel_err=(logits.float() - want.float()).abs().max().item()
+        / want.float().abs().max().item(),
+        hidden_rel_err=row_err.max().item() if row_err.numel() else 0.0,
+        argmax_agree=float((logits.argmax(-1) == want.argmax(-1))
+                           .float().mean().item()))
+
+
+def _hybrid_routes(model, tokens) -> dict:
+    """The kernel route (its routing recorded) against the plain
+    ref.ssm_scan route and two planted faults, each with the kernel
+    route's routing replayed (`routing_flips`: the tokens of each MoE call
+    that it would have routed otherwise); and the plain route with its own
+    routing (`free`), read over every position and over the positions
+    that routed alike in every MoE layer (`alike_rows`)."""
+    import torch
+    from repro_torch.kernels.ssd.ref import ssm_scan
+    log = []
+    with _moe_routing(_recorded(log)):
+        base = model(tokens)[0]
+
+    def pinned(scan):
+        flips = []
+        with _prefill_scan(scan), \
+                _moe_routing(_replayed(lambda c: log[c], flips)):
+            h = model(tokens)[0]
+        return dict(_read(model, h, base), routing_flips=flips)
+    out = dict(finite=bool(torch.isfinite(base).all().item()),
+               kernel_vs_plain=pinned(ssm_scan),
+               planted_faults={
+                   name: pinned(fn) for name, fn in (
+                       ("state_zeroed_near_end", _scan_state_zeroed_near_end),
+                       ("skip_dropped", _scan_skip_dropped))})
+    own = []
+    with _prefill_scan(ssm_scan), _moe_routing(_recorded(own)):
+        h = model(tokens)[0]
+    flipped = [_flipped(a, b).reshape(tokens.shape) for a, b in zip(own, log)]
+    alike = ~torch.stack(flipped).any(0)
+    out["free"] = dict(_read(model, h, base),
+                       routing_flips=[f.sum().item() for f in flipped],
+                       alike_rows=_read(model, h, base, alike)[
+                           "hidden_rel_err"],
+                       tokens=tokens.numel())
+    return out
+
+
+def _hybrid_teacher_forced(model, tokens, n_new: int = 16) -> dict:
+    """Prefill all but the last `n_new` tokens (the scan kernel), decode
+    those one by one (the plain selective_scan from the kernel's final
+    state), against a full prefill's last logits over max|logit|: with the
+    full prefill's routing replayed (`pinned`) and with the router's own
+    (`free`)."""
+    B, S = tokens.shape
+    n0 = S - n_new
+    log = []
+    with _moe_routing(_recorded(log)):
+        full, _ = model.prefill(tokens, max_len=S)
+    n_moe, k = len(log), log[0].shape[-1]
+    rows = [t.reshape(B, S, k) for t in log]
+
+    def choices(call):
+        layer, step = call % n_moe, call // n_moe
+        if step == 0:
+            return rows[layer][:, :n0].reshape(B * n0, k)
+        return rows[layer][:, n0 + step - 1]
+
+    def run():
+        logits, cache = model.prefill(tokens[:, :n0], max_len=S)
+        for t in range(n0, S):
+            logits, cache = model.decode_step(tokens[:, t:t + 1], cache, t)
+        return (logits.float() - full.float()).abs().max().item() \
+            / full.float().abs().max().item()
+    flips = []
+    with _moe_routing(_replayed(choices, flips)):
+        pinned = run()
+    return dict(pinned=dict(logits_rel_err=pinned, routing_flips=sum(flips)),
+                free=dict(logits_rel_err=run()), decoded=n_new)
+
+
 def _traced(wall: float, busy, by_name: dict) -> dict:
     return dict(wall_s=wall, device_busy_s=busy,
                 idle_share=None if busy is None else 1 - busy / wall,
@@ -1616,7 +2104,7 @@ def main() -> int:
               torch=torch.__version__, cuda=torch.version.cuda))
 
     t0 = time.perf_counter()
-    sources = ("gram", "spmm", "flash", "wkv6")
+    sources = ("gram", "spmm", "flash", "wkv6", "ssd")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         built = dict(zip(sources, pool.map(build.build, sources)))
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
@@ -1630,12 +2118,14 @@ def main() -> int:
     sparse_rows = phase_sparse_kernels(peaks)
     flash_row = phase_flash_kernels(peaks)
     wkv6_row = phase_wkv6_kernels(peaks)
+    ssm_row = phase_ssm_kernels(peaks)
     phase_quickstart()
     launches = phase_lmds()
     phase_steplm()
     sparse_launches = phase_sparse_lm()
     serve_launches = phase_lm_serve(peaks)
     rwkv_launches = phase_rwkv_serve(peaks)
+    hybrid_launches = phase_hybrid_serve(peaks)
 
     kernels = []
     for kind, line in (("gram", 49), ("xtv", 83)):
@@ -1663,12 +2153,16 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             bound_dense_ms=r["bound_dense_ms"], library_ms=r["library_ms"]))
     r = flash_row
+    flash_by_path = dict(
+        lm_serve_prefill=serve_launches["prefill"],
+        lm_serve_decode=serve_launches["decode"],
+        hybrid_serve_prefill=hybrid_launches["prefill"]["flash"],
+        hybrid_serve_decode=hybrid_launches["decode"]["flash"])
     kernels.append(dict(
         name="flash", route="cuda", source="src/repro_torch/csrc/flash.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:83",
-        launches=serve_launches["generate"],
-        launches_by_path=dict(lm_serve_prefill=serve_launches["prefill"],
-                              lm_serve_decode=serve_launches["decode"]),
+        launches=sum(flash_by_path.values()),
+        launches_by_path=flash_by_path,
         max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -1679,6 +2173,18 @@ def main() -> int:
         launches=rwkv_launches["generate"],
         launches_by_path=dict(rwkv_serve_prefill=rwkv_launches["prefill"],
                               rwkv_serve_decode=rwkv_launches["decode"]),
+        max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        library=r["library"]))
+    r = ssm_row
+    kernels.append(dict(
+        name="ssm_scan", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:68",
+        launches=hybrid_launches["generate"]["ssm_scan"],
+        launches_by_path=dict(
+            hybrid_serve_prefill=hybrid_launches["prefill"]["ssm_scan"],
+            hybrid_serve_decode=hybrid_launches["decode"]["ssm_scan"]),
         max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -49,7 +49,8 @@ def params_from_reference(params: Mapping[str, Any], cfg,
     such as rwkv6's `ln_x.scale` become dotted names). The float32 values
     are copied exactly; `load_state_dict` casts each to its parameter's
     dtype, the reference's `astype(cfg.dtype)`, and keeps the leaves the
-    port holds in float32 (rwkv6's `w0`, `u`, `ln_x`) in float32."""
+    port holds in float32 (rwkv6's `w0`, `u`, `ln_x`; mamba's `dt_bias`,
+    `A_log`, `D_skip`) in float32."""
     flat = dict(_flatten({k: v for k, v in params.items()
                           if k != "periods"}))
     n = cfg.n_periods()

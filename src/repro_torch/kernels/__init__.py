@@ -13,6 +13,9 @@
   rwkv6 — the chunked RWKV-6 WKV recurrence (ssm prefill), CUDA C++ for
          sm_90a in `repro_torch/csrc/wkv6.cu`, replacing
          `repro.kernels.rwkv6.kernel.wkv6_pallas`
+  ssd  — the Mamba selective scan (hybrid prefill), CUDA C++ for sm_90a
+         in `repro_torch/csrc/ssd.cu`, replacing
+         `repro.kernels.ssd.kernel.ssm_scan_pallas`
 
 Each package: ref.py (plain torch version or oracle, and the per-entry
 error measure the kernel is held to) and ops.py (dispatch: the CUDA

@@ -1,7 +1,8 @@
 """LM text generation: batched prefill + decode with KV caches.
 
 Port of `repro.launch.serve`: the token-loop server for the model zoo's
-dense (GQA attention, KV caches) and ssm (RWKV-6, recurrent state)
+dense (GQA attention, KV caches), ssm (RWKV-6, recurrent state) and
+hybrid (Jamba: Mamba states, one attention layer's KV cache, MoE)
 families. `generate` runs one prefill and then one decode step per new token
 through the step functions of `launch.steps`, sampling greedily or at a
 temperature from an explicit `torch.Generator`. The sampled token stays
@@ -13,6 +14,7 @@ are the same.
     python -m repro_torch.launch.serve --arch qwen3-0.6b            # CUDA
     python -m repro_torch.launch.serve --arch qwen3-0.6b --device cpu
     python -m repro_torch.launch.serve --arch rwkv6-3b --device cpu
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b --device cpu
 
 As in the reference, `--reduced` is on and cannot be switched off
 (`store_true` with `default=True`); serving a full-width config goes

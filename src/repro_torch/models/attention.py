@@ -54,10 +54,18 @@ def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, Sq, Hkv * G, v.shape[-1])
 
 
+def _scaled(q: torch.Tensor) -> torch.Tensor:
+    """q · 1/√hd in q's dtype, the scale rounded to that dtype first, as
+    jax rounds a Python float against a bf16 array (torch would multiply
+    by the float32 scale and round once)."""
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype,
+                         device=q.device)
+    return q * scale
+
+
 def ref_attention(q, k, v, *, causal: bool = True,
                   q_offset: int = 0) -> torch.Tensor:
-    scale = float(1.0 / math.sqrt(q.shape[-1]))
-    s = _gqa_scores(q * scale, k).float()
+    s = _gqa_scores(_scaled(q), k).float()
     if causal:
         qpos = torch.arange(q.shape[1], device=q.device) + q_offset
         kpos = torch.arange(k.shape[1], device=q.device)
@@ -76,11 +84,10 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     G = Hq // Hkv
     qc, kc = min(q_chunk, Sq), min(k_chunk, Sk)
     assert Sq % qc == 0 and Sk % kc == 0
-    scale = float(1.0 / math.sqrt(hd))
     nq, nk = Sq // qc, Sk // kc
     outs = []
     for i in range(nq):
-        qg = (q[:, i * qc:(i + 1) * qc] * scale).reshape(B, qc, Hkv, G, hd)
+        qg = _scaled(q[:, i * qc:(i + 1) * qc]).reshape(B, qc, Hkv, G, hd)
         n_vis = min(((i + 1) * qc + kc - 1) // kc, nk) if causal else nk
         qpos = torch.arange(i * qc, (i + 1) * qc, device=q.device)
         m = torch.full((B, Hkv, G, qc), NEG_INF, dtype=torch.float32,
@@ -109,8 +116,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
 def decode_attention(q, k_cache, v_cache, cur_len: int) -> torch.Tensor:
     """q: (B, 1, Hq, hd); caches: (B, S, Hkv, ·); attends to the cache
     slots at positions < cur_len."""
-    scale = float(1.0 / math.sqrt(q.shape[-1]))
-    s = _gqa_scores(q * scale, k_cache).float()
+    s = _gqa_scores(_scaled(q), k_cache).float()
     kpos = torch.arange(k_cache.shape[1], device=q.device)
     s = torch.where(kpos < cur_len, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)

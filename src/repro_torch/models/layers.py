@@ -19,7 +19,6 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 def cdtype(cfg) -> torch.dtype:
@@ -141,7 +140,15 @@ class MLP(nn.Module):
 
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    return (silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu` as the reference computes it: x * (1 / (1 + exp(-x))),
+    each step rounded in bf16, bit for bit with jax's CPU lowering
+    (`F.silu` rounds once, `x * torch.sigmoid(x)` twice; both differ from
+    it in a quarter or more of the entries)."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 # -- Embedding + last-position head ----------------------------------------------

@@ -1,8 +1,9 @@
-"""Model: init / prefill / decode for the dense and ssm families.
+"""Model: init / prefill / decode for the dense, ssm and hybrid families.
 
 Port of `repro.models.model` as an `nn.Module`. The layers are grouped
 into periods as in the reference (one "attn" layer per period for the
-dense family, one "rwkv6" layer for the ssm family); `periods` is an
+dense family, one "rwkv6" layer for the ssm family, jamba's eight for the
+hybrid family: "mamba" and "mamba+moe" around one "attn"); `periods` is an
 `nn.ModuleList` of `nn.ModuleDict`s keyed "{i}:{kind}", so the module
 state mirrors the reference's pytree, with the stacked leading axis
 unrolled into the list. Caches keep the reference's structure and its
@@ -10,14 +11,18 @@ stacked layout of `scan_layers`: {"prefix": [], "periods": {key: spec}}
 with each kind's cache spec a pytree of tensors carrying a leading
 (n_periods,) axis, e.g. "0:attn": (k, v) of shape (n_periods, B,
 max_len, Hkv, hd), "0:rwkv6": {"wkv": (n_periods, B, H, dh, dh) float32,
-"shift_tm", "shift_cm": (n_periods, B, 1, D)}. Prefill writes each
-layer's cache into the leading slots of every axis of caches allocated
-at `max_len` (the values the reference's `_pad_seq_caches` gives: leaves
-with a sequence axis are padded, state leaves are written whole); decode
-updates them in place.
+"shift_tm", "shift_cm": (n_periods, B, 1, D)}, "1:mamba+moe": {"h":
+(n_periods, B, di, ds) float32, "conv": (n_periods, B, di, ck - 1)}.
+Prefill writes each layer's cache into the leading slots of every axis
+of caches allocated at `max_len` (the values the reference's
+`_pad_seq_caches` gives: leaves with a sequence axis are padded, state
+leaves are written whole); decode updates them in place.
+
+The MoE layers' aux losses are summed over the layers, as in the
+reference (serving reads none of them).
 
 Entry points compute on CUDA unless the caller passes `device="cpu"`
-(`build_model`); families other than dense and ssm raise
+(`build_model`); the other families (moe, audio, vlm) raise
 `NotImplementedError`.
 """
 from __future__ import annotations
@@ -32,7 +37,7 @@ from . import blocks
 from .config import ModelConfig
 from .layers import Embedding, Head, RMSNorm
 
-_PORTED = ("dense", "ssm")
+_PORTED = ("dense", "ssm", "hybrid")
 
 
 def _is_spec(x) -> bool:
@@ -58,8 +63,8 @@ class Model(nn.Module):
         if cfg.family not in _PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
-                "port serves the dense and ssm families (ROADMAP Queue 1 "
-                "item 14)")
+                "port serves the dense, ssm and hybrid families (ROADMAP "
+                "Queue 1 item 14)")
         self.cfg = cfg
         self.kinds = cfg.layer_kinds()
         self.embed = Embedding(cfg, device)

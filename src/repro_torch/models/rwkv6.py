@@ -24,7 +24,7 @@ from torch import nn
 
 from ..kernels.rwkv6 import ops as wops
 from ..kernels.rwkv6.ref import SUB, wkv_chunked  # noqa: F401 (names kept)
-from .layers import _normal, cdtype, dense_init, frozen, load_
+from .layers import _normal, cdtype, dense_init, frozen, load_, silu
 
 LORA_SHIFT = 32     # token-shift ddlerp lora rank
 LORA_DECAY = 64     # decay lora rank
@@ -164,7 +164,7 @@ def time_mix(p: RWKV6, cfg, x, shift_prev, state, decode: bool = False):
     k = (xk @ p.wk).reshape(B, S, H, dh)
     v = (xv @ p.wv).reshape(B, S, H, dh)
     g = xg @ p.wg
-    g = g * torch.sigmoid(g)  # jax.nn.silu's two roundings in bf16
+    g = silu(g)  # jax.nn.silu's roundings in bf16
     logw = -torch.exp(p.w0.float()
                       + (torch.tanh(xw @ p.wA) @ p.wB).float())
     logw = logw.clamp(-MAX_DECAY, -1e-4)  # see MAX_DECAY note

@@ -1,8 +1,10 @@
-"""The port's dense LM family against the reference's.
+"""The port's LM families against the reference's.
 
 For each dense config's `reduced()` (qwen3-0.6b with qk_norm, llama3.2-1b
-and -3b, phi3-medium-14b, lm-100m) and for the ssm family's (rwkv6-3b: 2
-layers, d 128, dh 32, chunk 16): the reference's `Model.init(
+and -3b, phi3-medium-14b, lm-100m), for the ssm family's (rwkv6-3b: 2
+layers, d 128, dh 32, chunk 16) and for the hybrid family's (jamba: 2
+periods of 8 layers, 7 Mamba + 1 attention each, d 128, d_state 8, MoE of
+4 experts top-2 on every second layer): the reference's `Model.init(
 PRNGKey(0))` parameters carried over with `params_from_reference`, then
 the same seeded numpy tokens through both packages on the CPU. Prefill
 runs at S ≤ attn_chunk (the "ref" attention path in both) and at
@@ -12,9 +14,10 @@ order; observed ≤ 2e-5). Decode is compared step by step, greedy
 `generate` token for token, and one bfloat16 case within the bfloat16
 tolerance of `tests/test_kernels.py` (2e-2). The port's own mirror of
 `tests/test_models.py::test_decode_matches_prefill` keeps its 5e-3
-(2e-2 for the recurrent family, as the reference). rwkv6's caches are
-its per-layer WKV state and token-shift carries, compared leaf by leaf;
-its prefill also runs at a ragged S 40 (the chunk is 16).
+(2e-2 for the recurrent families, as the reference). Every period cache
+is compared leaf by leaf: K/V, rwkv6's WKV state and token-shift
+carries, Mamba's scan state and conv carry; rwkv6's prefill also runs at
+a ragged S 40 (the chunk is 16).
 """
 import dataclasses
 
@@ -30,7 +33,8 @@ from repro_torch.models import build_model
 DENSE = ["qwen3_0_6b", "llama3_2_1b", "llama3_2_3b", "phi3_medium_14b",
          "lm_100m"]
 SSM = ["rwkv6_3b"]
-SERVED = DENSE + SSM
+HYBRID = ["jamba_v0_1_52b"]
+SERVED = DENSE + SSM + HYBRID
 MODEL_ARCHS = [a for a in ARCHS if a != "paper_hpo"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -39,19 +43,24 @@ jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
 
-def _pair(arch, dtype=None):
+def _pair(arch, dtype=None, **overrides):
     """(reference model, its params, the port's model on the CPU holding
-    the same values), for the reduced config."""
+    the same values), for the reduced config (with `overrides`)."""
     from repro.configs import get_config as ref_config
     from repro.models import build_model as ref_build
-    rcfg, cfg = ref_config(arch).reduced(), get_config(arch).reduced()
-    if dtype:
-        rcfg, cfg = rcfg.with_(dtype=dtype), cfg.with_(dtype=dtype)
+    kw = dict(overrides, **({"dtype": dtype} if dtype else {}))
+    rcfg = ref_config(arch).reduced().with_(**kw)
+    cfg = get_config(arch).reduced().with_(**kw)
     ref = ref_build(rcfg)
-    params = ref.init(jax.random.PRNGKey(0))
+    # the same float32 values whichever tests ran before in this process:
+    # with jax's x64 mode on (a test that imports `repro.core` turns it on
+    # for the process) the reference's init scales by numpy float64
+    # scalars, computes in float64 and returns other values
+    with jax.enable_x64(False):
+        params = jax.tree_util.tree_map(np.asarray,
+                                        ref.init(jax.random.PRNGKey(0)))
     port = build_model(cfg, device="cpu")
-    port.load_state_dict(params_from_reference(
-        jax.tree_util.tree_map(np.asarray, params), cfg, "cpu"))
+    port.load_state_dict(params_from_reference(params, cfg, "cpu"))
     return ref, params, port
 
 
@@ -75,27 +84,31 @@ def _leaves(tree):
     return [tree]
 
 
-def _key(cfg):
-    return f"0:{cfg.layer_kinds()[0]}"
-
-
 def _caches(caches, cfg):
-    return [np.asarray(t, np.float32)
-            for t in _leaves(caches["periods"][_key(cfg)])]
+    return [np.asarray(t, np.float32) for t in _leaves(caches["periods"])]
 
 
 def _port_caches(caches, cfg):
-    return [t.float().numpy() for t in _leaves(caches["periods"][_key(cfg)])]
+    return [t.float().numpy() for t in _leaves(caches["periods"])]
 
 
 def _cache_shapes(cfg, batch, max_len):
-    """The stacked cache leaves' shapes, in `_leaves` order."""
-    L = cfg.n_layers
-    if cfg.family == "ssm":
-        dh = cfg.rwkv_head_dim
-        return [(L, batch, 1, cfg.d_model), (L, batch, 1, cfg.d_model),
-                (L, batch, cfg.d_model // dh, dh, dh)]
-    return [(L, batch, max_len, cfg.kv_heads, cfg.head_dim)] * 2
+    """The stacked cache leaves' shapes, in `_leaves` order (period keys
+    "{i}:{kind}" sorted, then each kind's leaves)."""
+    n = cfg.n_periods()
+    shapes = []
+    for _, kind in sorted(enumerate(cfg.layer_kinds()),
+                          key=lambda ik: f"{ik[0]}:{ik[1]}"):
+        if kind == "rwkv6":
+            dh = cfg.rwkv_head_dim
+            shapes += [(n, batch, 1, cfg.d_model), (n, batch, 1, cfg.d_model),
+                       (n, batch, cfg.d_model // dh, dh, dh)]
+        elif kind.startswith("mamba"):  # "conv", "h"
+            shapes += [(n, batch, cfg.d_inner, cfg.conv_kernel - 1),
+                       (n, batch, cfg.d_inner, cfg.d_state)]
+        else:
+            shapes += [(n, batch, max_len, cfg.kv_heads, cfg.head_dim)] * 2
+    return shapes
 
 
 def _check_prefill(ref, params, port, seq):
@@ -164,7 +177,7 @@ def test_decode_matches_prefill(arch):
     logits, caches = model.prefill(toks[:, :n0], max_len=total)
     for t in range(n0, total):
         logits, caches = model.decode_step(toks[:, t:t + 1], caches, t)
-    tol = 2e-2 if cfg.family == "ssm" else 5e-3
+    tol = 2e-2 if cfg.family in ("ssm", "hybrid") else 5e-3
     np.testing.assert_allclose(logits.numpy(), full.numpy(), rtol=tol,
                                atol=tol)
 
@@ -177,23 +190,85 @@ def test_bfloat16_rwkv6_prefill_and_decode_match_reference():
     _check_bfloat16("rwkv6_3b")
 
 
-def _check_bfloat16(arch):
-    ref, params, port = _pair(arch, dtype="bfloat16")
+def test_bfloat16_jamba_prefill_and_decode_match_reference(monkeypatch):
+    """bf16 rounds differently in the two packages, and a rounding can
+    flip a near-tied top-2 choice of the router; one flipped token moves
+    its whole row and, through the Mamba scan, the later positions of its
+    sequence. So the port replays the reference's routing: the reference
+    runs its periods unscanned (`jax.lax.top_k` then runs eagerly and its
+    choices can be read), and the port's `route` takes them call by call,
+    with its own probabilities at those experts. Left free, the port must
+    route at least 90 % of the tokens alike. The model is one period (8
+    layers, every kind jamba has; the depth chip_smoke serves): each layer
+    reads bit for bit the same in decode given the same input, and ≤ 1 %
+    of a prefill layer's entries differ by an ulp (the scan's float32
+    arithmetic fused otherwise by XLA, then rounded to bf16), but that
+    drift grows with depth: two periods read 0.015–0.025 of the logits
+    across weight draws, at the 2e-2 limit, one period ≤ 0.012."""
+    _check_bfloat16("jamba_v0_1_52b", _ReferenceRouting(monkeypatch),
+                    n_layers=8)
+
+
+class _ReferenceRouting:
+    """Reads the reference's top-k choices and replays them in the port's
+    `route`, in call order; counts the tokens the port would route
+    otherwise."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.models import moe as tmoe
+        self.choices, self.tokens, self.flips = [], 0, 0
+        top_k, route = jax.lax.top_k, tmoe.route
+
+        def record(x, k):
+            vals, idx = top_k(x, k)
+            self.choices.append(np.asarray(idx))
+            return vals, idx
+
+        def replay(p, cfg, xf):
+            probs, _, own = route(p, cfg, xf)
+            idx = torch.from_numpy(self.choices.pop(0).astype(np.int64))
+            self.tokens += idx.shape[0]
+            self.flips += int((idx != own).any(-1).sum())
+            return probs, probs.gather(1, idx), idx
+
+        monkeypatch.setattr(jax.lax, "top_k", record)
+        monkeypatch.setattr(tmoe, "route", replay)
+
+    @staticmethod
+    def unscanned(ref, params):
+        """The reference model with its periods run one by one."""
+        from repro.models import build_model as ref_build
+        n = ref.cfg.n_periods()
+        periods = [jax.tree_util.tree_map(lambda a, i=i: a[i],
+                                          params["periods"])
+                   for i in range(n)]
+        return (ref_build(ref.cfg.with_(scan_layers=False)),
+                dict(params, periods=periods))
+
+
+def _check_bfloat16(arch, routing=None, **overrides):
+    ref, params, port = _pair(arch, dtype="bfloat16", **overrides)
     assert port.embed.tok.dtype == torch.bfloat16
     assert port.final_norm.scale.dtype == torch.float32
+    step = jax.jit(ref.decode_step)
+    if routing is not None:
+        ref, params = routing.unscanned(ref, params)
+        step = ref.decode_step  # eager: its routing is read as it runs
     toks = _tokens(4, port.cfg, 2, 40)
     want, wcache = ref.prefill(params, jnp.asarray(toks[:, :32]), max_len=40)
     got, gcache = port.prefill(torch.from_numpy(toks[:, :32]), max_len=40)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **BF16_TOL)
-    step = jax.jit(ref.decode_step)
     for t in range(32, 36):
         nxt = toks[:, t:t + 1]
         want, wcache = step(params, jnp.asarray(nxt), wcache, jnp.int32(t))
         got, gcache = port.decode_step(torch.from_numpy(nxt), gcache, t)
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32), **BF16_TOL)
+    if routing is not None:
+        assert not routing.choices and routing.tokens
+        assert routing.flips <= 0.1 * routing.tokens
 
 
 def test_temperature_sampling_is_seeded():
@@ -223,14 +298,15 @@ def test_configs_and_counts_match_reference(arch):
     assert cfg.param_counts() == rcfg.param_counts()
     assert cfg.total_params() == rcfg.total_params()
     assert cfg.active_params() == rcfg.active_params()
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_model(cfg, device="meta")
         return
     n = build_model(cfg, device="meta").n_params()
-    if cfg.family == "ssm":
-        # rwkv6's own leaves (mu, lora, w0, u, ln_x, ...) are more than
-        # total_params counts; the reference's n_params counts them all
+    if cfg.family in ("ssm", "hybrid"):
+        # rwkv6's own leaves (mu, lora, w0, u, ln_x, ...) and mamba's
+        # (conv_b, dt_bias, D_skip, the full x_proj and dt_proj) are more
+        # than total_params counts; the reference's n_params counts them
         assert n == ref_build(rcfg).n_params()
         return
     # the reference's n_params counts the norm scales, which
