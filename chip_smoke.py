@@ -10,7 +10,8 @@ card. One JSON line per phase:
   1. device        — the card (and `nvidia-smi`'s name and power limit)
   2. build         — compile `src/repro_torch/csrc/*.cu` (gram, spmm,
                      flash, wkv6, ssd) for sm_90a, one `nvcc` per source,
-                     all started together
+                     all started together; the bf16 flash instantiations
+                     must spill nothing (ptxas's report)
   3. kernel        — gram/xtv against the plain version at the path's
                      shapes in float64/float32/bfloat16, with kernel, plain,
                      library (one torch.matmul, a yardstick the port never
@@ -23,8 +24,9 @@ card. One JSON line per phase:
   5. flash_kernel  — the flash-attention kernel against its plain version
                      computed in float32 from the same inputs, each entry
                      within a bound of its own envelope, at the
-                     serving path's shapes (qwen3-0.6b and llama3.2-1b
-                     heads, ragged prompts, non-causal, float32), bitwise
+                     serving path's shapes (qwen3-0.6b, llama3.2-1b and
+                     jamba-v0.1-52b heads, ragged prompts, non-causal,
+                     float32), bitwise
                      repeatable, with kernel, plain, library (one
                      scaled_dot_product_attention, a yardstick the port
                      never calls) and bound times
@@ -45,7 +47,8 @@ card. One JSON line per phase:
                      (28 layers, bf16, seeded weights): `generate` for a
                      batch of 8 2,048-token prompts and 32 greedy tokens,
                      its own steps read for launches (one flash launch per
-                     layer in prefill, none in decode) and times;
+                     layer in prefill, none in decode) and times, then the
+                     same prefill once more, warm (each serving phase);
                      teacher-forced decode against prefill logits, kernel
                      against plain attention and against two planted
                      faults; tokens/s, peak memory, a traced idle share
@@ -882,6 +885,7 @@ def phase_sparse_lm(scale: int = 1) -> dict:
 FLASH_CASES = [
     ("qwen3-0.6b", 8, 2048, 2048, 16, 8, 128, True, "bfloat16"),
     ("llama3.2-1b", 8, 2048, 2048, 32, 8, 64, True, "bfloat16"),
+    ("jamba-v0.1-52b", 8, 2048, 2048, 32, 8, 128, True, "bfloat16"),
     ("ragged-1000", 8, 1000, 1000, 16, 8, 128, True, "bfloat16"),
     ("ragged-17", 8, 17, 17, 16, 8, 128, True, "bfloat16"),
     ("non-causal", 8, 2048, 1024, 16, 8, 128, False, "bfloat16"),
@@ -996,6 +1000,20 @@ def _probed_steps(*counters):
         serve.make_prefill_step, serve.make_decode_step = makers
 
 
+def _warm_prefill_ms(model, tokens, max_len: int) -> float:
+    """The main path's prefill is the first at its size and pays the
+    caching allocator's first-use costs: the same prefill once more, warm,
+    in CUDA-event milliseconds."""
+    import torch
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    model.prefill(tokens, max_len=max_len)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
 @contextlib.contextmanager
 def _prefill_attention(fn):
     """Prefill attention computed by `fn(q, k, v)` inside the block: the
@@ -1035,7 +1053,7 @@ def _shifted_mask(S, device):
 
 def _late_block_dropped(S, device):
     """Causal, but the last 64 queries miss the 64 keys from S/2 on: one kv
-    block of the kernel's last q tile."""
+    tile of one consumer warpgroup of the kernel's last q tile."""
     import torch
     pos = torch.arange(S, device=device)
     lost = ((pos[:, None] >= S - 64) & (pos[None, :] >= S // 2)
@@ -1079,6 +1097,8 @@ def phase_lm_serve(peaks: dict, cfg=None, batch: int = 8, prompt: int = 2048,
         wall = time.perf_counter() - t0
         launches = fops.LAUNCHES["flash"]
     peak_bytes = torch.cuda.max_memory_allocated()
+    tokens = torch.from_numpy(prompts).to(dev)
+    prefill_warm_ms = _warm_prefill_ms(model, tokens, max_len)
     prefills = [st for st in steps if st[0] == "prefill"]
     decodes = [st for st in steps if st[0] == "decode"]
     prefill_launches = sum(st[1]["flash"] for st in prefills)
@@ -1088,7 +1108,6 @@ def phase_lm_serve(peaks: dict, cfg=None, batch: int = 8, prompt: int = 2048,
 
     # teacher-forced decode against a full prefill (the reference's
     # test_decode_matches_prefill, at full width and in bf16)
-    tokens = torch.from_numpy(prompts).to(dev)
     n0 = prompt - 16
     full, _ = model.prefill(tokens, max_len=prompt)
     tf, cache = model.prefill(tokens[:, :n0], max_len=prompt)
@@ -1151,7 +1170,8 @@ def phase_lm_serve(peaks: dict, cfg=None, batch: int = 8, prompt: int = 2048,
                                    prefill=prefill_launches,
                                    decode=decode_launches),
                steps=dict(prefill=len(prefills), decode=len(decodes)),
-               prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound_ms,
+               prefill_ms=prefill_ms, prefill_warm_ms=prefill_warm_ms,
+               prefill_bound_ms=prefill_bound_ms,
                decode_ms_per_token=decode_ms,
                decode_bound_ms=decode_bound_ms,
                peak_memory_gb=peak_bytes / 1e9, logits_finite=finite,
@@ -1367,6 +1387,8 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
         wall = time.perf_counter() - t0
         launches = wops.LAUNCHES["wkv6"]
     peak_bytes = torch.cuda.max_memory_allocated()
+    tokens = torch.from_numpy(prompts).to(dev)
+    prefill_warm_ms = _warm_prefill_ms(model, tokens, max_len)
     prefills = [st for st in steps if st[0] == "prefill"]
     decodes = [st for st in steps if st[0] == "decode"]
     prefill_launches = sum(st[1]["wkv6"] for st in prefills)
@@ -1378,7 +1400,6 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
     _, trace_wall, busy, by_name = device_trace(
         lambda: generate(model, prompts, max_new=new, max_len=max_len))
     wops.reset_launches()
-    tokens = torch.from_numpy(prompts).to(dev)
     # the timed bf16 model: each layer's WKV kernel call against the plain
     # version on its own served inputs (a measure no depth amplifies), and
     # the routes' split layer by layer; the end-to-end sound routes are
@@ -1428,7 +1449,8 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
                                   prefill=prefill_launches,
                                   decode=decode_launches),
                steps=dict(prefill=len(prefills), decode=len(decodes)),
-               prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound_ms,
+               prefill_ms=prefill_ms, prefill_warm_ms=prefill_warm_ms,
+               prefill_bound_ms=prefill_bound_ms,
                decode_ms_per_token=decode_ms,
                decode_bound_ms=decode_bound_ms,
                peak_memory_gb=peak_bytes / 1e9,
@@ -1881,6 +1903,8 @@ def phase_hybrid_serve(peaks: dict, cfg=None, batch: int = 8,
         launches = dict(ssm_scan=sops.LAUNCHES["ssm_scan"],
                         flash=fops.LAUNCHES["flash"])
     peak_bytes = torch.cuda.max_memory_allocated()
+    tokens = torch.from_numpy(prompts).to(dev)
+    prefill_warm_ms = _warm_prefill_ms(model, tokens, max_len)
     prefills = [st for st in steps if st[0] == "prefill"]
     decodes = [st for st in steps if st[0] == "decode"]
     by_step = {kind: {key: sum(st[1][key] for st in sts) for key in launches}
@@ -1899,7 +1923,6 @@ def phase_hybrid_serve(peaks: dict, cfg=None, batch: int = 8,
     sops.reset_launches()
     fops.reset_launches()
 
-    tokens = torch.from_numpy(prompts).to(dev)
     layers = _hybrid_layers(model, tokens)
     tf = _hybrid_teacher_forced(model, tokens)
     routes = _hybrid_routes(model, tokens)
@@ -1944,7 +1967,8 @@ def phase_hybrid_serve(peaks: dict, cfg=None, batch: int = 8,
                tokens_per_s=batch * new / wall, launches=launches,
                launches_by_step=by_step,
                steps=dict(prefill=len(prefills), decode=len(decodes)),
-               prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound_ms,
+               prefill_ms=prefill_ms, prefill_warm_ms=prefill_warm_ms,
+               prefill_bound_ms=prefill_bound_ms,
                decode_ms_per_token=decode_ms, decode_bound_ms=decode_bound_ms,
                decode_experts_touched_per_layer=touched,
                decode_host_syncs_per_step=n_moe,
@@ -2080,6 +2104,24 @@ def _hybrid_teacher_forced(model, tokens, n_new: int = 16) -> dict:
                 free=dict(logits_rel_err=run()), decoded=n_new)
 
 
+def flash_bf16_spills(log: str) -> dict:
+    """Spill bytes (stores + loads) of each bfloat16 flash instantiation,
+    by head dim, from ptxas's report in the build log."""
+    import re
+    spills, hd = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*flash_bf16_kernelILi(\d+)E",
+                      ln)
+        if m:
+            hd = int(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and hd is not None:
+            spills[hd] = int(m.group(1)) + int(m.group(2))
+            hd = None
+    return spills
+
+
 def _traced(wall: float, busy, by_name: dict) -> dict:
     return dict(wall_s=wall, device_busy_s=busy,
                 idle_share=None if busy is None else 1 - busy / wall,
@@ -2107,12 +2149,16 @@ def main() -> int:
     sources = ("gram", "spmm", "flash", "wkv6", "ssd")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         built = dict(zip(sources, pool.map(build.build, sources)))
+    spills = flash_bf16_spills(build.build_log("flash"))
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=built,
               ptxas={src: [ln.strip() for ln in
                            build.build_log(src).splitlines()
                            if "registers" in ln or "spill" in ln]
-                     for src in sources}))
+                     for src in sources},
+              flash_bf16_spill_bytes=spills))
+    if sorted(spills) != [32, 64, 128] or any(spills.values()):
+        raise AssertionError(f"bf16 flash instantiations spill: {spills}")
 
     main_rows = phase_kernels(peaks)
     sparse_rows = phase_sparse_kernels(peaks)

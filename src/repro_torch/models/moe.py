@@ -8,7 +8,8 @@ dispatch:
      reference's `jax.lax.ragged_dot`, a plain product that XLA computes:
      here one `torch.matmul` per populated expert),
   4. the weighted replicas summed back in token order in the compute
-     dtype.
+     dtype, each token's in ascending expert id (the reference's
+     scatter-add order).
 The group sizes slice the sorted replicas on the host, so each MoE layer
 synchronises with the card once per call (once per token in decode).
 Shared experts (DeepSeek) run as a dense MLP on every token. The
@@ -126,12 +127,17 @@ def moe_forward_local(p: MoE, cfg, x: torch.Tensor):
             eo[rows] = h @ p.w_down[e]
         start += n
 
-    # the weighted replicas back in token order, summed over each token's
-    # k replicas in the compute dtype (0 + r_0 + r_1 + ...)
+    # the weighted replicas back in token order, each token's k replicas
+    # summed in the compute dtype in ascending expert id (0 + r_e1 + r_e2
+    # + ... with e1 < e2 < ...): the order in which the reference's
+    # scatter-add applies them, replica by replica in the expert-sorted
+    # order (at k = 2 any order gives the same bits)
     w_sorted = weights.reshape(T * k)[sort_idx].to(dt)
     contrib = torch.empty_like(eo)
     contrib[sort_idx] = eo * w_sorted[:, None]
-    contrib = contrib.reshape(T, k, D)
+    by_expert = torch.argsort(top_idx, dim=-1, stable=True)      # (T, k)
+    contrib = contrib.reshape(T, k, D)[
+        torch.arange(T, device=x.device)[:, None], by_expert]
     out = torch.zeros((T, D), dtype=dt, device=x.device)
     for j in range(k):
         out = out + contrib[:, j]

@@ -16,7 +16,8 @@ entry within `KERNEL_TOL[dtype]` of its envelope Σ p_j |v_j|
 its output, each by at most 2⁻⁸ of the envelope: 2⁻⁷, plus 2⁻¹⁶ for
 float32's share, which is all a float32 kernel may differ by. The CPU
 cases show the limit passes these roundings and fails planted faults: a
-kv block dropped from the last q tile, and a causal mask off by one.
+block of 64 or of 128 keys dropped from the last q rows, and a causal
+mask off by one.
 This module imports jax only inside the `reference` fixture.
 """
 import math
@@ -118,15 +119,17 @@ def _attention_f32(q, k, v, mask, p_dtype=torch.float32):
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, hd)
 
 
-def _late_block_dropped(pos, S):
-    lost = ((pos[:, None] >= S - 64) & (pos[None, :] >= S // 2)
-            & (pos[None, :] < S // 2 + 64))
+def _late_block_dropped(pos, S, n=64):
+    lost = ((pos[:, None] >= S - n) & (pos[None, :] >= S // 2)
+            & (pos[None, :] < S // 2 + n))
     return (pos[:, None] >= pos[None, :]) & ~lost
 
 
 FAULTS = {
-    # the last q tile of 64 rows misses one kv block of 64 keys
+    # the last 64 q rows miss one block of 64 keys
     "late_block_dropped": _late_block_dropped,
+    # the last q tile of 128 rows misses one block of 128 keys
+    "late_block128_dropped": lambda pos, S: _late_block_dropped(pos, S, 128),
     # each query also sees the next key
     "mask_shifted": lambda pos, S: pos[:, None] + 1 >= pos[None, :],
 }
@@ -172,6 +175,11 @@ def cuda_device():
     (2, 1000, 1000, 16, 8, 128, True),  # ragged prompt
     (3, 17, 17, 4, 2, 32, True),
     (2, 300, 1024, 16, 8, 128, False),  # cross-attention shape
+    (2, 512, 512, 32, 8, 128, True),    # jamba-v0.1-52b heads
+    (2, 200, 200, 4, 2, 32, True),      # hd 32, Sq not a multiple of 128
+    (2, 129, 129, 4, 2, 128, True),     # one row past a q tile
+    (2, 64, 100, 4, 2, 64, False),      # one full kv tile and a ragged one
+    (2, 64, 40, 4, 2, 128, False),      # fewer keys than one kv tile
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(cuda_device, rng, B, Sq, Sk, Hq,

@@ -27,8 +27,11 @@ def _layer(dtype="float32", seed=3):
     from repro.models.mamba import mamba_init
     rcfg = ref_config("jamba-v0.1-52b").reduced().with_(dtype=dtype)
     cfg = get_config("jamba-v0.1-52b").reduced().with_(dtype=dtype)
-    params = jax.tree_util.tree_map(
-        np.asarray, mamba_init(jax.random.PRNGKey(seed), rcfg))
+    # float32 draws whichever tests ran before in this process (a test
+    # that imports `repro.core` turns jax's x64 mode on for the process)
+    with jax.enable_x64(False):
+        params = jax.tree_util.tree_map(
+            np.asarray, mamba_init(jax.random.PRNGKey(seed), rcfg))
     mod = tmamba.Mamba(cfg, "cpu")
     mod.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
                          for k, v in params.items()})

@@ -25,16 +25,20 @@ jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
 
-def _layer(arch, dtype="float32", seed=1, ties=False):
+def _layer(arch, dtype="float32", seed=1, ties=False, **overrides):
     """(reference cfg, reference params, the port's cfg, its MoE module
-    holding the same values). With `ties`, experts 1..3 share expert 0's
-    router column, so their logits tie exactly."""
+    holding the same values), of the reduced config with `overrides`. With
+    `ties`, experts 1..3 share expert 0's router column, so their logits
+    tie exactly."""
     from repro.configs import get_config as ref_config
     from repro.models.moe import moe_init
-    rcfg = ref_config(arch).reduced().with_(dtype=dtype)
-    cfg = get_config(arch).reduced().with_(dtype=dtype)
-    params = jax.tree_util.tree_map(
-        np.asarray, moe_init(jax.random.PRNGKey(seed), rcfg))
+    rcfg = ref_config(arch).reduced().with_(dtype=dtype, **overrides)
+    cfg = get_config(arch).reduced().with_(dtype=dtype, **overrides)
+    # float32 draws whichever tests ran before in this process (a test
+    # that imports `repro.core` turns jax's x64 mode on for the process)
+    with jax.enable_x64(False):
+        params = jax.tree_util.tree_map(
+            np.asarray, moe_init(jax.random.PRNGKey(seed), rcfg))
     if ties:
         params["router"] = params["router"].copy()
         params["router"][:, 1:4] = params["router"][:, :1]
@@ -90,6 +94,34 @@ def test_routing_ties_break_to_the_lower_index_in_bfloat16(rng):
     np.testing.assert_allclose(float(aux), float(waux), rtol=1e-5)
 
 
+@pytest.mark.parametrize("shared", [False, True])
+def test_top6_bfloat16_sums_replicas_in_expert_order(rng, shared):
+    """At k = 6 in bfloat16 (deepseek-moe-16b's reduced 8 experts; the
+    reduced config caps k at 2) the order in which a token's replicas are
+    summed shows: the reference's scatter-add applies them in ascending
+    expert id, and so must the port (ROADMAP Queue 3 item 21; the top-k
+    order matched ~48 % of entries). Without the shared expert the two
+    agree bit for bit. The shared expert's dense bf16 product is a
+    rounding of its own (XLA's dot and torch's matmul differ in a few
+    entries), so with it the layer is held within bfloat16's 2e-2."""
+    from repro.models import moe as rmoe
+    over = dict(moe_top_k=6) if shared else dict(moe_top_k=6,
+                                                 n_shared_experts=0)
+    rcfg, params, cfg, mod = _layer("deepseek_moe_16b", "bfloat16", **over)
+    assert (cfg.n_experts, cfg.moe_top_k) == (8, 6)
+    assert bool(cfg.n_shared_experts) == shared
+    jx, tx = _x(rng, cfg, "bfloat16", S=32)
+    want, waux = rmoe.moe_forward_local(params, rcfg, jx)
+    got, aux = tmoe.moe_forward_local(mod, cfg, tx)
+    assert got.dtype == torch.bfloat16
+    if shared:
+        _close(got, want, 2e-2)
+    else:
+        assert torch.equal(got.float(),
+                           torch.from_numpy(np.asarray(want, np.float32)))
+    np.testing.assert_allclose(float(aux), float(waux), rtol=1e-5)
+
+
 def test_top_k_takes_the_lower_index_among_equals():
     probs = torch.tensor([[0.1, 0.3, 0.3, 0.3], [0.25, 0.25, 0.25, 0.25]])
     vals, idx = tmoe.top_k(probs, 2)
@@ -128,8 +160,9 @@ def test_moe_blocks_match_reference(rng, kind, arch):
     from repro_torch.models import blocks as tblocks
     from repro_torch.models.model import _tree_map
     rcfg, cfg = ref_config(arch).reduced(), get_config(arch).reduced()
-    params = jax.tree_util.tree_map(
-        np.asarray, rblocks.block_init(jax.random.PRNGKey(2), rcfg, kind))
+    with jax.enable_x64(False):  # float32 draws, as in _layer
+        params = jax.tree_util.tree_map(
+            np.asarray, rblocks.block_init(jax.random.PRNGKey(2), rcfg, kind))
     blk = tblocks.Block(cfg, kind, "cpu")
     blk.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
                          for k, v in _flat(params)})

@@ -273,8 +273,11 @@ def layer_pair():
     from repro_torch.configs import get_config
     rcfg, cfg = ref_config("rwkv6-3b").reduced(), \
         get_config("rwkv6-3b").reduced()
-    params = jax.tree_util.tree_map(
-        np.asarray, rwkv6_init(jax.random.PRNGKey(3), rcfg))
+    # float32 draws whichever tests ran before in this process (a test
+    # that imports `repro.core` turns jax's x64 mode on for the process)
+    with jax.enable_x64(False):
+        params = jax.tree_util.tree_map(
+            np.asarray, rwkv6_init(jax.random.PRNGKey(3), rcfg))
     mod = trwkv.RWKV6(cfg, "cpu")
     mod.load_state_dict({
         (f"ln_x.{k2}" if k == "ln_x" else k):
