@@ -11,11 +11,14 @@ card. One JSON line per phase:
   2. build         — compile `src/repro_torch/csrc/*.cu` (gram, spmm,
                      flash, wkv6, ssd) for sm_90a, one `nvcc` per source,
                      all started together; the bf16 flash instantiations
-                     must spill nothing (ptxas's report)
+                     and gram's float64 and bf16 partial kernels must
+                     spill nothing (ptxas's report)
   3. kernel        — gram/xtv against the plain version at the path's
-                     shapes in float64/float32/bfloat16, with kernel, plain,
-                     library (one torch.matmul, a yardstick the port never
-                     calls) and bound times
+                     shapes in float64/float32/bfloat16 (and a column slice
+                     at an offset, an odd width), bitwise repeatable, gram
+                     bitwise symmetric, with kernel, plain, library (one
+                     torch.matmul, a yardstick the port never calls) and
+                     bound times and the wrapper's host time (`host_us`)
   4. sparse_kernel — the block-sparse gram_bs/xtv_bs/spmm kernels against
                      their plain version at the bcoo paths' shapes (blocky,
                      uniform and a ragged tail), bitwise against the same
@@ -281,6 +284,20 @@ def bound(kind: str, m: int, n: int, c: int, dtype: str, peaks: dict
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Microseconds of host time per call of `fn`: `calls` back-to-back
+    calls with no synchronise inside (the card runs behind)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_kernels(peaks: dict) -> dict:
     import numpy as np
     import torch
@@ -291,18 +308,22 @@ def phase_kernels(peaks: dict) -> dict:
     dt = {"float64": torch.float64, "float32": torch.float32,
           "bfloat16": torch.bfloat16}
     rng = np.random.default_rng(SEED)
-    # the streaming bucket, its ragged tail, the quickstart matrix
-    cases = [("gram", 8192, 1000, 0), ("gram", 1696, 1000, 0),
-             ("gram", 5000, 64, 0), ("xtv", 8192, 1000, 1),
-             ("xtv", 1696, 1000, 1), ("xtv", 5000, 64, 1),
-             ("xtv", 8192, 1000, 3)]
+    # the streaming bucket, its ragged tail, the quickstart matrix; then
+    # steplm's column slice at an offset (8-byte-aligned base, element
+    # copies) and an odd width (8-byte-aligned rows)
+    cases = [("gram", 8192, 1000, 0, 0), ("gram", 1696, 1000, 0, 0),
+             ("gram", 5000, 64, 0, 0), ("xtv", 8192, 1000, 1, 0),
+             ("xtv", 1696, 1000, 1, 0), ("xtv", 5000, 64, 1, 0),
+             ("xtv", 8192, 1000, 3, 0), ("gram", 20000, 34, 0, 1),
+             ("xtv", 20000, 34, 1, 1), ("gram", 3000, 1001, 0, 0),
+             ("xtv", 3000, 1001, 3, 0)]
     main = {}
-    for kind, m, n, c in cases:
-        host = from_reference({"x": rng.standard_normal((m, n)),
-                               "v": rng.standard_normal((m, max(c, 1)))},
-                              "cuda")
+    for kind, m, n, c, offset in cases:
+        host = from_reference(
+            {"x": rng.standard_normal((m, n + offset)),
+             "v": rng.standard_normal((m, max(c, 1)))}, "cuda")
         for name, dtype in dt.items():
-            x = host["x"].to(dtype)
+            x = host["x"].to(dtype)[:, offset:]
             if kind == "gram":
                 args, kern, plain = (x,), ops.gram_cuda, ref.gram
                 lib = (lambda x=x: torch.matmul(x.mT, x))
@@ -328,12 +349,14 @@ def phase_kernels(peaks: dict) -> dict:
             # the card's own time for the kernel passes (no host work)
             _, _, dev_s, _ = device_trace(
                 lambda: [kern(*args) for _ in range(10)])
+            us = host_us(lambda: kern(*args))
             ops.LAUNCHES.update(saved)
             row = dict(phase="kernel", kernel=kind, m=m, n=n, c=c or None,
+                       offset=offset or None, aligned16=ops.aligned16(x),
                        dtype=name, max_abs_err=err, scaled_err=scaled,
                        tol=TOL[name], ok=ok, ms=ms,
                        device_ms=None if dev_s is None else 100 * dev_s,
-                       plain_ms=plain_ms, library_ms=library_ms,
+                       host_us=us, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bms, bound_by=by)
             emit(row)
             if not ok:
@@ -2104,22 +2127,34 @@ def _hybrid_teacher_forced(model, tokens, n_new: int = 16) -> dict:
                 free=dict(logits_rel_err=run()), decoded=n_new)
 
 
-def flash_bf16_spills(log: str) -> dict:
-    """Spill bytes (stores + loads) of each bfloat16 flash instantiation,
-    by head dim, from ptxas's report in the build log."""
+def ptxas_spills(log: str, entry: str) -> dict:
+    """Spill bytes (stores + loads) of each kernel whose mangled name
+    matches `entry`, keyed by the pattern's groups, from ptxas's report
+    in the build log."""
     import re
-    spills, hd = {}, None
+    spills, key = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*flash_bf16_kernelILi(\d+)E",
-                      ln)
+        m = re.search(r"Compiling entry function '\S*" + entry, ln)
         if m:
-            hd = int(m.group(1))
+            key = ":".join(m.groups())
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and hd is not None:
-            spills[hd] = int(m.group(1)) + int(m.group(2))
-            hd = None
+        if m and key is not None:
+            spills[key] = int(m.group(1)) + int(m.group(2))
+            key = None
     return spills
+
+
+def flash_bf16_spills(log: str) -> dict:
+    """Spill bytes of each bfloat16 flash instantiation, by head dim."""
+    return {int(hd): v for hd, v in
+            ptxas_spills(log, r"flash_bf16_kernelILi(\d+)E").items()}
+
+
+def gram_spills(log: str) -> dict:
+    """Spill bytes of each float64 and bfloat16 gram partial kernel, by
+    dtype and template arguments (tile width, copy width)."""
+    return ptxas_spills(log, r"gram_(f64|bf16)_partial_kernelI(\w+?)EE")
 
 
 def _traced(wall: float, busy, by_name: dict) -> dict:
@@ -2150,15 +2185,20 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         built = dict(zip(sources, pool.map(build.build, sources)))
     spills = flash_bf16_spills(build.build_log("flash"))
+    gspills = gram_spills(build.build_log("gram"))
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=built,
               ptxas={src: [ln.strip() for ln in
                            build.build_log(src).splitlines()
                            if "registers" in ln or "spill" in ln]
                      for src in sources},
-              flash_bf16_spill_bytes=spills))
+              flash_bf16_spill_bytes=spills, gram_spill_bytes=gspills))
     if sorted(spills) != [32, 64, 128] or any(spills.values()):
         raise AssertionError(f"bf16 flash instantiations spill: {spills}")
+    # 2 tile widths x 2 copy widths of each
+    if len(gspills) != 8 or any(gspills.values()):
+        raise AssertionError(f"gram f64/bf16 partial kernels spill: "
+                             f"{gspills}")
 
     main_rows = phase_kernels(peaks)
     sparse_rows = phase_sparse_kernels(peaks)
@@ -2182,9 +2222,9 @@ def main() -> int:
             launches=launches[kind],
             reduce_launches=launches[f"{kind}_reduce"],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
-            device_ms=r["device_ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            device_ms=r["device_ms"], host_us=r["host_us"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     for kind, line in (("gram_bs", 63), ("spmm", 112), ("xtv_bs", 158)):
         r = sparse_rows[kind]
         by_path = {p: v[kind] for p, v in sparse_launches.items() if v[kind]}

@@ -116,6 +116,32 @@ def sparsify(arr):
                         a.shape, indices_sorted=True, unique_indices=False)
 
 
+def maybe_sparsify(arr, sparsity_est: float):
+    """Convert a 2-D array to BCOO when the estimate says it pays off: below
+    `SPARSE_THRESHOLD` and with at least `SPARSE_MIN_NUMEL` elements;
+    anything else is returned unchanged.
+
+    The reference's legacy eager heuristic (plans take their formats from
+    `compiler.assign_formats`), for standalone array-level callers. Like
+    `jsparse.BCOO.fromdense` it does not pad: nse is the number of
+    nonzeros, indices are int32 and row-major sorted. A numpy array gives
+    CPU tensors; a tensor keeps its device. The reference also checks
+    `HAS_SPARSE`; the port always has its own `BCOO` (`core/sparse.py`),
+    so no such check is needed."""
+    if isinstance(arr, torch.Tensor):
+        numel = arr.numel()
+    else:
+        numel = int(np.size(arr)) if hasattr(arr, "ndim") else 0
+    if not (sparsity_est < SPARSE_THRESHOLD and getattr(arr, "ndim", 0) == 2
+            and numel >= SPARSE_MIN_NUMEL):
+        return arr
+    t = arr if isinstance(arr, torch.Tensor) else \
+        to_device(arr, torch.device("cpu"))
+    idx = torch.nonzero(t)  # row-major order
+    return SparseMatrix(t[idx[:, 0], idx[:, 1]], idx.to(torch.int32),
+                        t.shape, indices_sorted=True, unique_indices=True)
+
+
 def leaf_format(node: Node) -> str:
     """Physical format for an input leaf, from propagated estimates."""
     if node.placement != "local":

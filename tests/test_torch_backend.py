@@ -222,3 +222,57 @@ def test_chunk_ops_are_their_base_ops():
     g = tb.kernel_for_node(cg, torch.device("cpu"))(t)
     assert torch.equal(g, tb.execute_op("gram", {}, [t], device="cpu"))
     assert tb.kernel_for_node(comb, torch.device("cpu"))(g) is g
+
+
+def _sparse_mat(shape, seed=9, dtype=np.float64):
+    a = np.random.default_rng(seed).normal(size=shape)
+    a[np.abs(a) < 1.2] = 0.0  # ~23 % nonzero
+    return a.astype(dtype)
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+@pytest.mark.parametrize("shape,est,dtype", [
+    ((100, 50), 0.1, np.float64),    # sparse and large enough: BCOO
+    ((100, 50), 0.29, np.float32),   # just below the threshold
+    ((100, 50), 0.3, np.float64),    # at the threshold: dense
+    ((100, 50), 0.9, np.float64),
+    ((64, 64), 0.1, np.float64),     # exactly SPARSE_MIN_NUMEL: BCOO
+    ((63, 64), 0.1, np.float64),     # one row short of it: dense
+    ((4096,), 0.1, np.float64),      # not a matrix: dense
+    ((2, 64, 64), 0.1, np.float64),
+    ((80, 80), 0.0, "zeros"),        # no nonzero at all: nse 0
+])
+def test_maybe_sparsify_matches_reference(kind, shape, est, dtype):
+    """The reference's `maybe_sparsify` (Queue 3 item 6): the same
+    BCOO/dense decision on both sides of `SPARSE_THRESHOLD` and of
+    `SPARSE_MIN_NUMEL`, and for a BCOO the same nse (no padding), int32
+    row-major indices, values and dense form."""
+    from jax.experimental import sparse as jsparse
+    a = np.zeros(shape) if dtype == "zeros" else _sparse_mat(shape,
+                                                              dtype=dtype)
+    want = rb.maybe_sparsify(jnp.asarray(a), est)
+    arg = a if kind == "numpy" else torch.from_numpy(a)
+    got = tb.maybe_sparsify(arg, est)
+    assert tb.is_sparse(got) == isinstance(want, jsparse.BCOO)
+    if not tb.is_sparse(got):
+        assert got is arg
+        return
+    assert got.device.type == "cpu" and got.shape == want.shape
+    assert got.nse == want.nse
+    assert got.indices.dtype == torch.int32
+    assert str(got.data.dtype) == f"torch.{want.data.dtype}"
+    assert (got.indices_sorted, got.unique_indices) == \
+        (want.indices_sorted, want.unique_indices)
+    assert np.array_equal(got.indices.numpy(), np.asarray(want.indices))
+    assert np.array_equal(got.data.numpy(), np.asarray(want.data))
+    assert np.array_equal(got.todense().numpy(), np.asarray(want.todense()))
+
+
+@pytest.mark.cuda
+def test_maybe_sparsify_keeps_the_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a = torch.from_numpy(_sparse_mat((100, 50))).cuda()
+    got = tb.maybe_sparsify(a, 0.1)
+    assert got.data.device == got.indices.device == a.device
+    assert torch.equal(got.todense(), a)

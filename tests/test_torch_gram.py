@@ -154,28 +154,139 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _old_splits(m, blocks_per_split, sms):
+    """The block-sparse kernels' split rule as it stood before gram and
+    xtv got plans of their own."""
+    want = -(-4 * sms // max(blocks_per_split, 1))
+    splits = max(1, min(want, max(1, -(-m // 64)), 65535))
+    rows = -(-m // splits)
+    return -(-m // rows), rows
+
+
+@pytest.mark.parametrize("m", [1, 63, 64, 1000, 8192, 100_000, 400_000])
+@pytest.mark.parametrize("blocks", [1, 36, 136, 528])
+def test_splits_rule_is_kept_for_the_sparse_kernels(monkeypatch, m, blocks):
+    """`_splits` (which `kernels/spmm/ops.py` builds its plans on) keeps its
+    rule; only the SM count is now cached per device."""
+    monkeypatch.setitem(tops._SMS, 0, 132)
+    assert tops._splits(m, blocks, "cuda:0") == _old_splits(m, blocks, 132)
+
+
+def _upper_tiles(n, tile_n):
+    """(i0, j0) of every output tile gram computes, in launch order (the
+    `upper_tile` walk of gram.cu)."""
+    ti_n, tj_n = -(-n // 128), -(-n // tile_n)
+    r = 128 // tile_n
+    return [(ti * 128, tj * tile_n) for ti in range(ti_n)
+            for tj in range(ti * r, tj_n)]
+
+
+@pytest.mark.parametrize("tile_n", [128, 64])
+@pytest.mark.parametrize("n", [1, 12, 64, 65, 127, 128, 129, 300, 1000, 1001])
+def test_gram_tiles_cover_the_upper_triangle_once(n, tile_n):
+    """The tiles the workspace is sized for cover each element with i <= j
+    exactly once (the reduce pass writes those and their mirrors)."""
+    tiles = _upper_tiles(n, tile_n)
+    assert tops.gram_tiles(n, tile_n) == len(tiles)
+    seen = np.zeros((n, n), dtype=int)
+    for i0, j0 in tiles:
+        blk = seen[i0:i0 + 128, j0:j0 + tile_n]
+        ii = np.arange(i0, i0 + blk.shape[0])[:, None]
+        jj = np.arange(j0, j0 + blk.shape[1])[None, :]
+        blk += ii <= jj
+    assert np.array_equal(seen, np.triu(np.ones((n, n), dtype=int)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(1, 5), (7, 130), (1696, 1000),
+                                 (8192, 1000), (5000, 64), (20000, 34),
+                                 (100_000, 1000)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_gram_and_xtv_plans(m, n, dtype, sms):
+    """Both plans cover the rows once with no empty split, depend only on
+    the shape, dtype and card, and give each xtv block hundreds of KB to
+    read where the rows allow it."""
+    tile_n, splits, rows = tops.gram_plan(m, n, dtype, sms, 128)
+    assert tile_n == (64 if n <= 64 else 128)
+    assert (splits - 1) * rows < m <= splits * rows
+    assert splits <= -(-m // 64)  # never finer than 64 rows a split
+    assert tops.gram_plan(m, n, dtype, sms, 128) == (tile_n, splits, rows)
+    for c in (1, 3):
+        xs, xr = tops.xtv_plan(m, n, c, dtype, sms)
+        assert (xs - 1) * xr < m <= xs * xr
+        assert xs <= -(-m // 256)
+        # never more blocks than fit on the card at once
+        slabs = -(-n // (512 // dtype.itemsize))
+        assert xs == 1 or xs * slabs <= tops._XTV_BLOCKS_PER_SM[
+            1 if c == 1 else 4] * sms
+
+
+def test_gram_plan_at_the_lmds_bucket():
+    """The float64 split plans at lmDS's 8,192 x 1,000 bucket on 132 SMs
+    (PERF.md: the fastest in the measured sweeps): gram's 36 tiles
+    x 7 splits (1.9 waves), xtv's 16 slabs x 16 splits of 512 rows (one
+    wave at 2 blocks a SM)."""
+    assert tops.gram_plan(8192, 1000, torch.float64, 132, 128) == \
+        (128, 7, 1171)
+    assert tops.xtv_plan(8192, 1000, 1, torch.float64, 132) == (16, 512)
+
+
+@pytest.mark.parametrize("shape,cols,want", [
+    ((20000, 34), slice(None), True),      # 272-byte rows
+    ((20000, 35), slice(1, None), False),  # offset base, 280-byte rows
+    ((20000, 36), slice(1, None), False),  # offset base by 8 bytes
+    ((20000, 36), slice(2, None), True),   # offset by 16, 288-byte rows
+    ((300, 13), slice(None), False),       # odd width: 104-byte rows
+])
+def test_copy_width_follows_base_and_leading_dimension(shape, cols, want):
+    """16-byte copies where X's base and leading dimension are 16-byte
+    aligned, element copies elsewhere: a column slice keeps its parent's
+    leading dimension and is not copied."""
+    x = torch.zeros(shape, dtype=torch.float64)[:, cols]
+    assert tops.aligned16(x) is want
+
+
+def _cuda_case(m, n, c, offset, dtype, device):
+    """X (a column slice at `offset` of a wider parent when offset > 0) and
+    v on the card, from a seed."""
+    parent = torch.from_numpy(_data(m, n + offset, "float64", 0)).to(
+        device, TORCH_DTYPE[dtype])
+    v = torch.from_numpy(_data(m, c, "float64", 7)).to(device,
+                                                       TORCH_DTYPE[dtype])
+    return parent[:, offset:], v
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
-@pytest.mark.parametrize("m,n,c", [(8192, 1000, 1), (1696, 1000, 3),
-                                   (5000, 64, 1), (300, 12, 1)])
-def test_cuda_kernels_match_plain_version(cuda_device, m, n, c, dtype):
+@pytest.mark.parametrize("m,n,c,offset", [
+    pytest.param(8192, 1000, 1, 0, id="8192-1000-1"),
+    pytest.param(1696, 1000, 3, 0, id="1696-1000-3"),
+    pytest.param(5000, 64, 1, 0, id="5000-64-1"),
+    pytest.param(300, 12, 1, 0, id="300-12-1"),
+    pytest.param(20000, 34, 1, 1, id="offset-slice-20000-34"),
+    pytest.param(3000, 1001, 1, 0, id="odd-n-3000-1001"),
+    pytest.param(700, 100, 3, 2, id="n-below-a-tile-700-100"),
+    pytest.param(7, 130, 1, 0, id="m-below-a-stage-7-130"),
+    pytest.param(1, 257, 3, 1, id="m-1-257"),
+    pytest.param(2048, 300, 3, 0, id="c-3-2048-300"),
+])
+def test_cuda_kernels_match_plain_version(cuda_device, m, n, c, offset,
+                                          dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
-    t = {k: torch.from_numpy(_data(*shape, "float64", seed)).to(
-        cuda_device, TORCH_DTYPE[dtype])
-        for k, shape, seed in (("x", (m, n), 0), ("v", (m, c), 7))}
+    x, v = _cuda_case(m, n, c, offset, dtype, cuda_device)
     before = dict(tops.LAUNCHES)
-    g = tops.gram(t["x"])
-    xv = tops.xtv(t["x"], t["v"])
+    g = tops.gram(x)
+    xv = tops.xtv(x, v)
     torch.cuda.synchronize()
     assert tops.LAUNCHES["gram"] == before["gram"] + 1
     assert tops.LAUNCHES["xtv"] == before["xtv"] + 1
     assert torch.equal(g, g.mT)
-    assert tref.scaled_err(g, tref.gram(t["x"]), t["x"], t["x"]) \
-        <= KERNEL_RTOL[dtype]
-    assert tref.scaled_err(xv, tref.xtv(t["x"], t["v"]), t["x"], t["v"]) \
-        <= KERNEL_RTOL[dtype]
+    assert tref.scaled_err(g, tref.gram(x), x, x) <= KERNEL_RTOL[dtype]
+    assert tref.scaled_err(xv, tref.xtv(x, v), x, v) <= KERNEL_RTOL[dtype]
     # fixed-order reduction: bitwise reproducible from call to call
-    assert torch.equal(g, tops.gram(t["x"]))
+    assert torch.equal(g, tops.gram(x))
+    assert torch.equal(xv, tops.xtv(x, v))
 
 
 @pytest.mark.cuda
