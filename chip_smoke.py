@@ -10,9 +10,10 @@ card. One JSON line per phase:
   1. device        — the card (and `nvidia-smi`'s name and power limit)
   2. build         — compile `src/repro_torch/csrc/*.cu` (gram, spmm,
                      flash, wkv6, ssd) for sm_90a, one `nvcc` per source,
-                     all started together; the bf16 flash instantiations
-                     and gram's float64 and bf16 partial kernels must
-                     spill nothing (ptxas's report)
+                     all started together; the bf16 flash instantiations,
+                     gram's float64 and bf16 partial kernels and every
+                     WKV6 state and output kernel must spill nothing
+                     (ptxas's report)
   3. kernel        — gram/xtv against the plain version at the path's
                      shapes in float64/float32/bfloat16 (and a column slice
                      at an offset, an odd width), bitwise repeatable, gram
@@ -55,15 +56,18 @@ card. One JSON line per phase:
                      teacher-forced decode against prefill logits, kernel
                      against plain attention and against two planted
                      faults; tokens/s, peak memory, a traced idle share
- 11. wkv6_kernel   — the WKV6 kernel against its plain version
-                     (wkv_chunked) computed in float32 from the same
-                     inputs, each y and state entry within a bound of its
-                     own envelope: rwkv6-3b's prefill shape (B 8, S 2,048,
-                     40 heads of 64, chunk 128) in bf16 and float32, ragged
-                     S 1,000 and 17, dh 32, extreme (≡ -5) and slow
-                     (~-1e-4) decay, a nonzero initial state; bitwise
-                     repeatable; kernel, plain and bound times (no single
-                     PyTorch call computes WKV6: no library time)
+ 11. wkv6_kernel   — the WKV6 kernel (a state pass and an output pass per
+                     call) against its plain version (wkv_chunked)
+                     computed in float32 from the same inputs, each y and
+                     state entry within a bound of its own envelope:
+                     rwkv6-3b's prefill shape (B 8, S 2,048, 40 heads of
+                     64, chunk 128) in bf16 and float32, ragged S 1,000,
+                     17 and 129 (a one-row last chunk), one 16,384-token
+                     prompt, dh 32, extreme (≡ -5) and slow (~-1e-4)
+                     decay, a nonzero initial state; bitwise repeatable;
+                     kernel, plain and bound times, the bound at the TF32
+                     tensor-core rate (no single PyTorch call computes
+                     WKV6: no library time)
  12. rwkv_serve    — the ssm family served at rwkv6-3b's full width and
                      depth (32 layers, bf16, seeded weights), the same
                      traffic as lm_serve: 32 wkv6 launches in prefill, none
@@ -145,13 +149,15 @@ SERVE_TOL = 5e-2
 HIDDEN_TOL = 1e-1
 # WKV6 kernel against its plain version (wkv_chunked) computed in float32
 # from the same inputs, per y and state entry over its envelope (the same
-# recurrence on |r|, |k|, |v|, |u|, |state|; rwkv6 ref.scaled_err): both
-# compute in float32, so float32 differs in summation order and in the
-# rounding of the cumulative log-decays only (a chunked float32 sum reads
-# <= 2.1e-5 against a float64 scan on the CPU); a bf16 kernel also rounds
-# y to bf16, at most 2^-8 of its envelope. tests/test_torch_rwkv6.py holds
-# a dropped sub-block pair, a decay off by one step and a state not
-# carried across chunks >= 10x above these limits
+# recurrence on |r|, |k|, |v|, |u|, |state|; rwkv6 ref.scaled_err). The
+# float32 kernel's products are 3xTF32 (float32-accurate), so it differs in
+# summation order and in the rounding of the cumulative log-decays only (a
+# chunked float32 sum reads <= 2.1e-5 against a float64 scan on the CPU);
+# the bf16 kernel rounds each product's operands to TF32 once (an emulation
+# of its algebra reads <= 4e-4 on the CPU) and y to bf16, at most 2^-9 of
+# its envelope. tests/test_torch_rwkv6.py holds both roundings within these
+# limits and a dropped sub-block pair, a decay off by one step and a state
+# not carried across chunks >= 10x above them
 WKV6_TOL = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -8 + 2.0 ** -12}
 # rwkv6-3b's seeded weights checked in float32 along two sound routes (the
 # WKV kernel vs the plain wkv_chunked; decode's wkv_step from the kernel's
@@ -200,14 +206,15 @@ HYBRID_HIDDEN_TOL = 1e-1
 
 # Published dense peaks (NVIDIA data sheets): FLOP/s by input dtype and
 # memory bytes/s. float64 counts the FP64 tensor-core rate; float32 the
-# non-tensor rate (TF32 is off); bfloat16 the tensor-core rate.
+# non-tensor rate (TF32 is off for torch's products); bfloat16 and tf32
+# the tensor-core rates (tf32 half the bf16 one)
 PEAKS = {
     "H100 PCIe": dict(float64=51.2e12, float32=51.2e12, bfloat16=756e12,
-                      bw=2.0e12),
+                      tf32=378e12, bw=2.0e12),
     "H100 NVL": dict(float64=60e12, float32=60e12, bfloat16=835e12,
-                     bw=3.9e12),
+                     tf32=417.5e12, bw=3.9e12),
     "H100": dict(float64=67e12, float32=67e12, bfloat16=989e12,
-                 bw=3.35e12),
+                 tf32=494.7e12, bw=3.35e12),
 }
 
 
@@ -238,11 +245,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_trace(fn):
+def device_trace(fn, counts: dict | None = None):
     """Run `fn` once under `torch.profiler` (card activity only) and
     return (result, wall s, device-busy s or None, {kernel/copy name:
     device s}). Busy time is the union of the card's kernel and copy
-    intervals; None when the profiler saw no device events."""
+    intervals; None when the profiler saw no device events. `counts`, if
+    given, is filled with {kernel/copy name: number of events}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -257,6 +265,8 @@ def device_trace(fn):
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) \
             + e.time_range.elapsed_us() / 1e6
+        if counts is not None:
+            counts[e.name] = counts.get(e.name, 0) + 1
     busy, end = 0.0, None
     for s0, e0 in sorted((e.time_range.start, e.time_range.end)
                          for e in events):
@@ -1235,23 +1245,31 @@ WKV6_CASES = [
     ("extreme-decay", 2, 2048, 8, 64, 128, "float32", "extreme", 0.0),
     ("slow-decay", 2, 2048, 8, 64, 128, "float32", "slow", 0.0),
     ("initial-state", 8, 2048, 40, 64, 128, "bfloat16", "mixed", 0.1),
+    ("long-prompt", 1, 16384, 40, 64, 128, "bfloat16", "mixed", 0.0),
+    ("two-chunks-129", 8, 129, 40, 64, 128, "bfloat16", "mixed", 0.0),
 ]
+# the rate of the kernel's products by r/k/v dtype: one TF32 product for
+# bf16 inputs (exact in TF32), three (3xTF32) for float32
+WKV6_RATE = {"bfloat16": ("tf32", 1), "float32": ("tf32/3", 3)}
 
 
 def wkv6_bound(B: int, S: int, H: int, dh: int, dtype: str, peaks: dict
-               ) -> tuple[float, str]:
+               ) -> tuple[float, str, str]:
     """Least time for one WKV6 call, from the least work the recurrence
     needs, whatever the algorithm: per row and (b, h), y = rᵀS (2·dh²
-    operations) and S = w ⊙ S + k vᵀ (3·dh²), in float32; r, k, v read and
-    y written once in `dtype`, logw, u and the state in and out in
-    float32."""
+    operations) and S = w ⊙ S + k vᵀ (3·dh²), at the TF32 tensor-core rate
+    that the kernel's products meet their limit on (WKV6_RATE: a third of
+    it for float32's 3xTF32); r, k, v read and y written once in `dtype`,
+    logw, u and the state in and out in float32. Returns (ms, what bounds
+    it, the rate used)."""
     size = {"float32": 4, "bfloat16": 2}[dtype]
+    rate, products = WKV6_RATE[dtype]
     ops = 5.0 * dh * dh * B * S * H
     nbytes = (4 * size + 4) * B * S * H * dh + 4 * H * dh \
         + 2 * 4 * B * H * dh * dh
-    t_ops, t_bytes = ops / peaks["float32"], nbytes / peaks["bw"]
+    t_ops, t_bytes = ops * products / peaks["tf32"], nbytes / peaks["bw"]
     return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+            "operations" if t_ops >= t_bytes else "bytes", rate)
 
 
 def _wkv6_inputs(gen, B, S, H, dh, dtype, decay, state_scale):
@@ -1279,7 +1297,9 @@ def _wkv6_inputs(gen, B, S, H, dh, dtype, decay, state_scale):
 def phase_wkv6_kernels(peaks: dict, cases=WKV6_CASES) -> dict:
     """The WKV6 kernel against its plain version (wkv_chunked) computed in
     float32 from the same inputs, each y and state entry within WKV6_TOL of
-    its own envelope; returns the path's row (the first case)."""
+    its own envelope, and launching two kernels a call (the state and
+    output passes, counted in the profiler's trace); returns the path's
+    row (the first case)."""
     import torch
     from repro_torch.kernels.rwkv6 import ops, ref
     from repro_torch.kernels.rwkv6.ref import wkv_chunked
@@ -1304,20 +1324,34 @@ def phase_wkv6_kernels(peaks: dict, cases=WKV6_CASES) -> dict:
         del again
         kern = lambda: ops.wkv6_cuda(*args, chunk=chunk)
         ms = cuda_ms(kern, iters=10)
-        _, _, dev_s, _ = device_trace(lambda: [kern() for _ in range(10)])
+        # kernels a call launches, read from a trace of 10 calls: each
+        # kernel's events come in whole tens, else the profiler dropped
+        # some records (seen once in a whole run: 12 of 20) and the trace
+        # is taken again, up to three times
+        for _ in range(3):
+            counts: dict = {}
+            _, _, dev_s, _ = device_trace(
+                lambda: [kern() for _ in range(10)], counts)
+            wkv = [n for k, n in counts.items() if "wkv6_" in k]
+            if all(n % 10 == 0 for n in wkv):
+                break
         ops.LAUNCHES.update(saved)
+        passes = sum(wkv) / 10
+        checks["two_passes"] = passes == 2
         plain_ms = cuda_ms(lambda: wkv_chunked(*args, chunk), iters=3,
                            warmup=1)
-        bms, by = wkv6_bound(B, S, H, dh, dtype, peaks)
+        bms, by, rate = wkv6_bound(B, S, H, dh, dtype, peaks)
         row = dict(phase="wkv6_kernel", case=name, B=B, S=S, H=H, dh=dh,
-                   chunk=ops.chunk_rows(S, chunk), dtype=dtype, decay=decay,
+                   chunk=ops.chunk_rows(S, chunk), passes=passes,
+                   dtype=dtype, decay=decay,
                    state_scale=s0, max_abs_err=err, scaled_err=scaled,
                    tol=WKV6_TOL[dtype], checks=checks,
                    ok=all(checks.values()), ms=ms,
                    device_ms=None if dev_s is None else 100 * dev_s,
                    plain_ms=plain_ms, library_ms=None,
                    library="none: no single PyTorch call computes the WKV6 "
-                           "recurrence", bound_ms=bms, bound_by=by)
+                           "recurrence", bound_ms=bms, bound_by=by,
+                   bound_rate=rate)
         emit(row)
         if not row["ok"]:
             raise AssertionError(f"wkv6 {name} failed its checks: {row}")
@@ -1460,7 +1494,7 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
     H = D // dh
     state_bytes = 2 * L * batch * H * dh * dh * 4
     decode_bound_ms = 1e3 * (weight_bytes + state_bytes) / peaks["bw"]
-    wkv_ms, _ = wkv6_bound(batch, prompt, H, dh, cfg.dtype, peaks)
+    wkv_ms, _, _ = wkv6_bound(batch, prompt, H, dh, cfg.dtype, peaks)
     prefill_bound_ms = 1e3 * (2.0 * layer_mats * L * batch * prompt
                               + 2.0 * D * cfg.vocab_size * batch
                               ) / peaks["bfloat16"] + L * wkv_ms
@@ -1488,7 +1522,9 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
                checks_dtype="float32", teacher_forced_rel_err=tf_err,
                kernel_vs_plain=plain, row0_pinned=pinned,
                tol=RWKV_SERVE_TOL, hidden_tol=RWKV_HIDDEN_TOL,
-               traced=_traced(trace_wall, busy, by_name))
+               traced=_traced(trace_wall, busy, by_name),
+               traced_wkv6_ms=1e3 * sum(v for k, v in by_name.items()
+                                        if "wkv6_" in k))
     emit(row)
     caught = all(c["logits_rel_err"] > RWKV_SERVE_TOL
                  and c["hidden_rel_err"] > RWKV_HIDDEN_TOL
@@ -2157,6 +2193,12 @@ def gram_spills(log: str) -> dict:
     return ptxas_spills(log, r"gram_(f64|bf16)_partial_kernelI(\w+?)EE")
 
 
+def wkv6_spills(log: str) -> dict:
+    """Spill bytes of each WKV6 state and output kernel, by pass and
+    template arguments (dtype, head dim, chunk compiled in)."""
+    return ptxas_spills(log, r"wkv6_(state|output)_kernelI(\w+?)EE")
+
+
 def _traced(wall: float, busy, by_name: dict) -> dict:
     return dict(wall_s=wall, device_busy_s=busy,
                 idle_share=None if busy is None else 1 - busy / wall,
@@ -2186,19 +2228,24 @@ def main() -> int:
         built = dict(zip(sources, pool.map(build.build, sources)))
     spills = flash_bf16_spills(build.build_log("flash"))
     gspills = gram_spills(build.build_log("gram"))
+    wspills = wkv6_spills(build.build_log("wkv6"))
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=built,
               ptxas={src: [ln.strip() for ln in
                            build.build_log(src).splitlines()
                            if "registers" in ln or "spill" in ln]
                      for src in sources},
-              flash_bf16_spill_bytes=spills, gram_spill_bytes=gspills))
+              flash_bf16_spill_bytes=spills, gram_spill_bytes=gspills,
+              wkv6_spill_bytes=wspills))
     if sorted(spills) != [32, 64, 128] or any(spills.values()):
         raise AssertionError(f"bf16 flash instantiations spill: {spills}")
     # 2 tile widths x 2 copy widths of each
     if len(gspills) != 8 or any(gspills.values()):
         raise AssertionError(f"gram f64/bf16 partial kernels spill: "
                              f"{gspills}")
+    # 2 passes x 2 dtypes x 2 head dims x (the unrolled chunk, any chunk)
+    if len(wspills) != 16 or any(wspills.values()):
+        raise AssertionError(f"wkv6 kernels spill: {wspills}")
 
     main_rows = phase_kernels(peaks)
     sparse_rows = phase_sparse_kernels(peaks)
@@ -2261,7 +2308,8 @@ def main() -> int:
                               rwkv_serve_decode=rwkv_launches["decode"]),
         max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        bound_by=r["bound_by"], bound_rate=r["bound_rate"],
+        passes=r["passes"], library_ms=r["library_ms"],
         library=r["library"]))
     r = ssm_row
     kernels.append(dict(

@@ -44,6 +44,19 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def compile_source(src: Path, out: Path) -> str:
+    """Compile the CUDA source `src` into the shared library `out` with
+    the port's flags; returns the compiler's output (ptxas's register and
+    spill report) and raises with it when nvcc fails."""
+    res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    if res.returncode != 0:
+        out.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stdout}")
+    return res.stdout
+
+
 def build(name: str) -> float | None:
     """Compile `csrc/<name>.cu` unless it is built already; returns the
     seconds `nvcc` took, or None when the library was there. The
@@ -54,15 +67,14 @@ def build(name: str) -> float | None:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True)
+    try:
+        log = compile_source(CSRC / f"{name}.cu", tmp)
+    except RuntimeError as e:
+        out.with_suffix(".log").write_text(str(e))
+        raise
     seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(res.stdout)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stdout}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: concurrent builds agree
     return seconds
 

@@ -10,9 +10,13 @@ from the tensors' device:
 Port of `repro.kernels.rwkv6.ops`. The kernel reads and writes the
 model layout through its strides, so the reference's transpose to
 (B·H, S, dh) and broadcast of u to (B·H, dh) are skipped; it takes any
-S ≥ 1, treating rows past S as wkv_chunked's zero padding. The CUDA
-wrapper counts its launches in `LAUNCHES`, so a run can show that its
-main path went through the kernel.
+S ≥ 1, treating rows past S as wkv_chunked's zero padding. One call
+launches two kernels (the state pass, then the output pass) through one
+C call; the state entering every chunk goes through a float32 workspace
+of B·H·ceil(S/C)·dh² entries, allocated per call from PyTorch's caching
+allocator (which reuses it in stream order). The CUDA wrapper counts its
+calls in `LAUNCHES`, so a run can show that its main path went through
+the kernel.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ import torch
 
 from .ref import SUB, chunk_rows, wkv_chunked
 
-# One count per kernel launch; reset with `reset_launches()`.
+# One count per call (each call launches both passes); reset with
+# `reset_launches()`.
 LAUNCHES = {"wkv6": 0}
 
 MAX_CHUNK = 128
@@ -44,7 +49,7 @@ def _library():
         lib = library("wkv6")
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_wkv6_fwd.argtypes = (
-            [i32] + [p] * 8 + [i32] * 5 + [i64] * 15 + [p])
+            [i32] + [p] * 9 + [i32] * 5 + [i64] * 15 + [p])
         lib.repro_wkv6_fwd.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -109,12 +114,15 @@ def wkv6_cuda(r, k, v, logw, u, state, *, chunk: int = 128):
         return y, s_out.copy_(state)
     u, state = u.contiguous(), state.contiguous()
     lib = _library()
+    C = chunk_rows(S, chunk)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
+        ws = torch.empty(B * H * -(-S // C) * dh * dh, dtype=torch.float32,
+                         device=r.device)
         rc = lib.repro_wkv6_fwd(
             _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
             logw.data_ptr(), u.data_ptr(), state.data_ptr(), y.data_ptr(),
-            s_out.data_ptr(), B, S, H, dh, chunk_rows(S, chunk),
+            s_out.data_ptr(), ws.data_ptr(), B, S, H, dh, C,
             *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *logw.stride()[:3], *y.stride()[:3], stream)
         if rc != 0:

@@ -14,19 +14,25 @@ which the Pallas kernel does not take, is held against the reference's
 The CUDA kernel runs only on the card: the `cuda`-marked cases hold it
 against the plain version computed in float32 from the same inputs, each
 y and state entry within `KERNEL_TOL[dtype]` of its envelope (the same
-recurrence on |r|, |k|, |v|, |u|, |state|; `ref.scaled_err`). Both sides
-compute in float32 from the same inputs, so float32 differs only in
-summation order and in the rounding of the cumulative log-decays (a
-chunked float32 sum reads ≤ 2.1e-5 against a float64 scan here, about a
-twelfth of 2⁻¹²); a bfloat16 kernel also rounds y to bfloat16, at most
-2⁻⁸ of its envelope. The CPU cases show the limit passes a chunked
-float32 sum and fails a dropped sub-block pair, a decay off by one step
-and a state not carried across chunks, each by ≥ 10×. This module
-imports jax only inside the `reference` fixture.
+recurrence on |r|, |k|, |v|, |u|, |state|; `ref.scaled_err`). The float32
+kernel's products are 3xTF32, so it differs only in summation order and
+in the rounding of the cumulative log-decays (a chunked float32 sum reads
+≤ 2.1e-5 against a float64 scan here, about a twelfth of 2⁻¹²); the
+bfloat16 kernel rounds each product's operands to TF32 once and y to
+bfloat16, at most 2⁻⁹ of its envelope. The CPU cases show the limit
+passes a chunked float32 sum and fails a dropped sub-block pair, a decay
+off by one step and a state not carried across chunks, each by ≥ 10×.
+`_two_pass` emulates the kernel's algebra (a state pass keeping the
+state entering every chunk, then an output pass per chunk, with the
+kernel's sub-block factors) with and without its TF32 operand roundings;
+it is held against the reference's kernel, oracle and chunked form here,
+and the `cuda`-marked cases hold the kernel against it.
+This module imports jax only inside the `reference` fixture.
 """
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6 import ops as tops
 from repro_torch.kernels.rwkv6 import ref as tref
@@ -260,6 +266,172 @@ def test_kernel_tolerance_passes_roundings_and_fails_faults(rng, fault):
 
 
 # ---------------------------------------------------------------------------
+# the CUDA kernel's two-pass algebra and its tensor-core roundings, in torch
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest, ties
+    away from zero, 10 mantissa bits."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm(a, b, rounding):
+    """a @ b in float32 as the kernel's tensor cores take it: operands
+    rounded once to TF32 ("tf32", the bf16 kernel), split into hi = tf32(x)
+    and lo = tf32(x - hi) and summed as lo·hi + hi·lo + hi·hi ("3xtf32",
+    the float32 kernel), or whole (None)."""
+    if rounding is None:
+        return a @ b
+    ah, bh = _tf32(a), _tf32(b)
+    if rounding == "tf32":
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _two_pass(r, k, v, logw, u, state, chunk, rounding=None):
+    """csrc/wkv6.cu's algorithm in float32 torch (model layout in, y float32
+    out): a state pass sweeps the chunks and keeps S_in, the state entering
+    each; an output pass then computes each chunk's y from its own rows and
+    its S_in alone, sub-block by sub-block, with the kernel's factors (lx/lw
+    the sums of logw inside a 16-row sub-block, T a sub-block's total):
+    L = r e^lx, Kd = k e^-lw, Kt = k e^(T - lw), F[i] = e^(T[0] + .. +
+    T[i-1]), G[i][a] = e^(T[a+1] + .. + T[i-1]); y = (L ⊙ F[i]) S_in + (L
+    Kd^T, strictly causal, the bonus Σ_d r u k on its diagonal) V_i +
+    Σ_{a<i} ((L ⊙ G[i][a]) Kt_a^T) V_a. Every product goes through `_mm`."""
+    B, S, H, dh = r.shape
+    C = tref.chunk_rows(S, chunk)
+    nc, nu = -(-S // C), C // tref.SUB
+    pad = nc * C - S
+    rr, kk, vv, ww = (F.pad(t.float(), (0, 0, 0, 0, 0, pad))
+                      .permute(0, 2, 1, 3).reshape(B, H, nc, C, dh)
+                      for t in (r, k, v, logw))
+    uf = u.float()[None, :, None, :]
+    # the state pass
+    s_c, s_in = state.float(), []
+    for c in range(nc):
+        s_in.append(s_c)
+        w = ww[:, :, c]
+        later = w.flip(-2).cumsum(-2).flip(-2) - w   # Σ logw over later rows
+        kdec = kk[:, :, c] * torch.exp(later)
+        s_c = torch.exp(w.sum(-2))[..., None] * s_c \
+            + _mm(kdec.mT, vv[:, :, c], rounding)
+    # the output pass
+    strict = torch.ones(tref.SUB, tref.SUB, dtype=torch.bool).tril(-1)
+    ys = []
+    for c in range(nc):
+        rb, kb, vb, w = (t[:, :, c].reshape(B, H, nu, tref.SUB, dh)
+                         for t in (rr, kk, vv, ww))
+        lw = w.cumsum(-2)
+        lx = lw - w
+        T = lw[..., -1, :]
+        L = rb * torch.exp(lx)
+        Kd = kb * torch.exp(-lw)
+        Kt = kb * torch.exp(T[..., None, :] - lw)
+        bonus = (rb * uf[:, :, None] * kb).sum(-1)
+        for i in range(nu):
+            f = torch.exp(T[:, :, :i].sum(2))[..., None, :]
+            y = _mm(L[:, :, i] * f, s_in[c], rounding)
+            A = _mm(L[:, :, i], Kd[:, :, i].mT, rounding)
+            A = torch.where(strict, A, 0.0) + torch.diag_embed(bonus[:, :, i])
+            y = y + _mm(A, vb[:, :, i], rounding)
+            for a in range(i):
+                g = torch.exp(T[:, :, a + 1:i].sum(2))[..., None, :]
+                A = _mm(L[:, :, i] * g, Kt[:, :, a].mT, rounding)
+                y = y + _mm(A, vb[:, :, a], rounding)
+            ys.append((c, i, y))
+    y = torch.empty(B, H, nc * C, dh)
+    for c, i, yi in ys:
+        y[:, :, c * C + i * tref.SUB:c * C + (i + 1) * tref.SUB] = yi
+    return y.permute(0, 2, 1, 3)[:, :S], s_c
+
+
+@pytest.mark.parametrize("S,H,dh,chunk", [
+    (64, 2, 32, 32), (128, 3, 32, 64), (256, 2, 64, 64),
+])
+def test_two_pass_matches_reference_kernel(reference, rng, S, H, dh, chunk):
+    """The two passes against the reference's interpreted wkv6_pallas and
+    oracle (test_plain_matches_reference_kernel's shapes and limits), and
+    against the port's wkv_chunked within a quarter of the float32 kernel
+    limit, per entry over its envelope."""
+    jnp, rops, rref = reference
+    arrays = _inputs(rng, 2, S, H, dh)
+    y_ref, s_ref = rref.wkv6(*_jax(jnp, arrays))
+    y_pl, s_pl = rops.wkv6(*_jax(jnp, arrays), chunk=chunk, interpret=True)
+    args = _port(arrays)
+    y, s = _two_pass(*args, chunk)
+    for yw, sw in ((y_pl, s_pl), (y_ref, s_ref)):
+        scale = float(np.abs(np.asarray(y_ref)).max()) + 1e-6
+        assert np.abs(_np(y) - np.asarray(yw)).max() / scale < 1e-4
+        np.testing.assert_allclose(_np(s), np.asarray(sw), rtol=1e-4,
+                                   atol=1e-4)
+    chunked = tref.wkv_chunked(*args, chunk)
+    assert tref.scaled_err((y, s), chunked, *args, chunk=chunk) \
+        <= KERNEL_TOL["float32"] / 4
+
+
+@pytest.mark.parametrize("B,S,H,dh,chunk,decay,state_scale", [
+    (2, 100, 2, 32, 32, "test", 0.1),      # ragged S
+    (2, 17, 2, 64, 128, "test", 0.1),      # S < C: one row past a chunk
+    (1, 5, 2, 32, 128, "test", 0.1),       # one short, padded chunk
+    (2, 256, 2, 32, 16, "test", 0.1),      # dh 32 with C 16
+    (1, 192, 2, 64, 64, "test", 1.0),      # a large initial state
+    (1, 64, 2, 32, 32, "extreme", 0.1),    # logw ≡ -5
+])
+def test_two_pass_matches_chunked_on_edges(reference, rng, B, S, H, dh,
+                                           chunk, decay, state_scale):
+    """Ragged and short S, dh 32 with C 16, a nonzero initial state and
+    extreme decay: the two passes against the reference's wkv_chunked and
+    oracle (the ragged tests' limits) and the port's wkv_chunked (a quarter
+    of the float32 kernel limit over the envelope)."""
+    from repro.models.rwkv6 import wkv_chunked as ref_chunked
+    jnp, _, rref = reference
+    arrays = _inputs(rng, B, S, H, dh, decay, state_scale)
+    y_c, s_c = ref_chunked(*_jax(jnp, arrays), chunk)
+    y_o, s_o = rref.wkv6(*_jax(jnp, arrays))
+    args = _port(arrays)
+    y, s = _two_pass(*args, chunk)
+    assert y.shape == (B, S, H, dh) and torch.isfinite(y).all()
+    for yw, sw in ((y_c, s_c), (y_o, s_o)):
+        scale = float(np.abs(np.asarray(y_o)).max()) + 1e-6
+        assert np.abs(_np(y) - np.asarray(yw)).max() / scale < 1e-4
+        np.testing.assert_allclose(_np(s), np.asarray(sw), rtol=1e-4,
+                                   atol=1e-4)
+    chunked = tref.wkv_chunked(*args, chunk)
+    assert tref.scaled_err((y, s), chunked, *args, chunk=chunk) \
+        <= KERNEL_TOL["float32"] / 4
+
+
+@pytest.mark.parametrize("rounding", ["tf32", "3xtf32"])
+@pytest.mark.parametrize("decay", ["test", "extreme"])
+@pytest.mark.parametrize("S", [512, 2048])
+def test_two_pass_tensor_core_roundings_within_limits(rng, S, decay,
+                                                      rounding):
+    """The two passes with every product's operands rounded as the card's
+    TF32 tensor cores take them, against the float64 scan, per entry over
+    the envelope: one TF32 rounding (bf16 inputs, exact in TF32) within
+    half the bf16 limit, and within all of it once y is stored in bf16;
+    3xTF32 (float32 inputs) within a quarter of the float32 limit."""
+    chunk = 128
+    arrays = list(_inputs(rng, 1, S, 2, 64, decay))
+    if rounding == "tf32":   # the bf16 kernel's inputs
+        arrays[:3] = [np.asarray(torch.from_numpy(a).bfloat16().double())
+                      for a in arrays[:3]]
+    args = _port(arrays)
+    want = _scan64(*arrays)
+    got = _two_pass(*args, chunk, rounding)
+    err = tref.scaled_err(got, want, *args, chunk=chunk)
+    if rounding == "tf32":
+        assert err <= KERNEL_TOL["bfloat16"] / 2, err
+        stored = (got[0].bfloat16(), got[1])
+        assert tref.scaled_err(stored, want, *args, chunk=chunk) \
+            <= KERNEL_TOL["bfloat16"]
+    else:
+        assert err <= KERNEL_TOL["float32"] / 4, err
+
+
+# ---------------------------------------------------------------------------
 # the model pieces against the reference
 # ---------------------------------------------------------------------------
 
@@ -361,6 +533,8 @@ def cuda_device():
     (2, 256, 4, 32, 16, "test"),      # the reduced configs' chunk
     (1, 256, 2, 64, 64, "extreme"),
     (1, 2048, 2, 64, 128, "slow"),    # state carried over 16 chunks
+    (2, 129, 4, 64, 128, "test"),     # a one-row last chunk
+    (1, 16384, 4, 64, 128, "test"),   # one long prompt, 128 chunks
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(cuda_device, rng, B, S, H, dh,
@@ -378,6 +552,54 @@ def test_cuda_kernel_matches_plain_version(cuda_device, rng, B, S, H, dh,
     assert err <= KERNEL_TOL[dtype], err
     again = tops.wkv6(*args, chunk=chunk)
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def _envelope_err(got, want, args, chunk):
+    """(max, mean) of |got - want| per entry over its envelope (as
+    `ref.scaled_err`), over y's and the state's entries together."""
+    env = tref.wkv_chunked(*(a.float().abs() for a in args[:3]),
+                           args[3].float(),
+                           *(a.float().abs() for a in args[4:]), chunk)
+    e = torch.cat([((g.float().cpu() - w.float().cpu()).abs()
+                    / n.cpu().clamp_min(1e-30)).flatten()
+                   for g, w, n in zip(got, want, env)])
+    return e.max().item(), e.mean().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,dh,chunk,decay", [
+    (1, 512, 2, 64, 128, "test"),
+    (1, 512, 2, 64, 128, "extreme"),
+    (2, 100, 2, 32, 32, "test"),      # ragged, dh 32
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_two_pass_emulation(cuda_device, rng, B, S, H,
+                                                dh, chunk, decay, dtype):
+    """Ties the emulation to the kernel: the kernel against `_two_pass`
+    with its own roundings (bf16: one TF32 rounding, y stored in bf16;
+    float32: 3xTF32) and with the other (bf16: none; float32: one TF32
+    rounding) on the same inputs, per entry over the envelope. Its mean
+    error lies ≥ 10× nearer its own rounding's emulation than the other's
+    (the roundings' mean distance is ~4-9e-5); float32's largest error,
+    where no bf16 store rounds y, stays within 2⁻¹⁶, float32 summation
+    and exponent noise (a TF32 rounding moves entries by up to ~9e-4)."""
+    args = _port(_inputs(rng, B, S, H, dh, decay), dtype, cuda_device)
+    got = tops.wkv6(*args, chunk=chunk)
+    cpu = [a.float().cpu() for a in args]
+    own, other = {"float32": ("3xtf32", "tf32"),
+                  "bfloat16": ("tf32", None)}[dtype]
+    stored = (lambda t: t.bfloat16()) if dtype == "bfloat16" else \
+        (lambda t: t)
+    emu = [(stored(y), s) for y, s in (_two_pass(*cpu, chunk, own),
+                                       _two_pass(*cpu, chunk, other))]
+    near = _envelope_err(got, emu[0], cpu, chunk)
+    far = _envelope_err(got, emu[1], cpu, chunk)
+    print(f"wkv6 vs emulation {dtype} {B}x{S}x{H}x{dh} c{chunk} {decay}: "
+          f"own max {near[0]:.3e} mean {near[1]:.3e}, other max "
+          f"{far[0]:.3e} mean {far[1]:.3e}")
+    assert near[1] * 10 <= far[1], (near, far)
+    if dtype == "float32":
+        assert near[0] <= 2.0 ** -16, (near, far)
 
 
 @pytest.mark.cuda

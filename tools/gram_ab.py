@@ -60,15 +60,6 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvcc_build(src: Path, so: Path) -> str:
-    from repro_torch.kernels import build
-    r = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-                        str(src)], capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{r.stdout}{r.stderr}")
-    return r.stdout + r.stderr
-
-
 def bind(module, so: Path) -> None:
     """Point `module`'s ctypes library at `so`, with the argument types its
     own `_library()` sets."""
@@ -84,8 +75,9 @@ def bind(module, so: Path) -> None:
 
 def load_other(cu: Path, ops_py: Path):
     import repro_torch.kernels.gram  # noqa: F401  (the package of `ref`)
+    from repro_torch.kernels import build
     so = cu.with_suffix(".so")
-    nvcc_build(cu, so)
+    build.compile_source(cu, so)
     spec = importlib.util.spec_from_file_location(
         "repro_torch.kernels.gram._other_ops", ops_py)
     mod = importlib.util.module_from_spec(spec)
@@ -273,7 +265,8 @@ def variants(this, specs: list[str]) -> None:
         path.write_text(text)
         jobs.append((name, path, path.with_suffix(".so")))
     with ThreadPoolExecutor(len(jobs)) as pool:
-        logs = list(pool.map(lambda j: nvcc_build(j[1], j[2]), jobs))
+        logs = list(pool.map(lambda j: build.compile_source(j[1], j[2]),
+                             jobs))
     for (name, _, _), log in zip(jobs, logs):
         emit(dict(variant=name, ptxas=ptxas_summary(log)))
     small = [(300, 12), (7, 130), (100, 129), (1, 5), (2000, 257)]
