@@ -9,11 +9,13 @@ card. One JSON line per phase:
 
   1. device        — the card (and `nvidia-smi`'s name and power limit)
   2. build         — compile `src/repro_torch/csrc/*.cu` (gram, spmm,
-                     flash, wkv6, ssd) for sm_90a, one `nvcc` per source,
+                     flash, wkv6, ssd; gram and spmm share
+                     gram_mainloop.cuh) for sm_90a, one `nvcc` per source,
                      all started together; the bf16 flash instantiations,
-                     gram's float64 and bf16 partial kernels and every
-                     WKV6 state and output kernel must spill nothing
-                     (ptxas's report)
+                     gram's float64 and bf16 partial kernels, every WKV6
+                     state and output kernel, every selective-scan kernel
+                     and gram_bs's partial and reduce kernels must spill
+                     nothing (ptxas's report)
   3. kernel        — gram/xtv against the plain version at the path's
                      shapes in float64/float32/bfloat16 (and a column slice
                      at an offset, an odd width), bitwise repeatable, gram
@@ -46,7 +48,8 @@ card. One JSON line per phase:
                      float64 data: lm -> lmDS at 100,000 x 1,000 in memory,
                      lmCG at 100,000 x 2,000 (20 iterations), lmDS streamed
                      at 400,000 x 1,000 in 13 bcoo buckets; betas against
-                     numpy and the dense lane, launch counts, reuse
+                     numpy and the dense lane, launch counts, reuse; each
+                     lmDS fit's peak device memory
  10. lm_serve      — the dense LM family served at qwen3-0.6b's full width
                      (28 layers, bf16, seeded weights): `generate` for a
                      batch of 8 2,048-token prompts and 32 greedy tokens,
@@ -85,7 +88,8 @@ card. One JSON line per phase:
                      jamba's prefill shape (B 8, S 2,048, di 8,192, ds 16)
                      in bf16 and float32, ragged S 1,000 and 17, ds 8, a
                      nonzero initial state, a large dt (dA underflows to 0)
-                     and a tiny one (slow decay); bitwise repeatable;
+                     and a tiny one (slow decay) over 2,048 steps and over
+                     16,384; bitwise repeatable;
                      kernel, plain and bound times (no single PyTorch call
                      computes the scan: no library time)
  14. hybrid_serve  — the hybrid family served at jamba-v0.1-52b's full
@@ -715,6 +719,9 @@ def phase_sparse_kernels(peaks: dict, scale: int = 1) -> dict:
                                        name, peaks))
             if name == "float64":
                 row.update(densify_ms=densify_ms, mask_ms=mask_ms)
+            if kind == "gram_bs":  # (tile_n, splits, rows per split)
+                row["plan"] = ops.gram_bs_plan(rows, cols, dtype,
+                                               gops._sm_count(x.device))
             emit(row)
             if not row["ok"]:
                 raise AssertionError(f"{kind} {rows}x{cols} {name} failed "
@@ -773,11 +780,13 @@ def phase_sparse_lm(scale: int = 1) -> dict:
         y = input_tensor("y", yh)
         h0 = rt.cache.stats.hits
         reset()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         beta = lm(X, y, reg=reg, runtime=rt)
         return beta, dict(wall_s=time.perf_counter() - t0,
                           rel_err=rel(beta, want), launches=launches(),
-                          cache_hits=rt.cache.stats.hits - h0)
+                          cache_hits=rt.cache.stats.hits - h0,
+                          peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
 
     rt = LineageRuntime(cache=ReuseCache(), sparse_inputs=True)
     beta, cold = fit(rt)                 # the path: counts set to 0 inside
@@ -796,6 +805,8 @@ def phase_sparse_lm(scale: int = 1) -> dict:
                fuse_false=interp, dense_lane=dense,
                rel_to_dense_lane=rel(beta, beta_dense),
                fuse_bitwise=bool(np.array_equal(beta, beta_interp)),
+               gram_bs_device_ms=_device_ms(by_name, "gram_bs_",
+                                            "gram_tile_reduce"),
                traced=_traced(trace_wall, busy, by_name))
     emit(row)
     lc, lw = cold["launches"], warm["launches"]
@@ -872,10 +883,12 @@ def phase_sparse_lm(scale: int = 1) -> dict:
         y = input_tensor("y", yh)
         s0, t0s = rt.stats.streaming.as_dict(), rt.stats.streaming.spans()
         reset()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         beta = lm(X, y, reg=reg, runtime=rt)
         return dict(wall_s=time.perf_counter() - t0, rel_err=rel(beta, want),
                     launches=launches(),
+                    peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
                     streaming={k: v - s0[k] for k, v in
                                rt.stats.streaming.as_dict().items()
                                if k != "peak_live_bytes"},
@@ -895,7 +908,10 @@ def phase_sparse_lm(scale: int = 1) -> dict:
     row = dict(phase="sparse_lm", path="sparse_stream", shape=[m, n],
                density=density, reg=reg, bucket_rows=c, buckets=buckets,
                bucket_signatures=sorted(sigs), bcoo_closure_builds=bcoo_builds,
-               cold=cold, warm=warm, traced=_traced(trace_wall, busy, by_name))
+               cold=cold, warm=warm,
+               gram_bs_device_ms_per_bucket=_device_ms(
+                   by_name, "gram_bs_", "gram_tile_reduce") / buckets,
+               traced=_traced(trace_wall, busy, by_name))
     emit(row)
     lc = cold["launches"]
     want_buckets = 13 if scale == 1 else buckets
@@ -1732,6 +1748,7 @@ SSM_CASES = [
     ("initial-state", 8, 2048, 8192, 16, "bfloat16", "model", 0.5),
     ("large-dt", 2, 2048, 8192, 16, "float32", "large", 0.5),
     ("tiny-dt", 2, 2048, 8192, 16, "float32", "tiny", 0.5),
+    ("tiny-dt-16k", 1, 16384, 2048, 16, "float32", "tiny", 0.5),
 ]
 
 
@@ -2199,6 +2216,26 @@ def wkv6_spills(log: str) -> dict:
     return ptxas_spills(log, r"wkv6_(state|output)_kernelI(\w+?)EE")
 
 
+def ssd_spills(log: str) -> dict:
+    """Spill bytes of each selective-scan kernel, by template arguments
+    (dtype, d_state, copy width)."""
+    return ptxas_spills(log, r"ssm_scan_kernelI(\w+?)EE")
+
+
+def spmm_spills(log: str) -> dict:
+    """Spill bytes of each kernel of spmm.cu (the gram_bs partial and
+    reduce passes, xtv_bs, spmm), by kernel and template arguments."""
+    return ptxas_spills(log, r"(gram_bs_partial_kernel|xtv_bs_partial_kernel"
+                             r"|spmm_kernel|gram_tile_reduce_kernel)I(\w+?)EE")
+
+
+def _device_ms(by_name: dict, *names: str) -> float:
+    """Milliseconds of card time of the kernels whose names hold any of
+    `names`, from a trace's {kernel name: device s}."""
+    return 1e3 * sum(v for k, v in by_name.items()
+                     if any(n in k for n in names))
+
+
 def _traced(wall: float, busy, by_name: dict) -> dict:
     return dict(wall_s=wall, device_busy_s=busy,
                 idle_share=None if busy is None else 1 - busy / wall,
@@ -2229,6 +2266,8 @@ def main() -> int:
     spills = flash_bf16_spills(build.build_log("flash"))
     gspills = gram_spills(build.build_log("gram"))
     wspills = wkv6_spills(build.build_log("wkv6"))
+    sspills = ssd_spills(build.build_log("ssd"))
+    mspills = spmm_spills(build.build_log("spmm"))
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=built,
               ptxas={src: [ln.strip() for ln in
@@ -2236,7 +2275,8 @@ def main() -> int:
                            if "registers" in ln or "spill" in ln]
                      for src in sources},
               flash_bf16_spill_bytes=spills, gram_spill_bytes=gspills,
-              wkv6_spill_bytes=wspills))
+              wkv6_spill_bytes=wspills, ssd_spill_bytes=sspills,
+              spmm_spill_bytes=mspills))
     if sorted(spills) != [32, 64, 128] or any(spills.values()):
         raise AssertionError(f"bf16 flash instantiations spill: {spills}")
     # 2 tile widths x 2 copy widths of each
@@ -2246,6 +2286,15 @@ def main() -> int:
     # 2 passes x 2 dtypes x 2 head dims x (the unrolled chunk, any chunk)
     if len(wspills) != 16 or any(wspills.values()):
         raise AssertionError(f"wkv6 kernels spill: {wspills}")
+    # 2 dtypes x 3 d_states x 2 copy widths
+    if len(sspills) != 12 or any(sspills.values()):
+        raise AssertionError(f"selective-scan kernels spill: {sspills}")
+    # gram_bs: the partial pass at 3 dtypes x 2 tile widths x 2 copy
+    # widths, the filled reduce at 2 accumulation dtypes x 2 widths (xtv_bs
+    # and spmm, not redesigned yet, are reported)
+    gbs = {k: v for k, v in mspills.items() if k.startswith("gram_")}
+    if len(gbs) != 16 or any(gbs.values()):
+        raise AssertionError(f"gram_bs kernels spill: {gbs}")
 
     main_rows = phase_kernels(peaks)
     sparse_rows = phase_sparse_kernels(peaks)

@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for `sm_90a` into `build/kernels/lib<name>-<hash>.so` under the
-repository root (a directory git ignores), keyed on the source text and
-the flags, then loaded with `ctypes`. Nothing is built when a module is
+repository root (a directory git ignores), keyed on the source text, the
+headers of `csrc/` and the flags, then loaded with `ctypes`. Nothing is built when a module is
 imported: the first launch (or an explicit `build`) compiles. A machine
 without `nvcc` raises here; the CPU path never gets this far.
 """
@@ -39,16 +39,21 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, keyed on the source, every header of `csrc/`
+    (a source may include one) and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def compile_source(src: Path, out: Path) -> str:
     """Compile the CUDA source `src` into the shared library `out` with
     the port's flags; returns the compiler's output (ptxas's register and
-    spill report) and raises with it when nvcc fails."""
-    res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+    spill report) and raises with it when nvcc fails. Its `#include "…"`
+    finds a header beside `src` first, then in `csrc/`."""
+    res = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
+                          str(out), str(src)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True)
     if res.returncode != 0:

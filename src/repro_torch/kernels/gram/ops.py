@@ -33,8 +33,6 @@ LAUNCHES = {"gram": 0, "gram_reduce": 0, "xtv": 0, "xtv_reduce": 0}
 
 # the instantiations of gram.cu; float16 has none and is refused on the card
 _DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
-_MIN_SPLIT_ROWS = 64   # never split the rows finer than this
-_BLOCKS_PER_SM = 4     # blocks to aim for per SM when splitting rows
 _MAX_SPLITS = 65535    # grid.y limit
 _lib = None
 
@@ -79,12 +77,10 @@ def _library():
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_gram.argtypes = [i32, i32, i32, p, i64, i64, i64, i64, i32,
                                    p, p, p]
-        lib.repro_gram_reduce.argtypes = [i32, p, i32, i64, p, p]
         lib.repro_xtv.argtypes = [i32, i32, p, p, i64, i64, i64, i64, i64,
                                   i64, i32, p, p, p]
         lib.repro_xtv_reduce.argtypes = [i32, p, i32, i64, p, p]
-        for fn in (lib.repro_gram, lib.repro_gram_reduce, lib.repro_xtv,
-                   lib.repro_xtv_reduce):
+        for fn in (lib.repro_gram, lib.repro_xtv, lib.repro_xtv_reduce):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -120,20 +116,6 @@ def _sm_count(device) -> int:
         sms = _SMS[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
     return sms
-
-
-def _splits(m: int, blocks_per_split: int, device) -> tuple[int, int]:
-    """(splits, rows per split) for a row reduction over `m` rows: enough
-    splits to put ~`_BLOCKS_PER_SM` blocks on every SM, never fewer than
-    `_MIN_SPLIT_ROWS` rows each. Depends only on the shape and the card,
-    so a given call is reproducible bit for bit. (The block-sparse
-    kernels' plan; gram and xtv have their own.)"""
-    sms = _sm_count(device)
-    want = -(-_BLOCKS_PER_SM * sms // max(blocks_per_split, 1))
-    most = max(1, -(-m // _MIN_SPLIT_ROWS))
-    splits = max(1, min(want, most, _MAX_SPLITS))
-    rows = -(-m // splits)
-    return -(-m // rows), rows
 
 
 def gram_tiles(n: int, tile_n: int = GRAM_TILE_N) -> int:

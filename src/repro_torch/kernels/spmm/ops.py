@@ -15,20 +15,22 @@ These are the kernels behind the `bcoo` physical format in
 The blocks are the card's (`ROWS` x `TILE`, the kernels' row chunk and
 gram tile edge), not the TPU's (512, 256), and nothing is padded. Each
 CUDA wrapper counts its launches in `LAUNCHES`, one count per kernel pass
-(the reduce passes, which run `gram.cu`'s reduce kernels, apart).
+(the reduce passes apart; xtv_bs's runs `gram.cu`'s reduce kernel).
 """
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.gram import ops as gram_ops
 from repro_torch.kernels.gram import ref as gram_ref
-from repro_torch.kernels.gram.ops import (_DTYPE_CODE, _MAX_SPLITS,
-                                          _check_matrix, _check_rc, _splits,
-                                          _stream)
+from repro_torch.kernels.gram.ops import (_DTYPE_CODE, _MAX_SPLITS, _BM,
+                                          _check_matrix, _check_rc, _on,
+                                          _raw_stream, _sm_count, _stream,
+                                          _workspace, aligned16, gram_tiles)
 
 from . import ref
 
@@ -37,8 +39,16 @@ LAUNCHES = {"gram_bs": 0, "gram_bs_reduce": 0, "spmm": 0, "xtv_bs": 0,
             "xtv_bs_reduce": 0}
 
 ROWS = 256   # rows per mask chunk (RC in spmm.cu)
-TILE = 64    # columns per mask tile (BN in spmm.cu and gram.cu)
+TILE = 64    # columns per mask tile (TILE in spmm.cu)
 _lib = None
+
+# gram_bs's plan: (tile, split) items to aim for per resident block (one a
+# SM), by dtype, so that the card's in-order hand-out of items, longest
+# class first, balances the populated work (a bf16 item is ~4x shorter,
+# so its per-item costs weigh more: fewer items; PERF.md §6 sweeps);
+# the most row chunks a split may hold (MAX_CHUNKS in spmm.cu)
+_BS_WAVES = {torch.float64: 24, torch.float32: 24, torch.bfloat16: 8}
+_BS_MAX_CHUNKS = 8192
 
 
 def reset_launches() -> None:
@@ -52,20 +62,22 @@ def _library():
         from repro_torch.kernels.build import library
         lib = library("spmm")
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.repro_gram_bs_partial.argtypes = [i32, p, i64, i64, i64, p, i64,
-                                              i64, i32, p, p]
+        lib.repro_gram_bs.argtypes = [i32, i32, i32, p, i64, i64, i64, p,
+                                      i64, i64, i32, p, p, p, p]
         lib.repro_xtv_bs_partial.argtypes = [i32, p, p, i64, i64, i64, i64,
                                              i64, p, i64, i64, i32, p, p]
         lib.repro_spmm.argtypes = [i32, p, p, i64, i64, i64, i64, i64, p,
                                    i64, p, p]
         lib.repro_spmm_row_chunk.argtypes = []
         lib.repro_spmm_col_tile.argtypes = []
-        for fn in (lib.repro_gram_bs_partial, lib.repro_xtv_bs_partial,
+        lib.repro_spmm_max_chunks.argtypes = []
+        for fn in (lib.repro_gram_bs, lib.repro_xtv_bs_partial,
                    lib.repro_spmm, lib.repro_spmm_row_chunk,
-                   lib.repro_spmm_col_tile):
+                   lib.repro_spmm_col_tile, lib.repro_spmm_max_chunks):
             fn.restype = ctypes.c_int
-        if (lib.repro_spmm_row_chunk(), lib.repro_spmm_col_tile()) \
-                != (ROWS, TILE):
+        if (lib.repro_spmm_row_chunk(), lib.repro_spmm_col_tile(),
+                lib.repro_spmm_max_chunks()) \
+                != (ROWS, TILE, _BS_MAX_CHUNKS):
             raise RuntimeError("spmm.cu's mask blocks differ from ops.py's")
         _lib = lib
     return _lib
@@ -102,12 +114,23 @@ def _check_pair(x: torch.Tensor, v: torch.Tensor, what: str) -> None:
                         f"operand {v.dtype} on {v.device}")
 
 
-def _row_splits(m: int, blocks_per_split: int, device) -> tuple[int, int]:
-    """`gram.ops._splits`'s plan with every split starting on a row chunk
-    (a kernel skips whole chunks)."""
-    _, rows = _splits(m, blocks_per_split, device)
-    rows = -(-rows // ROWS) * ROWS
-    return -(-m // rows), rows
+@lru_cache(maxsize=1024)
+def gram_bs_plan(m: int, n: int, dtype: torch.dtype,
+                 sms: int) -> tuple[int, int, int]:
+    """(tile_n, splits, rows per split) of gram_bs on a card with `sms`
+    SMs: a function of the shape, the dtype and the card, never of the
+    mask, so a run with the true mask and one with an all-ones mask sum
+    the same partials in the same order. 128 x 128 tiles (128 x 64 at
+    n <= 64, as gram's); enough splits of whole row chunks for
+    `_BS_WAVES[dtype]` items (tile, split) per resident block, each split
+    at most `_BS_MAX_CHUNKS` chunks. Many short items balance the uneven populated work: the card
+    hands them out diagonal tiles first, and an item none of whose chunks
+    is populated ends after its mask reads and writes no partial."""
+    tile_n = 64 if n <= 64 else gram_ops.GRAM_TILE_N
+    want = -(-_BS_WAVES[dtype] * sms // gram_tiles(n, tile_n))
+    chunks = min(-(-m // (ROWS * want)), _BS_MAX_CHUNKS)
+    rows = chunks * ROWS
+    return tile_n, -(-m // rows), rows
 
 
 def _chunk_splits(m: int) -> tuple[int, int]:
@@ -120,29 +143,31 @@ def _chunk_splits(m: int) -> tuple[int, int]:
 
 def gram_bs_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """G = XᵀX on the card, skipping masked blocks (replaces
-    `gram_block_sparse`)."""
+    `gram_block_sparse`): the partial pass over the plan's items and the
+    reduce pass of the filled partials, one host call."""
     _check_matrix(x, "gram_bs")
     m, n = x.shape
     _check_mask(mask, m, n, x, "gram_bs")
+    dev = x.device
     acc = gram_ref.acc_dtype(x.dtype)
-    out = torch.empty((n, n), dtype=acc, device=x.device)
+    out = x.new_empty((n, n), dtype=acc)
     if m == 0 or n == 0:
         return out.zero_()
-    tiles = -(-n // TILE)
-    splits, rows = _row_splits(m, tiles * (tiles + 1) // 2, x.device)
-    ws = torch.empty((splits, n, n), dtype=acc, device=x.device)
-    lib, glib = _library(), gram_ops._library()
-    with torch.cuda.device(x.device):
-        st = _stream(x)
-        _check_rc(lib.repro_gram_bs_partial(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), m, n, x.stride(0),
-            mask.data_ptr(), mask.shape[1], rows, splits, ws.data_ptr(), st),
+    tile_n, splits, rows = gram_bs_plan(m, n, x.dtype, _sm_count(dev))
+    tiles = gram_tiles(n, tile_n)
+    part = splits * tiles * _BM * tile_n * acc.itemsize
+    lib = _library()
+    with _on(dev):
+        st = _raw_stream(dev)
+        # the partials, then filled ([tiles, splits] int32)
+        ws = _workspace(dev, st, part + 4 * tiles * splits)
+        _check_rc(lib.repro_gram_bs(
+            _DTYPE_CODE[x.dtype], tile_n, aligned16(x), x.data_ptr(), m, n,
+            x.stride(0), mask.data_ptr(), mask.shape[1], rows, splits,
+            ws.data_ptr(), ws.data_ptr() + part, out.data_ptr(), st),
             "gram_bs")
-        LAUNCHES["gram_bs"] += 1
-        _check_rc(glib.repro_gram_reduce(
-            _DTYPE_CODE[acc], ws.data_ptr(), splits, n, out.data_ptr(), st),
-            "gram_bs_reduce")
-        LAUNCHES["gram_bs_reduce"] += 1
+    LAUNCHES["gram_bs"] += 1
+    LAUNCHES["gram_bs_reduce"] += 1
     return out
 
 

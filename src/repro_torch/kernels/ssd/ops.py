@@ -10,9 +10,10 @@ It picks the path from the tensors' device:
 Port of `repro.kernels.ssd.ops`. The kernel reads x, dt, B and C through
 their (batch, sequence) strides, so B and C may be the column views that
 `split` cuts from the model's `dbc`; it takes any S ≥ 1 and any di (the
-Pallas kernel wants S and di divisible by its blocks). The CUDA wrapper
-counts its launches in `LAUNCHES`, so a run can show that its main path
-went through the kernel.
+Pallas kernel wants S and di divisible by its blocks). Its exps are
+2^(dt · A log2 e + 1) / 2 on the MUFU, which `ref.kernel_decay`
+emulates around the MUFU itself. The CUDA wrapper counts its launches in `LAUNCHES`, so a run can show that
+its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ def _library():
         lib = library("ssd")
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_ssm_scan_fwd.argtypes = (
-            [i32] + [p] * 9 + [i32] * 4 + [i64] * 10 + [p])
+            [i32, i32] + [p] * 9 + [i32] * 4 + [i64] * 10 + [p])
         lib.repro_ssm_scan_fwd.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -88,6 +89,15 @@ def _check(x, dt, A, B, C, D_skip, h0) -> None:
                              f"contiguous (strides {tuple(t.stride())})")
 
 
+def _aligned16(*tensors) -> bool:
+    """The kernel's 16-byte copies of x and dt need their base pointers
+    and their (batch, sequence) strides 16-byte aligned."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st * t.element_size() % 16 == 0
+                       for st in t.stride()[:2])
+               for t in tensors)
+
+
 def ssm_scan_cuda(x, dt, A, B, C, D_skip, h0):
     """The selective scan on the card (replaces `ssm_scan_pallas`).
     Returns (y (Bt, S, di) float32, h (Bt, di, ds) float32)."""
@@ -107,7 +117,8 @@ def ssm_scan_cuda(x, dt, A, B, C, D_skip, h0):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.repro_ssm_scan_fwd(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            _DTYPE_CODE[x.dtype], _aligned16(x, dt), x.data_ptr(),
+            dt.data_ptr(), A.data_ptr(),
             B.data_ptr(), C.data_ptr(), D_skip.data_ptr(), h0.data_ptr(),
             y.data_ptr(), h_out.data_ptr(), Bt, S, di, ds,
             *x.stride()[:2], *dt.stride()[:2], *B.stride()[:2],

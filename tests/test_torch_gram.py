@@ -154,22 +154,35 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _old_splits(m, blocks_per_split, sms):
-    """The block-sparse kernels' split rule as it stood before gram and
-    xtv got plans of their own."""
-    want = -(-4 * sms // max(blocks_per_split, 1))
-    splits = max(1, min(want, max(1, -(-m // 64)), 65535))
-    rows = -(-m // splits)
+def _sparse_splits(m, tiles, sms, items_per_block):
+    """(splits, rows per split) of gram_bs's plan, stated apart from
+    `kernels/spmm/ops.py`: ~`items_per_block` (tile, split) items per SM
+    over `tiles` output tiles, in whole 256-row chunks, at most 8,192
+    chunks a split."""
+    want = -(-items_per_block * sms // tiles)
+    rows = 256 * min(-(-m // (256 * want)), 8192)
     return -(-m // rows), rows
 
 
 @pytest.mark.parametrize("m", [1, 63, 64, 1000, 8192, 100_000, 400_000])
 @pytest.mark.parametrize("blocks", [1, 36, 136, 528])
-def test_splits_rule_is_kept_for_the_sparse_kernels(monkeypatch, m, blocks):
-    """`_splits` (which `kernels/spmm/ops.py` builds its plans on) keeps its
-    rule; only the SM count is now cached per device."""
-    monkeypatch.setitem(tops._SMS, 0, 132)
-    assert tops._splits(m, blocks, "cuda:0") == _old_splits(m, blocks, 132)
+def test_splits_rule_is_kept_for_the_sparse_kernels(m, blocks):
+    """The block-sparse kernels' split rules: gram_bs's plan over `blocks`
+    upper output tiles of 128 x 128 (n = 128 T, T (T + 1) / 2 = blocks)
+    on a card of 132 SMs, 24 items per SM in float64 and float32 and 8 in
+    bfloat16; xtv_bs's one 256-row chunk per split. Each split covers
+    whole chunks and none is empty."""
+    from repro_torch.kernels.spmm import ops as sops
+    t = int(round(((8 * blocks + 1) ** 0.5 - 1) / 2))
+    n = 128 * t
+    assert tops.gram_tiles(n) == blocks
+    for dtype, per in ((torch.float64, 24), (torch.float32, 24),
+                       (torch.bfloat16, 8)):
+        tile_n, splits, rows = sops.gram_bs_plan(m, n, dtype, 132)
+        assert tile_n == 128
+        assert (splits, rows) == _sparse_splits(m, blocks, 132, per)
+        assert rows % 256 == 0 and (splits - 1) * rows < m <= splits * rows
+    assert sops._chunk_splits(m) == (-(-m // 256), 256)
 
 
 def _upper_tiles(n, tile_n):

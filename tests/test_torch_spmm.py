@@ -252,6 +252,161 @@ def test_scaled_tolerance_rejects_one_wrong_entry(rng):
 
 
 # ---------------------------------------------------------------------------
+# gram_bs's plan and schedule (csrc/spmm.cu's gram_bs_partial_kernel)
+# ---------------------------------------------------------------------------
+
+def test_gram_bs_plan_takes_no_mask():
+    """The split plan is a function of (m, n, dtype, SM count) alone: a
+    run with the true mask and one with an all-ones mask sum the same
+    partials in the same order."""
+    import inspect
+    assert list(inspect.signature(tops.gram_bs_plan).parameters) == [
+        "m", "n", "dtype", "sms"]
+    # the card's SM count is part of the key
+    assert tops.gram_bs_plan(100_000, 1000, torch.float64, 132) \
+        != tops.gram_bs_plan(100_000, 1000, torch.float64, 114)
+
+
+@pytest.mark.parametrize("m", [1, 255, 256, 6784, 30_770, 100_000, 400_000,
+                               5_000_000])
+@pytest.mark.parametrize("n,dtype", [(1, torch.float64), (64, torch.float32),
+                                     (1000, torch.float64),
+                                     (2000, torch.bfloat16)])
+def test_gram_bs_plan_cuts_whole_chunks(m, n, dtype):
+    plan = tops.gram_bs_plan(m, n, dtype, 132)
+    tops.gram_bs_plan.cache_clear()
+    assert tops.gram_bs_plan(m, n, dtype, 132) == plan  # shape-only
+    tile_n, splits, rows = plan
+    assert tile_n == (64 if n <= 64 else 128)
+    assert rows % tops.ROWS == 0 and 1 <= rows // tops.ROWS \
+        <= tops._BS_MAX_CHUNKS
+    assert splits * rows >= m > (splits - 1) * rows
+    want = -(-tops._BS_WAVES[dtype] * 132 // gram_ref_tiles(n, tile_n))
+    if rows > tops.ROWS:  # a split of one chunk is the finest there is
+        # as many items as asked for, never more; at least half as many
+        assert want // 2 < splits <= want
+
+
+def gram_ref_tiles(n, tile_n):
+    from repro_torch.kernels.gram.ops import gram_tiles
+    return gram_tiles(n, tile_n)
+
+
+def _upper(n, tile_n):
+    """(i0, j0) of every upper tile in gram's linear order."""
+    ti_n, tj_n, r = -(-n // 128), -(-n // tile_n), 128 // tile_n
+    return [(ti * 128, tj * tile_n) for ti in range(ti_n)
+            for tj in range(ti * r, tj_n)]
+
+
+def _item_tile(item, splits, n, tile_n):
+    """spmm.cu's item_tile: every diagonal tile's items, then the rest."""
+    r = 128 // tile_n
+    ti_n, tj_n = -(-n // 128), -(-n // tile_n)
+    off = len(_upper(n, tile_n)) - ti_n
+    if item < ti_n * splits:
+        d = item % ti_n
+        return d * tj_n - r * d * (d - 1) // 2, item // ti_n
+    item -= ti_n * splits
+    k, ti, split = item % off, 0, item // off
+    while k >= tj_n - ti * r - 1:
+        k -= tj_n - ti * r - 1
+        ti += 1
+    return ti * tj_n - r * ti * (ti - 1) // 2 + 1 + k, split
+
+
+@pytest.mark.parametrize("n,tile_n", [(1, 64), (64, 64), (200, 64),
+                                      (65, 128), (128, 128), (200, 128),
+                                      (1000, 128), (1001, 128)])
+@pytest.mark.parametrize("splits", [1, 7])
+def test_gram_bs_items_cover_every_tile_and_split_diagonal_first(n, tile_n,
+                                                                 splits):
+    tiles = _upper(n, tile_n)
+    items = [_item_tile(i, splits, n, tile_n)
+             for i in range(len(tiles) * splits)]
+    assert sorted(items) == [(t, s) for t in range(len(tiles))
+                             for s in range(splits)]
+    ti_n = -(-n // 128)
+    head = items[:ti_n * splits]
+    assert all(tiles[t][0] == tiles[t][1] for t, _ in head)
+    assert not any(tiles[t][0] == tiles[t][1] for t, _ in
+                   items[ti_n * splits:])
+
+
+def _gram_split(x, mask, tile_n, rows):
+    """The CUDA gram_bs's algebra on the CPU, in float64: per item (tile,
+    split) the tile's product summed over the split's chunks in row
+    order, a chunk skipped when every mask tile under the tile's i
+    columns, or under its j columns, has count 0; an item with no
+    populated chunk is not filled; each tile sums its filled partials in
+    split order from +0, and writes the upper triangle and its mirror
+    from one sum."""
+    m, n = x.shape
+    bm, bn = tops.ROWS, tops.TILE
+    g = torch.zeros((n, n), dtype=torch.float64)
+    for i0, j0 in _upper(n, tile_n):
+        i1, j1 = min(i0 + 128, n), min(j0 + tile_n, n)
+        mi = slice(i0 // bn, (i1 - 1) // bn + 1)
+        mj = slice(j0 // bn, (j1 - 1) // bn + 1)
+        s = torch.zeros((i1 - i0, j1 - j0), dtype=torch.float64)
+        for r0 in range(0, m, rows):
+            part = None
+            for c in range(r0 // bm, -(-min(m, r0 + rows) // bm)):
+                if not (mask[c, mi].any() and mask[c, mj].any()):
+                    continue
+                xc = x[c * bm:(c + 1) * bm].double()
+                p = xc[:, i0:i1].T @ xc[:, j0:j1]
+                part = p if part is None else part + p
+            if part is not None:
+                s = s + part
+        g[i0:i1, j0:j1] = s
+    upper = torch.triu(torch.ones((n, n), dtype=torch.bool))
+    return torch.where(upper, g, g.T)
+
+
+def _blocky_card(rng, m, n, p_block, diagonal=False):
+    """A matrix in the card's blocks (256 rows x 64 columns): blocks
+    populated with probability `p_block`, or (`diagonal`) row chunk r
+    populated in column tile r mod tiles only, so every chunk feeds one
+    diagonal output tile and no off-diagonal one."""
+    kr, kc = -(-m // tops.ROWS), -(-n // tops.TILE)
+    if diagonal:
+        keep = np.zeros((kr, kc), dtype=bool)
+        keep[np.arange(kr), np.arange(kr) % kc] = True
+    else:
+        keep = rng.random((kr, kc)) < p_block
+    dense = np.kron(keep, np.ones((tops.ROWS, tops.TILE)))[:m, :n]
+    return rng.normal(size=(m, n)) * (rng.random((m, n)) < 0.3) * dense
+
+
+@pytest.mark.parametrize("diagonal", [False, True])
+@pytest.mark.parametrize("tile_n,rows", [(128, 256), (128, 512), (64, 768)])
+def test_gram_bs_emulation_is_bitwise_under_an_all_ones_mask(rng, diagonal,
+                                                             tile_n, rows):
+    xn = _blocky_card(rng, 1700, 200, 0.4, diagonal)
+    x = torch.from_numpy(xn)
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    got = _gram_split(x, mask, tile_n, rows)
+    assert torch.equal(got, _gram_split(x, torch.ones_like(mask), tile_n,
+                                        rows))
+    assert torch.equal(got, got.mT)
+    assert _rel(got, xn.T @ xn) <= F64_RTOL
+
+
+@pytest.mark.parametrize("diagonal", [False, True])
+def test_gram_bs_emulation_matches_reference_kernel(reference, rng,
+                                                    diagonal):
+    sops, _ = reference
+    xn = _blocky_card(rng, 1024, 200, 0.4, diagonal).astype(np.float32)
+    x = torch.from_numpy(xn)
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    got = _gram_split(x, mask, 128, 512)
+    want = np.asarray(sops.gram_dense_masked(xn, bm=256, bn=64,
+                                             interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -294,6 +449,43 @@ def test_cuda_kernels_match_plain_version(cuda_device, m, n, c, dtype):
     assert torch.equal(xv, tops.xtv_bs_cuda(x, v, ones))
     assert torch.equal(y, tops.spmm_cuda(x, w, ones))
     assert torch.equal(g, tops.gram_bs_cuda(x, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("case", ["diagonal", "slice", "narrow", "tall"])
+def test_cuda_gram_bs_paths_match_plain_version(cuda_device, monkeypatch,
+                                               dtype, case):
+    """gram_bs's redesigned paths: every chunk feeding one diagonal tile
+    only, a column slice at an odd offset (element copies), 128 x 64 tiles
+    (n <= 64), and splits of 66 chunks (more than one 32-chunk word of
+    populated bits: the plan asked for one item per resident block)."""
+    rng = np.random.default_rng(2)
+    if case == "diagonal":
+        xn = _blocky_card(rng, 20_000, 1000, 0.0, diagonal=True)
+    elif case == "slice":
+        xn = _blocky(rng, 6000, 302, 1024, 128, 0.3, 0.2)
+    elif case == "narrow":
+        xn = _blocky(rng, 9000, 50, 1024, 16, 0.3, 0.2)
+    else:
+        monkeypatch.setattr(tops, "_BS_WAVES", dict.fromkeys(
+            tops._BS_WAVES, 1))
+        tops.gram_bs_plan.cache_clear()
+        xn = _blocky(rng, 150_000, 640, 1024, 64, 0.3, 0.2)
+    x = torch.from_numpy(xn).to(cuda_device, dtype)
+    if case == "slice":
+        x = x[:, 1:]
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    g = tops.gram_bs_cuda(x, mask)
+    want = tref.gram(x, mask, tops.ROWS, tops.TILE)
+    assert gram_ref.scaled_err(g, want, x, x) <= KERNEL_TOL[dtype]
+    assert torch.equal(g, g.mT)
+    assert torch.equal(g, tops.gram_bs_cuda(x, torch.ones_like(mask)))
+    if case == "tall":
+        assert tops.gram_bs_plan(*x.shape, x.dtype, tops._sm_count(
+            x.device))[2] == 66 * tops.ROWS
+        tops.gram_bs_plan.cache_clear()
 
 
 @pytest.mark.cuda

@@ -195,6 +195,53 @@ def test_kernel_tolerance_passes_roundings_and_fails_faults(rng, fault,
 
 
 # ---------------------------------------------------------------------------
+# the kernel's exp: 2^z = 2^(z + 1) / 2 on the MUFU
+# ---------------------------------------------------------------------------
+
+def test_kernel_exp_within_its_error():
+    """The kernel's dA (ref.kernel_decay, the MUFU taken exact) against
+    exp(dt · A) in float64, over z = dt · A log2 e in [-130, 0]: within
+    2^-24 (2 + 1.4 |z|) relative where the result is normal (A' = A log2 e
+    and z + 1 each rounded to float32, then 2^w), exactly 0 for z < -127,
+    and unbiased near 0, where a decay's rounding is carried over every
+    step its term survives."""
+    A = torch.tensor([[-1.0], [-0.37]])
+    span = torch.cat([torch.linspace(0.0, 130.0, 100_001, dtype=torch.float64),
+                      torch.logspace(-7, 0, 100_001, dtype=torch.float64)])
+    for a in A[:, 0].tolist():
+        dt = (span / (-a * tref.LOG2E)).float()
+        got = tref.kernel_decay(dt[None], torch.tensor([[a]]))[0, :, 0]
+        z = dt.double() * a * tref.LOG2E
+        want = torch.exp(dt.double() * a)
+        normal = want >= 2.0 ** -125
+        rel = ((got.double() - want) / want)[normal]
+        assert (rel.abs() <= 2.0 ** -24 * (2 + 1.4 * z.abs()[normal])).all()
+        assert torch.all(got[z < -127.01] == 0)
+        # dt spread evenly over z in (-1e-2, 0), as a step's dt spreads
+        dt = (torch.linspace(1e-2, 0.0, 100_001, dtype=torch.float64)[:-1]
+              / (-a * tref.LOG2E)).float()
+        got = tref.kernel_decay(dt[None], torch.tensor([[a]]))[0, :, 0]
+        want = torch.exp(dt.double() * a)
+        assert abs(((got.double() - want) / want).mean().item()) \
+            <= 2.0 ** -30
+    assert tref.kernel_decay(torch.tensor([[200.0]]), A[:1]).item() == 0.0
+
+
+@pytest.mark.parametrize("S", [2048, 8192])
+def test_kernel_exp_scan_at_tiny_dt_matches_reference(reference, rng, S):
+    """A scan with the kernel's exp at tiny dt (~1e-4: every decay within
+    1e-3 of 1, the state carried over every step) within KERNEL_TOL of
+    the reference's oracle, at a prompt of 2,048 and one of 8,192."""
+    jnp, _, rref = reference
+    arrays = _inputs(rng, 1, S, 16, 16, dt_scale=2e-4, h0_scale=0.5)
+    args = _port(arrays)
+    got = tref.ssm_scan(*args, decay=tref.kernel_decay)
+    want = [torch.from_numpy(np.array(w))
+            for w in rref.ssm_scan(*_jax(jnp, arrays))]
+    assert tref.scaled_err(got, want, *args) <= KERNEL_TOL
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -213,7 +260,8 @@ def cuda_device():
     (2, 96, 64, 4, 0.2, 0.0),
     (1, 512, 128, 16, 50.0, 0.5),     # dA underflows to 0
     (1, 2048, 128, 16, 1e-4, 0.5),    # slow decay: the state carries on
-])
+    (1, 16384, 256, 16, 1e-4, 0.5),   # ... over a long prompt: the exp's
+])                                    # error is carried over every step
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(cuda_device, rng, B, S, di, ds,
                                            dt_scale, h0_scale, dtype):
@@ -228,6 +276,22 @@ def test_cuda_kernel_matches_plain_version(cuda_device, rng, B, S, di, ds,
     assert all(torch.isfinite(t).all() for t in got)
     err = tref.scaled_err(got, want, *args)
     assert err <= KERNEL_TOL, err
+    again = tops.ssm_scan(*args)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_takes_unaligned_views(cuda_device, rng, dtype):
+    """x and dt as views at an odd offset: the kernel's element copies."""
+    x, dt, A, Bv, Cv, D, h0 = _port(_inputs(rng, 2, 300, 129, 16,
+                                            h0_scale=0.5), dtype, cuda_device)
+    x, dt = x[..., 1:], dt[..., 1:]
+    A, D, h0 = A[1:], D[1:], h0[:, 1:]
+    args = (x, dt, A, Bv, Cv, D, h0)
+    got = tops.ssm_scan(*args)
+    want = tref.ssm_scan(*args)
+    assert tref.scaled_err(got, want, *args) <= KERNEL_TOL
     again = tops.ssm_scan(*args)
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 

@@ -11,10 +11,11 @@ Builds the other `gram.cu` with the port's nvcc flags and loads the other
 then, for chip_smoke's float64 kernel shapes (the lmds bucket and its
 tail, quickstart's matrix, c = 3, steplm's 20,000 x 32), runs this tree's
 wrapper and the other's in turn (this, other, this, other), each checked
-against the plain version (chip_smoke's TOL) and timed: `ms` by CUDA
-events over 50 calls, `device_ms` from the profiler (the card's busy time
-per call) and `host_us` (200 calls with no synchronise inside, divided by
-200: the wrapper's host time). Then steplm at 20,000 x 32
+against the plain version (chip_smoke's TOL), against the other's result
+bit for bit in float64, float32 and bfloat16 (`same_bits`), and timed:
+`ms` by CUDA events over 50 calls, `device_ms` from the profiler (the
+card's busy time per call) and `host_us` (200 calls with no synchronise
+inside, divided by 200: the wrapper's host time). Then steplm at 20,000 x 32
 (`max_features=4`, a reuse cache, after a warm-up fit) with each wrapper
 in turn: wall seconds and launches.
 
@@ -23,11 +24,11 @@ in turn: wall seconds and launches.
                  tile width (128 x 128 and 128 x 64), beside the plan's
                  choice, and the xtv split plan's knobs
                  (`_XTV_BLOCKS_PER_SM`, `_XTV_MIN_ROWS`)
-    --variant    this tree's gram.cu with constants substituted
-                 (F64_BK, STAGES, XTV_UNROLL; none: the source as
-                 it stands), each built beside the others, its ptxas
-                 registers and spills printed, checked at small shapes
-                 and timed at the main shapes in turn
+    --variant    this tree's gram.cu and gram_mainloop.cuh with
+                 constants substituted (F64_BK, STAGES, XTV_UNROLL; none:
+                 the sources as they stand), each built beside the
+                 others, its ptxas registers and spills printed, checked
+                 at small shapes and timed at the main shapes in turn
 
 One JSON line per result. Needs a CUDA card and nvcc; imports neither jax
 nor the JAX package.
@@ -155,10 +156,25 @@ def check(mod, kind, x, v) -> float:
     return err
 
 
+def same_bits(this, other, kind, x, v) -> dict:
+    """Whether this tree's result equals the other version's bit for bit,
+    in each dtype."""
+    import torch
+    out = {}
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        xd, vd = x.to(dtype), v.to(dtype)
+        if kind == "gram":
+            a, b = this.gram_cuda(xd), other.gram_cuda(xd)
+        else:
+            a, b = this.xtv_cuda(xd, vd), other.xtv_cuda(xd, vd)
+        out[str(dtype)[6:]] = torch.equal(a, b)
+    return out
+
+
 def compare(this, other) -> None:
     for kind, m, n, c in CASES:
         x, v = inputs(m, n, c)
-        rows = {}
+        rows = {"same_bits": same_bits(this, other, kind, x, v)}
         for name, mod in (("this", this), ("other", other), ("this", this),
                           ("other", other)):
             err = check(mod, kind, x, v)
@@ -248,21 +264,26 @@ def sweep(this) -> None:
 def variants(this, specs: list[str]) -> None:
     import torch
     from repro_torch.kernels import build
-    src = (build.CSRC / "gram.cu").read_text()
-    vdir = ROOT / "build" / "variants"
-    vdir.mkdir(parents=True, exist_ok=True)
+    files = {f: (build.CSRC / f).read_text()
+             for f in ("gram.cu", "gram_mainloop.cuh")}
     jobs = []
     for spec in specs:
         name, _, subs = spec.partition(":")
-        text = src
+        texts = dict(files)
         for kv in filter(None, subs.split(",")):
             key, val = kv.split("=")
             assert key in CONSTANTS, key
-            text, k = re.subn(rf"constexpr int {key} = \d+;",
-                              f"constexpr int {key} = {val};", text)
-            assert k == 1, key
-        path = vdir / f"gram_{name}.cu"
-        path.write_text(text)
+            hits = 0
+            for f, text in texts.items():
+                texts[f], k = re.subn(rf"constexpr int {key} = \d+;",
+                                      f"constexpr int {key} = {val};", text)
+                hits += k
+            assert hits == 1, key
+        vdir = ROOT / "build" / "variants" / f"gram_{name}"
+        vdir.mkdir(parents=True, exist_ok=True)
+        for f, text in texts.items():  # the header beside its source
+            (vdir / f).write_text(text)
+        path = vdir / "gram.cu"
         jobs.append((name, path, path.with_suffix(".so")))
     with ThreadPoolExecutor(len(jobs)) as pool:
         logs = list(pool.map(lambda j: build.compile_source(j[1], j[2]),
