@@ -14,8 +14,9 @@ card. One JSON line per phase:
                      all started together; the bf16 flash instantiations,
                      gram's float64 and bf16 partial kernels, every WKV6
                      state and output kernel, every selective-scan kernel
-                     and gram_bs's partial and reduce kernels must spill
-                     nothing (ptxas's report)
+                     and every kernel of spmm.cu (gram_bs, xtv_bs, spmm
+                     and their reduce passes) must spill nothing
+                     (ptxas's report)
   3. kernel        — gram/xtv against the plain version at the path's
                      shapes in float64/float32/bfloat16 (and a column slice
                      at an offset, an odd width), bitwise repeatable, gram
@@ -24,9 +25,11 @@ card. One JSON line per phase:
                      bound times and the wrapper's host time (`host_us`)
   4. sparse_kernel — the block-sparse gram_bs/xtv_bs/spmm kernels against
                      their plain version at the bcoo paths' shapes (blocky,
-                     uniform and a ragged tail), bitwise against the same
-                     kernel with an all-ones mask, with times and bounds
-                     over the dense layout and over the populated blocks
+                     uniform, a sparse_stream bucket and its ragged tail),
+                     bitwise against the same kernel with an all-ones mask
+                     and against a second call, with times and bounds over
+                     the dense layout and over the populated blocks, the
+                     plans and (xtv_bs, spmm) the wrapper's host time
   5. flash_kernel  — the flash-attention kernel against its plain version
                      computed in float32 from the same inputs, each entry
                      within a bound of its own envelope, at the
@@ -49,7 +52,8 @@ card. One JSON line per phase:
                      lmCG at 100,000 x 2,000 (20 iterations), lmDS streamed
                      at 400,000 x 1,000 in 13 bcoo buckets; betas against
                      numpy and the dense lane, launch counts, reuse; each
-                     lmDS fit's peak device memory
+                     lmDS fit's peak device memory; the kernels' device
+                     time in a traced fit of its own
  10. lm_serve      — the dense LM family served at qwen3-0.6b's full width
                      (28 layers, bf16, seeded weights): `generate` for a
                      batch of 8 2,048-token prompts and 32 greedy tokens,
@@ -104,7 +108,10 @@ card. One JSON line per phase:
                      skip dropped), each with the kernel route's MoE
                      routing replayed and the routing flips counted;
                      tokens/s, peak memory, a traced idle share
- 15. kernels       — the summary line of every ported kernel
+ 15. kernels       — the summary line of every ported kernel (the
+                     block-sparse ones at the shape of most of their
+                     launches, with launches x (device ms - bound ms) by
+                     path)
 
 then the card line of `nvidia-smi` and, last, the contract line
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -620,7 +627,8 @@ def sparse_bounds(kind: str, mask, m: int, n: int, c: int, dtype: str,
 
 def phase_sparse_kernels(peaks: dict, scale: int = 1) -> dict:
     """Each block-sparse kernel against its plain version at the bcoo
-    paths' shapes (`scale` divides the rows, for a rehearsal)."""
+    paths' shapes (`scale` divides the rows, for a rehearsal). Returns the
+    float64 rows of the paths' data by (kernel, rows, cols)."""
     import numpy as np
     import torch
     from repro_torch.core.backend import sparsify, to_device
@@ -631,12 +639,17 @@ def phase_sparse_kernels(peaks: dict, scale: int = 1) -> dict:
     dt = {"float64": torch.float64, "float32": torch.float32,
           "bfloat16": torch.bfloat16}
     m, tail = 100_000 // scale, 6784 // scale
-    # (kernel, rows, cols, v/W columns, pattern)
+    bucket = 32_768 // scale  # a sparse_stream bucket (12 of them, + tail)
+    # (kernel, rows, cols, v/W columns, pattern); every case draws its data
+    # from one generator in list order, so a case added later goes last and
+    # the earlier cases keep their data
     cases = [("gram_bs", m, 1000, 0, BLOCKY), ("gram_bs", m, 1000, 0, UNIFORM),
              ("gram_bs", tail, 1000, 0, BLOCKY),
              ("xtv_bs", m, 1000, 1, BLOCKY), ("xtv_bs", m, 2000, 1, BLOCKY_WIDE),
              ("xtv_bs", tail, 1000, 1, BLOCKY),
-             ("spmm", m, 2000, 1, BLOCKY_WIDE), ("spmm", tail, 1000, 1, BLOCKY)]
+             ("spmm", m, 2000, 1, BLOCKY_WIDE), ("spmm", tail, 1000, 1, BLOCKY),
+             ("gram_bs", bucket, 1000, 0, BLOCKY),
+             ("xtv_bs", bucket, 1000, 1, BLOCKY)]
     main = {}
     rng = np.random.default_rng(SEED)
     for kind, rows, cols, c, pattern in cases:
@@ -719,16 +732,21 @@ def phase_sparse_kernels(peaks: dict, scale: int = 1) -> dict:
                                        name, peaks))
             if name == "float64":
                 row.update(densify_ms=densify_ms, mask_ms=mask_ms)
+            sms = gops._sm_count(x.device)
             if kind == "gram_bs":  # (tile_n, splits, rows per split)
-                row["plan"] = ops.gram_bs_plan(rows, cols, dtype,
-                                               gops._sm_count(x.device))
+                row["plan"] = ops.gram_bs_plan(rows, cols, dtype, sms)
+            else:  # the wrapper's host time a call
+                row["host_us"] = host_us(lambda: kern(mask))
+                ops.LAUNCHES.update(saved[0])
+            if kind == "xtv_bs":  # splits
+                row["plan"] = ops.xtv_bs_plan(rows, cols, max(c, 1), dtype,
+                                              sms)
             emit(row)
             if not row["ok"]:
                 raise AssertionError(f"{kind} {rows}x{cols} {name} failed "
                                      f"its checks: {row}")
-            if name == "float64" and rows == m and pattern != UNIFORM \
-                    and kind not in main:
-                main[kind] = row
+            if name == "float64" and pattern != UNIFORM:
+                main[(kind, rows, cols)] = row
         del xs, xd, mask, ones, other
         torch.cuda.empty_cache()
     return main
@@ -847,11 +865,18 @@ def phase_sparse_lm(scale: int = 1) -> dict:
     r0_err = float(np.max(np.abs(r0 - xty)) / np.max(np.abs(xty)))
     beta_s, sparse = cg(rt)              # the path
     beta_d, dense = cg(LineageRuntime())
+    # a traced fit of its own: the kernels' device time
+    _, trace_wall, busy, by_name = device_trace(
+        lambda: cg(LineageRuntime(sparse_inputs=True)))
     ls = sparse["launches"]
     row = dict(phase="sparse_lm", path="sparse_lmcg", shape=[m, n],
                density=density, reg=reg, max_iter=iters, sparse=sparse,
                dense_lane=dense, xty_rel_err=r0_err,
-               rel_to_dense_lane=rel(beta_s, beta_d))
+               rel_to_dense_lane=rel(beta_s, beta_d),
+               spmm_device_ms=_device_ms(by_name, "spmm_kernel"),
+               xtv_bs_device_ms=_device_ms(by_name, "xtv_bs_partial",
+                                           "xtv_reduce"),
+               traced=_traced(trace_wall, busy, by_name))
     emit(row)
     k = sparse["iterations"]
     if not (k == dense["iterations"] == iters and r0_err <= 1e-12
@@ -1342,14 +1367,14 @@ def phase_wkv6_kernels(peaks: dict, cases=WKV6_CASES) -> dict:
         ms = cuda_ms(kern, iters=10)
         # kernels a call launches, read from a trace of 10 calls: each
         # kernel's events come in whole tens, else the profiler dropped
-        # some records (seen once in a whole run: 12 of 20) and the trace
-        # is taken again, up to three times
+        # some records (seen once in a whole run: 12 of 20; once all of
+        # them) and the trace is taken again, up to three times
         for _ in range(3):
             counts: dict = {}
             _, _, dev_s, _ = device_trace(
                 lambda: [kern() for _ in range(10)], counts)
             wkv = [n for k, n in counts.items() if "wkv6_" in k]
-            if all(n % 10 == 0 for n in wkv):
+            if wkv and all(n % 10 == 0 for n in wkv):
                 break
         ops.LAUNCHES.update(saved)
         passes = sum(wkv) / 10
@@ -2224,9 +2249,11 @@ def ssd_spills(log: str) -> dict:
 
 def spmm_spills(log: str) -> dict:
     """Spill bytes of each kernel of spmm.cu (the gram_bs partial and
-    reduce passes, xtv_bs, spmm), by kernel and template arguments."""
+    reduce passes, the xtv_bs partial and reduce passes, spmm), by kernel
+    and template arguments."""
     return ptxas_spills(log, r"(gram_bs_partial_kernel|xtv_bs_partial_kernel"
-                             r"|spmm_kernel|gram_tile_reduce_kernel)I(\w+?)EE")
+                             r"|spmm_kernel|gram_tile_reduce_kernel"
+                             r"|xtv_reduce_kernel)I(\w+?)EE")
 
 
 def _device_ms(by_name: dict, *names: str) -> float:
@@ -2290,11 +2317,15 @@ def main() -> int:
     if len(sspills) != 12 or any(sspills.values()):
         raise AssertionError(f"selective-scan kernels spill: {sspills}")
     # gram_bs: the partial pass at 3 dtypes x 2 tile widths x 2 copy
-    # widths, the filled reduce at 2 accumulation dtypes x 2 widths (xtv_bs
-    # and spmm, not redesigned yet, are reported)
-    gbs = {k: v for k, v in mspills.items() if k.startswith("gram_")}
-    if len(gbs) != 16 or any(gbs.values()):
-        raise AssertionError(f"gram_bs kernels spill: {gbs}")
+    # widths, the filled reduce at 2 accumulation dtypes x 2 widths; xtv_bs
+    # and spmm at 3 dtypes x 2 load widths x (c = 1, XC columns a pass),
+    # the xtv reduce at 2 accumulation dtypes
+    count = {"gram_": 16, "xtv_bs_": 12, "spmm_": 12, "xtv_reduce": 2}
+    for prefix, want in count.items():
+        got = {k: v for k, v in mspills.items() if k.startswith(prefix)}
+        if len(got) != want or any(got.values()):
+            raise AssertionError(f"{prefix}* kernels of spmm.cu spill (or "
+                                 f"are not all built): {got}")
 
     main_rows = phase_kernels(peaks)
     sparse_rows = phase_sparse_kernels(peaks)
@@ -2321,19 +2352,38 @@ def main() -> int:
             device_ms=r["device_ms"], host_us=r["host_us"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # each kernel's row at the shape of most of its launches; per path,
+    # launches x (device ms - bound ms) at that path's shapes (a stream
+    # bucket for all but the stream's last launch, its 6,784-row tail)
+    at = {"gram_bs": (100_000, 1000), "xtv_bs": (100_000, 2000),
+          "spmm": (100_000, 2000)}
+    shapes = {"sparse_lmds": (100_000, 1000), "sparse_lmcg": (100_000, 2000),
+              "sparse_stream": (32_768, 1000)}
     for kind, line in (("gram_bs", 63), ("spmm", 112), ("xtv_bs", 158)):
-        r = sparse_rows[kind]
+        r = sparse_rows[(kind, *at[kind])]
         by_path = {p: v[kind] for p, v in sparse_launches.items() if v[kind]}
+
+        def over(rows, cols, kind=kind):
+            r = sparse_rows[(kind, rows, cols)]
+            dev = r["ms"] if r["device_ms"] is None else r["device_ms"]
+            return dev - r["bound_ms"]
+
+        def excess(path, k):
+            if path != "sparse_stream":
+                return k * over(*shapes[path])
+            return (k - 1) * over(*shapes[path]) + over(6784, 1000)
         kernels.append(dict(
             name=kind, route="cuda", source="src/repro_torch/csrc/spmm.cu",
             replaces=f"src/repro/kernels/spmm/kernel.py:{line}",
             launches=sum(by_path.values()), launches_by_path=by_path,
             reduce_launches=sum(v.get(f"{kind}_reduce", 0)
                                 for v in sparse_launches.values()),
+            shape=list(at[kind]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            bound_dense_ms=r["bound_dense_ms"], library_ms=r["library_ms"]))
+            bound_dense_ms=r["bound_dense_ms"], library_ms=r["library_ms"],
+            excess_ms_by_path={p: excess(p, k) for p, k in by_path.items()}))
     r = flash_row
     flash_by_path = dict(
         lm_serve_prefill=serve_launches["prefill"],

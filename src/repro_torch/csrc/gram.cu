@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/gram/kernel.py:
 //   * gram_{f64,bf16,f32}_partial_kernel + gram_tile_reduce_kernel
 //                                            <- gram_pallas (_gram_kernel)
-//   * xtv_slab_kernel + xtv_reduce_kernel    <- xtv_pallas  (_xtv_kernel)
+//   * xtv_slab_kernel + xtv_reduce_kernel (gram_mainloop.cuh)
+//                                            <- xtv_pallas  (_xtv_kernel)
 //
 // Dtype rule (src/repro/kernels/gram/ref.py): float64 accumulates and
 // returns float64, float32 -> float32, bfloat16 -> float32. The Pallas
@@ -32,7 +33,8 @@
 // loads in flight a thread; elements of v are read as a broadcast. The 8
 // warps of a block split its rows and sum their partials in shared memory
 // in warp order; blocks split the rows into a few splits of hundreds of
-// KB each, which a second pass sums in split order.
+// KB each, which a second pass sums in a fixed order
+// (gram_mainloop.cuh's xtv_reduce_kernel).
 //
 // Neither uses atomics: results are bitwise reproducible from run to run
 // (the wrapper's plan depends only on the shape and the card).
@@ -42,9 +44,7 @@
 // that stream (repro_gram and repro_xtv: the partial and the reduce pass,
 // one host call for both, since the host's time per call sets xtv's),
 // never synchronises or allocates (the Python wrapper owns every buffer),
-// and returns the first launch error. repro_xtv_reduce reduces the
-// block-sparse xtv's partials (kernels/spmm/ops.py) in their layout,
-// [splits, n, c].
+// and returns the first launch error.
 
 #include "gram_mainloop.cuh"
 
@@ -196,22 +196,6 @@ xtv_slab_kernel(const T* __restrict__ x, const T* __restrict__ v, int64_t m, int
   }
 }
 
-template <typename A>
-__global__ void xtv_reduce_kernel(const A* __restrict__ ws, int splits, int64_t nc,
-                                  A* __restrict__ out) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= nc) return;
-  A s = ws[idx];
-  for (int p = 1; p < splits; ++p) s += ws[(int64_t)p * nc + idx];
-  out[idx] = s;
-}
-
-constexpr int REDUCE_THREADS = 256;
-
-inline unsigned int blocks_for(int64_t items, int threads) {
-  return (unsigned int)((items + threads - 1) / threads);
-}
-
 template <typename T, int BN, int VEC>
 int launch_gram_partial(const void* x, int64_t m, int64_t n, int64_t ldx,
                         int64_t rows_per_split, int splits, void* ws, cudaStream_t stream) {
@@ -269,13 +253,6 @@ int launch_xtv(int vec, const void* x, const void* v, int64_t m, int64_t n, int6
                : launch_xtv<T, false, 1>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws, stream);
   return vec ? launch_xtv<T, true, 4>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws, stream)
              : launch_xtv<T, false, 4>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws, stream);
-}
-
-template <typename A>
-int launch_xtv_reduce(const void* ws, int splits, int64_t items, void* out, cudaStream_t st) {
-  xtv_reduce_kernel<A><<<blocks_for(items, REDUCE_THREADS), REDUCE_THREADS, 0, st>>>(
-      static_cast<const A*>(ws), splits, items, static_cast<A*>(out));
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -340,16 +317,6 @@ int repro_xtv(int dtype, int vec, const void* x, const void* v, long long m, lon
   if (rc != 0 || splits == 1) return rc;
   return dtype == kF64 ? launch_xtv_reduce<double>(ws, splits, n * c, out, st)
                        : launch_xtv_reduce<float>(ws, splits, n * c, out, st);
-}
-
-// acc_dtype: kF64 or kF32; ws: [splits, n, c] (the block-sparse xtv's
-// partials); out: [n, c] contiguous (nc = n * c elements).
-int repro_xtv_reduce(int acc_dtype, const void* ws, int splits, long long nc, void* out,
-                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (acc_dtype == kF64) return launch_xtv_reduce<double>(ws, splits, nc, out, st);
-  if (acc_dtype == kF32) return launch_xtv_reduce<float>(ws, splits, nc, out, st);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -2,6 +2,8 @@
 // (the block-sparse one): one BM x BN upper-triangle tile of X^T X
 // accumulated over a sequence of BK-row stages of X and written to a
 // tile-major partial, and the fixed-order pass that sums those partials.
+// Also the xtv reduce pass over [splits][n][c] partials that gram.cu's
+// xtv and spmm.cu's xtv_bs share.
 //
 //   * float64 runs on the FP64 tensor cores: mma.sync m16n8k4 f64
 //     (wgmma has no f64 form). 8 warps of 64 x 32 (or 32 x 32)
@@ -496,6 +498,57 @@ gram_tile_reduce_kernel(const A* __restrict__ ws, int splits, int64_t tiles, int
     const int64_t j = jb + rr, i = ib + tx;
     if (i < j && j < n) out[j * n + i] = sub[tx][rr];
   }
+}
+
+// The xtv reduce (gram.cu's xtv and spmm.cu's xtv_bs): out[i] = the sum
+// of ws[p][i] over the splits p, in a fixed order that depends on the
+// split count alone: the splits in groups of XR_GROUP consecutive ones,
+// each group summed in split order (one group: the plain split-order
+// sum), warp w of a block adding groups w, w + 8, ... in order, and the
+// warps' sums added in warp order. A block takes 32 outputs; a thread
+// loads a group's splits ahead of their adds, so a long split list costs
+// a few load latencies, not one a split.
+constexpr int XR_GROUP = 16;
+
+template <typename A>
+__global__ void __launch_bounds__(256)
+xtv_reduce_kernel(const A* __restrict__ ws, int splits, int64_t nc, A* __restrict__ out) {
+  __shared__ A red[8][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t idx = (int64_t)blockIdx.x * 32 + lane;
+  const int groups = (splits + XR_GROUP - 1) / XR_GROUP;
+  A s = A(0);
+  if (idx < nc) {
+    for (int g = warp; g < groups; g += 8) {
+      const int p0 = g * XR_GROUP, np = min(XR_GROUP, splits - p0);
+      A t[XR_GROUP];
+#pragma unroll
+      for (int u = 0; u < XR_GROUP; ++u)
+        t[u] = u < np ? ws[(int64_t)(p0 + u) * nc + idx] : A(0);
+      A gs = t[0];
+#pragma unroll
+      for (int u = 1; u < XR_GROUP; ++u)
+        if (u < np) gs += t[u];
+      s = g == warp ? gs : s + gs;
+    }
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && idx < nc) {
+    for (int w = 1; w < min(8, groups); ++w) s += red[w][lane];
+    out[idx] = s;
+  }
+}
+
+inline unsigned int blocks_for(int64_t items, int threads) {
+  return (unsigned int)((items + threads - 1) / threads);
+}
+
+template <typename A>
+int launch_xtv_reduce(const void* ws, int splits, int64_t nc, void* out, cudaStream_t st) {
+  xtv_reduce_kernel<A><<<blocks_for(nc, 32), 256, 0, st>>>(static_cast<const A*>(ws), splits,
+                                                           nc, static_cast<A*>(out));
+  return (int)cudaGetLastError();
 }
 
 template <typename A, int BN, bool FILLED>

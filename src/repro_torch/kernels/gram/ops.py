@@ -79,8 +79,7 @@ def _library():
                                    p, p, p]
         lib.repro_xtv.argtypes = [i32, i32, p, p, i64, i64, i64, i64, i64,
                                   i64, i32, p, p, p]
-        lib.repro_xtv_reduce.argtypes = [i32, p, i32, i64, p, p]
-        for fn in (lib.repro_gram, lib.repro_xtv, lib.repro_xtv_reduce):
+        for fn in (lib.repro_gram, lib.repro_xtv):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -15,7 +15,7 @@ These are the kernels behind the `bcoo` physical format in
 The blocks are the card's (`ROWS` x `TILE`, the kernels' row chunk and
 gram tile edge), not the TPU's (512, 256), and nothing is padded. Each
 CUDA wrapper counts its launches in `LAUNCHES`, one count per kernel pass
-(the reduce passes apart; xtv_bs's runs `gram.cu`'s reduce kernel).
+it launches (the reduce passes apart).
 """
 from __future__ import annotations
 
@@ -29,8 +29,8 @@ from repro_torch.kernels.gram import ops as gram_ops
 from repro_torch.kernels.gram import ref as gram_ref
 from repro_torch.kernels.gram.ops import (_DTYPE_CODE, _MAX_SPLITS, _BM,
                                           _check_matrix, _check_rc, _on,
-                                          _raw_stream, _sm_count, _stream,
-                                          _workspace, aligned16, gram_tiles)
+                                          _raw_stream, _sm_count, _workspace,
+                                          aligned16, gram_tiles)
 
 from . import ref
 
@@ -50,6 +50,10 @@ _lib = None
 _BS_WAVES = {torch.float64: 24, torch.float32: 24, torch.bfloat16: 8}
 _BS_MAX_CHUNKS = 8192
 
+# xtv_bs's plan: the (mask tile, split) blocks to aim for per SM (PERF.md
+# §6 sweeps 4-32)
+_XTV_BS_WAVES = 16
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -64,15 +68,15 @@ def _library():
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_gram_bs.argtypes = [i32, i32, i32, p, i64, i64, i64, p,
                                       i64, i64, i32, p, p, p, p]
-        lib.repro_xtv_bs_partial.argtypes = [i32, p, p, i64, i64, i64, i64,
-                                             i64, p, i64, i64, i32, p, p]
-        lib.repro_spmm.argtypes = [i32, p, p, i64, i64, i64, i64, i64, p,
-                                   i64, p, p]
+        lib.repro_xtv_bs.argtypes = [i32, i32, p, p, i64, i64, i64, i64, i64,
+                                     p, i64, i32, p, p, p]
+        lib.repro_spmm.argtypes = [i32, i32, p, p, i64, i64, i64, i64, i64,
+                                   p, i64, p, p]
         lib.repro_spmm_row_chunk.argtypes = []
         lib.repro_spmm_col_tile.argtypes = []
         lib.repro_spmm_max_chunks.argtypes = []
-        for fn in (lib.repro_gram_bs, lib.repro_xtv_bs_partial,
-                   lib.repro_spmm, lib.repro_spmm_row_chunk,
+        for fn in (lib.repro_gram_bs, lib.repro_xtv_bs, lib.repro_spmm,
+                   lib.repro_spmm_row_chunk,
                    lib.repro_spmm_col_tile, lib.repro_spmm_max_chunks):
             fn.restype = ctypes.c_int
         if (lib.repro_spmm_row_chunk(), lib.repro_spmm_col_tile(),
@@ -133,12 +137,21 @@ def gram_bs_plan(m: int, n: int, dtype: torch.dtype,
     return tile_n, -(-m // rows), rows
 
 
-def _chunk_splits(m: int) -> tuple[int, int]:
-    """One row chunk per split (several only past the grid's limit): an
-    xtv thread walks its rows one load at a time, so the fewer rows a
-    split holds, the shorter the longest thread."""
-    rows = ROWS * -(-m // (ROWS * _MAX_SPLITS))
-    return -(-m // rows), rows
+@lru_cache(maxsize=1024)
+def xtv_bs_plan(m: int, n: int, c: int, dtype: torch.dtype, sms: int) -> int:
+    """Splits of xtv_bs on a card with `sms` SMs: a function of the
+    shape, the dtype and the card, never of the mask, so a run with the
+    true mask and one with an all-ones mask sum the same partials in the
+    same order. Split s takes row chunks s, s + splits, s + 2 splits, ...
+    (strided, so every split samples the whole of X and the blocks'
+    populated work evens out); enough splits for `_XTV_BS_WAVES` (mask
+    tile, split) blocks per SM, at most one a chunk and the grid's 65,535.
+    (v's width `c` and the dtype are part of the key; a block covers one
+    mask tile in every dtype and the XC-column passes `c` sets do not
+    change the split count.)"""
+    chunks = -(-m // ROWS)
+    want = -(-_XTV_BS_WAVES * sms // -(-n // TILE))
+    return max(1, min(chunks, want, _MAX_SPLITS))
 
 
 def gram_bs_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -174,7 +187,8 @@ def gram_bs_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def xtv_bs_cuda(x: torch.Tensor, v: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
     """Xᵀv on the card for a 2-D v, skipping masked blocks of X (replaces
-    `xtv_block_sparse`)."""
+    `xtv_block_sparse`): the partial pass over the plan's splits and, past
+    one split, the reduce pass, one host call."""
     _check_matrix(x, "xtv_bs")
     _check_pair(x, v, "xtv_bs")
     m, n = x.shape
@@ -183,23 +197,25 @@ def xtv_bs_cuda(x: torch.Tensor, v: torch.Tensor,
                          f"{tuple(v.shape)}")
     _check_mask(mask, m, n, x, "xtv_bs")
     c = v.shape[1]
+    dev = x.device
     acc = gram_ref.acc_dtype(x.dtype)
-    out = torch.empty((n, c), dtype=acc, device=x.device)
+    out = x.new_empty((n, c), dtype=acc)
     if m == 0 or n == 0 or c == 0:
         return out.zero_()
-    splits, rows = _chunk_splits(m)
-    ws = torch.empty((splits, n, c), dtype=acc, device=x.device)
-    lib, glib = _library(), gram_ops._library()
-    with torch.cuda.device(x.device):
-        st = _stream(x)
-        _check_rc(lib.repro_xtv_bs_partial(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), v.data_ptr(), m, n, c,
-            x.stride(0), v.stride(0), mask.data_ptr(), mask.shape[1], rows,
-            splits, ws.data_ptr(), st), "xtv_bs")
-        LAUNCHES["xtv_bs"] += 1
-        _check_rc(glib.repro_xtv_reduce(
-            _DTYPE_CODE[acc], ws.data_ptr(), splits, n * c, out.data_ptr(),
-            st), "xtv_bs_reduce")
+    splits = xtv_bs_plan(m, n, c, x.dtype, _sm_count(dev))
+    lib = _library()
+    with _on(dev):
+        st = _raw_stream(dev)
+        # one split writes the output itself: no reduce pass
+        ws = out if splits == 1 else \
+            _workspace(dev, st, splits * n * c * acc.itemsize)
+        _check_rc(lib.repro_xtv_bs(
+            _DTYPE_CODE[x.dtype], aligned16(x), x.data_ptr(), v.data_ptr(),
+            m, n, c, x.stride(0), v.stride(0), mask.data_ptr(),
+            mask.shape[1], splits, ws.data_ptr(), out.data_ptr(), st),
+            "xtv_bs")
+    LAUNCHES["xtv_bs"] += 1
+    if splits > 1:
         LAUNCHES["xtv_bs_reduce"] += 1
     return out
 
@@ -216,19 +232,20 @@ def spmm_cuda(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)}")
     _check_mask(mask, m, k, x, "spmm")
     c = w.shape[1]
+    dev = x.device
     acc = gram_ref.acc_dtype(x.dtype)
-    out = torch.empty((m, c), dtype=acc, device=x.device)
+    out = x.new_empty((m, c), dtype=acc)
     if m == 0 or c == 0:
         return out
     if k == 0:
         return out.zero_()
     lib = _library()
-    with torch.cuda.device(x.device):
+    with _on(dev):
         _check_rc(lib.repro_spmm(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), m, k, c,
-            x.stride(0), w.stride(0), mask.data_ptr(), mask.shape[1],
-            out.data_ptr(), _stream(x)), "spmm")
-        LAUNCHES["spmm"] += 1
+            _DTYPE_CODE[x.dtype], aligned16(x), x.data_ptr(), w.data_ptr(),
+            m, k, c, x.stride(0), w.stride(0), mask.data_ptr(),
+            mask.shape[1], out.data_ptr(), _raw_stream(dev)), "spmm")
+    LAUNCHES["spmm"] += 1
     return out
 
 

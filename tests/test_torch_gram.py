@@ -170,8 +170,8 @@ def test_splits_rule_is_kept_for_the_sparse_kernels(m, blocks):
     """The block-sparse kernels' split rules: gram_bs's plan over `blocks`
     upper output tiles of 128 x 128 (n = 128 T, T (T + 1) / 2 = blocks)
     on a card of 132 SMs, 24 items per SM in float64 and float32 and 8 in
-    bfloat16; xtv_bs's one 256-row chunk per split. Each split covers
-    whole chunks and none is empty."""
+    bfloat16 (each split covers whole chunks and none is empty); xtv_bs's
+    strided splits, at most one a chunk."""
     from repro_torch.kernels.spmm import ops as sops
     t = int(round(((8 * blocks + 1) ** 0.5 - 1) / 2))
     n = 128 * t
@@ -182,7 +182,7 @@ def test_splits_rule_is_kept_for_the_sparse_kernels(m, blocks):
         assert tile_n == 128
         assert (splits, rows) == _sparse_splits(m, blocks, 132, per)
         assert rows % 256 == 0 and (splits - 1) * rows < m <= splits * rows
-    assert sops._chunk_splits(m) == (-(-m // 256), 256)
+        assert 1 <= sops.xtv_bs_plan(m, n, 1, dtype, 132) <= -(-m // 256)
 
 
 def _upper_tiles(n, tile_n):

@@ -407,6 +407,193 @@ def test_gram_bs_emulation_matches_reference_kernel(reference, rng,
 
 
 # ---------------------------------------------------------------------------
+# xtv_bs's plan and the summation orders of xtv_bs and spmm (csrc/spmm.cu)
+# ---------------------------------------------------------------------------
+
+def test_xtv_bs_plan_takes_no_mask():
+    """The split plan is a function of (m, n, c, dtype, SM count) alone."""
+    import inspect
+    assert list(inspect.signature(tops.xtv_bs_plan).parameters) == [
+        "m", "n", "c", "dtype", "sms"]
+    assert tops.xtv_bs_plan(100_000, 1000, 1, torch.float64, 132) \
+        != tops.xtv_bs_plan(100_000, 1000, 1, torch.float64, 16)
+
+
+@pytest.mark.parametrize("m", [1, 255, 256, 6784, 32_768, 100_000, 400_000])
+@pytest.mark.parametrize("n,c,dtype", [(1, 1, torch.float64),
+                                       (64, 3, torch.float32),
+                                       (1000, 1, torch.float64),
+                                       (2000, 1, torch.bfloat16),
+                                       (1000, 5, torch.float64)])
+def test_xtv_bs_plan_covers_every_chunk_once(m, n, c, dtype):
+    """Split s takes the 256-row chunks s, s + splits, ...: every chunk
+    once, no split empty (at most one a chunk), within the grid's 65,535,
+    as many as `_XTV_BS_WAVES` (mask tile, split) blocks per SM ask for
+    where the rows allow it."""
+    splits = tops.xtv_bs_plan(m, n, c, dtype, 132)
+    tops.xtv_bs_plan.cache_clear()
+    assert tops.xtv_bs_plan(m, n, c, dtype, 132) == splits  # shape-only
+    chunks = -(-m // tops.ROWS)
+    assert 1 <= splits <= min(chunks, 65_535)
+    owner = [ch % splits for ch in range(chunks)]
+    assert sorted(set(owner)) == list(range(splits))
+    tiles = -(-n // tops.TILE)
+    want = -(-tops._XTV_BS_WAVES * 132 // tiles)
+    assert splits == min(chunks, want)
+
+
+def _merge(parts):
+    """The kernels' shuffle tree over a power-of-two list of lane sums:
+    lane i adds lane i + off, off halving from len / 2; lane 0's sum."""
+    parts = list(parts)
+    off = len(parts) // 2
+    while off:
+        parts = [parts[i] + parts[i + off] for i in range(off)]
+        off //= 2
+    return parts[0]
+
+
+def _xtv_bs_order(x, v, mask, splits, rpw):
+    """The CUDA xtv_bs's summation order on the CPU, in float64: per split
+    s (row chunks s, s + splits, ...), warp w and row slot `sub` (row
+    group g of a chunk, RPW rows, to warp g % 8) accumulate their rows in
+    ascending order, leaving out every (chunk, tile) block whose count is
+    0; the RPW slots merge by the shuffle tree, the 8 warps in warp order,
+    the splits by the xtv reduce's order (one split: its partial is the
+    result)."""
+    m, n = x.shape
+    bm, bn = tops.ROWS, tops.TILE
+    x, v = x.double(), v.double()
+    keep = (mask > 0).repeat_interleave(bn, 1)[:, :n]  # (chunks, n)
+    parts = []
+    for s in range(splits):
+        warps = []
+        for w in range(8):
+            subs = []
+            for sub in range(rpw):
+                acc = torch.zeros((n, v.shape[1]), dtype=torch.float64)
+                for ch in range(s, -(-m // bm), splits):
+                    for i in range(bm // (8 * rpw)):
+                        r = ch * bm + (w + 8 * i) * rpw + sub
+                        if r < m:
+                            acc = torch.where(keep[ch][:, None],
+                                              acc + x[r][:, None] * v[r],
+                                              acc)
+                subs.append(acc)
+            warps.append(_merge(subs))
+        part = warps[0]
+        for w in warps[1:]:
+            part = part + w
+        parts.append(part)
+    return _xtv_reduce_order(parts)
+
+
+def _xtv_reduce_order(parts, group=16):
+    """gram_mainloop.cuh's xtv reduce: groups of 16 consecutive splits,
+    each summed in split order; warp w (of 8) adds groups w, w + 8, ... in
+    order; the warps' sums in warp order."""
+    groups = []
+    for g0 in range(0, len(parts), group):
+        gs = parts[g0]
+        for p in parts[g0 + 1:g0 + group]:
+            gs = gs + p
+        groups.append(gs)
+    warps = []
+    for w in range(min(8, len(groups))):
+        ws = groups[w]
+        for g in groups[w + 8::8]:
+            ws = ws + g
+        warps.append(ws)
+    total = warps[0]
+    for ws in warps[1:]:
+        total = total + ws
+    return total
+
+
+def _spmm_order(x, w, mask, p):
+    """The CUDA spmm's summation order on the CPU, in float64, for P
+    elements a 16-byte lane load (LPR = 64 / P lanes a 64-column tile):
+    lane l of a row sums columns t * 64 + l P + e over the chunk's
+    populated tiles t in ascending order and e = 0 .. P - 1; the LPR lanes
+    merge by the shuffle tree."""
+    m, k = x.shape
+    bm, bn, lpr = tops.ROWS, tops.TILE, tops.TILE // p
+    x, w = x.double(), w.double()
+    y = torch.zeros((m, w.shape[1]), dtype=torch.float64)
+    for ch in range(-(-m // bm)):
+        xs = x[ch * bm:(ch + 1) * bm]
+        lanes = torch.zeros((xs.shape[0], lpr, w.shape[1]),
+                            dtype=torch.float64)
+        for t in torch.nonzero(mask[ch] > 0).flatten().tolist():
+            for e in range(p):
+                cols = t * bn + torch.arange(lpr) * p + e
+                ok = cols < k
+                term = torch.zeros_like(lanes)
+                term[:, ok] = xs[:, cols[ok], None] * w[cols[ok]]
+                lanes = lanes + term
+        y[ch * bm:(ch + 1) * bm] = _merge(lanes.unbind(1))
+    return y
+
+
+@pytest.mark.parametrize("rpw", [1, 2, 4])
+@pytest.mark.parametrize("splits,c", [(1, 1), (3, 3), (7, 1)])
+def test_xtv_bs_emulation_is_bitwise_under_an_all_ones_mask(rng, rpw, splits,
+                                                            c):
+    xn = _blocky_card(rng, 1700, 200, 0.4)
+    x = torch.from_numpy(xn)
+    v = torch.from_numpy(rng.normal(size=(1700, c)))
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    got = _xtv_bs_order(x, v, mask, splits, rpw)
+    assert torch.equal(got, _xtv_bs_order(x, v, torch.ones_like(mask),
+                                          splits, rpw))
+    assert _rel(got, xn.T @ v.numpy()) <= F64_RTOL
+
+
+@pytest.mark.parametrize("splits", [1, 5, 16, 17, 40, 200])
+def test_xtv_reduce_order_is_split_order_within_a_group(rng, splits):
+    """The xtv reduce sums up to 16 splits in split order (the order dense
+    xtv's plans of at most 16 splits had), and any count within the limit
+    of a float64 sum of the same partials."""
+    parts = [torch.from_numpy(rng.normal(size=(5, 2))) for _ in range(splits)]
+    got = _xtv_reduce_order(parts)
+    seq = parts[0]
+    for p in parts[1:]:
+        seq = seq + p
+    if splits <= 16:
+        assert torch.equal(got, seq)
+    assert _rel(got, sum(p.numpy() for p in parts)) <= F64_RTOL
+
+
+@pytest.mark.parametrize("p", [2, 4, 8])
+@pytest.mark.parametrize("c", [1, 3])
+def test_spmm_emulation_is_bitwise_under_an_all_ones_mask(rng, p, c):
+    xn = _blocky_card(rng, 1100, 230, 0.4)
+    x = torch.from_numpy(xn)
+    w = torch.from_numpy(rng.normal(size=(230, c)))
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    got = _spmm_order(x, w, mask, p)
+    assert torch.equal(got, _spmm_order(x, w, torch.ones_like(mask), p))
+    assert _rel(got, xn @ w.numpy()) <= F64_RTOL
+
+
+def test_xtv_bs_and_spmm_emulations_match_reference_kernels(reference, rng):
+    sops, _ = reference
+    xn = _blocky_card(rng, 1024, 200, 0.4).astype(np.float32)
+    vn = rng.normal(size=(1024, 1)).astype(np.float32)
+    wn = rng.normal(size=(200, 2)).astype(np.float32)
+    x = torch.from_numpy(xn)
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    got = _xtv_bs_order(x, torch.from_numpy(vn), mask, 2, 2)
+    want = np.asarray(sops.xtv_dense_masked(xn, vn, bm=256, bn=64,
+                                            interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+    got = _spmm_order(x, torch.from_numpy(wn), mask, 4)
+    want = np.asarray(sops.spmm_dense_masked(xn, wn, bm=256, bk=64,
+                                             interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -436,9 +623,11 @@ def test_cuda_kernels_match_plain_version(cuda_device, m, n, c, dtype):
     xv = tops.xtv_bs_cuda(x, v, mask)
     y = tops.spmm_cuda(x, w, mask)
     torch.cuda.synchronize()
-    for k in ("gram_bs", "gram_bs_reduce", "xtv_bs", "xtv_bs_reduce",
-              "spmm"):
+    for k in ("gram_bs", "gram_bs_reduce", "xtv_bs", "spmm"):
         assert tops.LAUNCHES[k] == before[k] + 1
+    splits = tops.xtv_bs_plan(m, n, c, dtype, tops._sm_count(x.device))
+    assert tops.LAUNCHES["xtv_bs_reduce"] == before["xtv_bs_reduce"] \
+        + (splits > 1)
     tol = KERNEL_TOL[dtype]
     args = (mask, tops.ROWS, tops.TILE)
     assert gram_ref.scaled_err(g, tref.gram(x, *args), x, x) <= tol
@@ -486,6 +675,55 @@ def test_cuda_gram_bs_paths_match_plain_version(cuda_device, monkeypatch,
         assert tops.gram_bs_plan(*x.shape, x.dtype, tops._sm_count(
             x.device))[2] == 66 * tops.ROWS
         tops.gram_bs_plan.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("case,c", [("tail", 1), ("tail", 3), ("tail", 5),
+                                    ("slice", 1), ("slice", 3), ("odd", 1),
+                                    ("odd", 5)])
+def test_cuda_xtv_bs_and_spmm_paths_match_plain_version(cuda_device, dtype,
+                                                       case, c):
+    """xtv_bs and spmm at c = 1, 3 and 5 (the c = 1 instantiation and the
+    XC-column passes, a ragged last pass), on the 6,784-row stream tail (a
+    128-row last chunk, a 40-column last tile), a column slice at offset 1
+    and an odd width (element loads: 8-byte-aligned rows); each within the
+    limit of its plain version, bitwise against an all-ones mask and a
+    second call, and with one populated block's count set to 0, against
+    the plain version with that block left out."""
+    rng = np.random.default_rng(3)
+    if case == "tail":
+        xn = _blocky(rng, 6784, 1000, 1024, 128, 0.25, 0.2)
+    elif case == "slice":
+        xn = _blocky(rng, 3000, 302, 1024, 128, 0.3, 0.2)
+    else:
+        xn = _blocky(rng, 3000, 1001, 1024, 128, 0.3, 0.2)
+    x = torch.from_numpy(xn).to(cuda_device, dtype)
+    if case == "slice":
+        x = x[:, 1:]
+    m, n = x.shape
+    assert tops.aligned16(x) == (case == "tail")
+    v = torch.from_numpy(rng.normal(size=(m, c))).to(cuda_device, dtype)
+    w = torch.from_numpy(rng.normal(size=(n, c))).to(cuda_device, dtype)
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    cut = mask.clone()
+    nz = torch.nonzero(mask)
+    cut[tuple(nz[len(nz) // 2].tolist())] = 0  # a populated block left out
+    tol = KERNEL_TOL[dtype]
+    args = (tops.ROWS, tops.TILE)
+    for mk in (mask, cut):
+        xv = tops.xtv_bs_cuda(x, v, mk)
+        y = tops.spmm_cuda(x, w, mk)
+        assert gram_ref.scaled_err(xv, tref.xtv(x, v, mk, *args), x, v) <= tol
+        assert gram_ref.scaled_err(y, tref.spmm(x, w, mk, *args), x.mT,
+                                   w) <= tol
+    xv, y = tops.xtv_bs_cuda(x, v, mask), tops.spmm_cuda(x, w, mask)
+    ones = torch.ones_like(mask)
+    assert torch.equal(xv, tops.xtv_bs_cuda(x, v, ones))
+    assert torch.equal(xv, tops.xtv_bs_cuda(x, v, mask))
+    assert torch.equal(y, tops.spmm_cuda(x, w, ones))
+    assert torch.equal(y, tops.spmm_cuda(x, w, mask))
 
 
 @pytest.mark.cuda

@@ -2,11 +2,14 @@
 
     mkdir -p build/other
     git show <commit>:src/repro_torch/csrc/gram.cu > build/other/gram.cu
+    git show <commit>:src/repro_torch/csrc/gram_mainloop.cuh \
+        > build/other/gram_mainloop.cuh   # from commit 89529c8 on
     git show <commit>:src/repro_torch/kernels/gram/ops.py > build/other/ops.py
     python3 tools/gram_ab.py build/other/gram.cu build/other/ops.py \
         [--sweep] [--variant NAME:KEY=VALUE,...] ...
 
-Builds the other `gram.cu` with the port's nvcc flags and loads the other
+Builds the other `gram.cu` with the port's nvcc flags (it includes the
+header beside it first) and loads the other
 `ops.py` as a module bound to it (its own wrapper, plan and host path),
 then, for chip_smoke's float64 kernel shapes (the lmds bucket and its
 tail, quickstart's matrix, c = 3, steplm's 20,000 x 32), runs this tree's
