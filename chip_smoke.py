@@ -63,7 +63,8 @@ card. One JSON line per phase:
                      teacher-forced decode against prefill logits, kernel
                      against plain attention and against two planted
                      faults; tokens/s, peak memory, a traced idle share
- 11. wkv6_kernel   — the WKV6 kernel (a state pass and an output pass per
+ 11. wkv6_kernel   — (run first after the build) the WKV6 kernel (a
+                     state pass and an output pass per
                      call) against its plain version (wkv_chunked)
                      computed in float32 from the same inputs, each y and
                      state entry within a bound of its own envelope:
@@ -108,10 +109,36 @@ card. One JSON line per phase:
                      skip dropped), each with the kernel route's MoE
                      routing replayed and the routing flips counted;
                      tokens/s, peak memory, a traced idle share
- 15. kernels       — the summary line of every ported kernel (the
+ 15. kernel (batched) — gram and xtv under torch.func.vmap: one batched
+                     launch (and its reduce) over CV's fold stack (8,
+                     12,500, 1,000) in float64/float32/bfloat16, xtv also
+                     with one v for the batch and with one X (the batch
+                     folded into v's columns); against 8 lone calls and
+                     the plain version in float64, bitwise repeatable,
+                     with device, bound, lone-calls' and torch.bmm times
+ 16. algorithms    — pca (k 10), kmeans (k 8), l2svm and mlogreg (10
+                     classes) at 100,000 x 1,000 float64 on the card, each
+                     against the same call on the CPU; pca's lane; wall
+                     time per iteration and its host-to-device share
+                     (max_iter cut to 10)
+ 17. cleaning      — every cleaning builtin on 100,000 x 1,000 with 1 %
+                     NaNs against numpy's nan-aware functions (mice_lite
+                     on 8 columns, against the CPU)
+ 18. rand          — a 100,000 x 1,000 sparse normal draw through the
+                     runtime on the card, bitwise against the CPU's draw
+                     of three row blocks
+ 19. grid_search   — grid_search_lm over 70 λs at 100,000 x 1,000 (Fig.
+                     5): auto (its mode), forced vmap and sequential with
+                     reuse, against each other and numpy's solve
+ 20. cv            — cross_validate_lm over 8 folds of 100,000 x 1,000
+                     (Fig. 7): vmap (the fold products as batched
+                     launches) against sequential with reuse; peak device
+                     and host memory
+ 21. kernels       — the summary line of every ported kernel (the
                      block-sparse ones at the shape of most of their
                      launches, with launches x (device ms - bound ms) by
-                     path)
+                     path; gram and xtv also batched, with their
+                     launches on the CV path)
 
 then the card line of `nvidia-smi` and, last, the contract line
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -124,6 +151,7 @@ import contextlib
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -290,6 +318,24 @@ def device_trace(fn, counts: dict | None = None):
     return out, wall, (busy / 1e6 if events else None), by_name
 
 
+def per_call_ms(fn, calls: int = 10, tries: int = 3):
+    """(card ms a call of `fn`, {kernel: ms a call}, {kernel: events})
+    from a trace of `calls` calls: each kernel's mean event time times
+    its events a call, so that a record the profiler drops does not lower
+    the sum (late in a long run it was seen to drop some of a trace's
+    records, or all of them); a trace that holds no device event is
+    retaken, up to `tries` times. (None, {}, {}) if none holds one."""
+    for _ in range(tries):
+        counts: dict = {}
+        _, _, busy, by_name = device_trace(
+            lambda: [fn() for _ in range(calls)], counts)
+        if busy is not None:
+            per = {k: 1e3 * v / counts[k] * max(1, round(counts[k] / calls))
+                   for k, v in by_name.items()}
+            return sum(per.values()), per, counts
+    return None, {}, {}
+
+
 def bound(kind: str, m: int, n: int, c: int, dtype: str, peaks: dict
           ) -> tuple[float, str]:
     """Least time the card could take: max(bytes / bandwidth, operations /
@@ -371,13 +417,18 @@ def phase_kernels(peaks: dict) -> dict:
             _, _, dev_s, _ = device_trace(
                 lambda: [kern(*args) for _ in range(10)])
             us = host_us(lambda: kern(*args))
+            # the same call through the torch.library custom op the
+            # backend takes under vmap (the dispatcher's cost on top)
+            op_us = host_us(lambda: (ops.gram_op if kind == "gram"
+                                     else ops.xtv_op)(*args))
             ops.LAUNCHES.update(saved)
             row = dict(phase="kernel", kernel=kind, m=m, n=n, c=c or None,
                        offset=offset or None, aligned16=ops.aligned16(x),
                        dtype=name, max_abs_err=err, scaled_err=scaled,
                        tol=TOL[name], ok=ok, ms=ms,
                        device_ms=None if dev_s is None else 100 * dev_s,
-                       host_us=us, plain_ms=plain_ms, library_ms=library_ms,
+                       host_us=us, op_host_us=op_us, plain_ms=plain_ms,
+                       library_ms=library_ms,
                        bound_ms=bms, bound_by=by)
             emit(row)
             if not ok:
@@ -1345,7 +1396,7 @@ def phase_wkv6_kernels(peaks: dict, cases=WKV6_CASES) -> dict:
     from repro_torch.kernels.rwkv6 import ops, ref
     from repro_torch.kernels.rwkv6.ref import wkv_chunked
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    main = None
+    main, retaken = None, 0
     for name, B, S, H, dh, chunk, dtype, decay, s0 in cases:
         args = _wkv6_inputs(gen, B, S, H, dh, dtype, decay, s0)
         saved = dict(ops.LAUNCHES)  # these launches are not the path's
@@ -1368,8 +1419,10 @@ def phase_wkv6_kernels(peaks: dict, cases=WKV6_CASES) -> dict:
         # kernels a call launches, read from a trace of 10 calls: each
         # kernel's events come in whole tens, else the profiler dropped
         # some records (seen once in a whole run: 12 of 20; once all of
-        # them) and the trace is taken again, up to three times
-        for _ in range(3):
+        # them; once one record in each of three traces in a row) and
+        # the trace is taken again, up to eight times; a run in which two
+        # cases need more than one retake fails
+        for retries in range(8):
             counts: dict = {}
             _, _, dev_s, _ = device_trace(
                 lambda: [kern() for _ in range(10)], counts)
@@ -1377,13 +1430,18 @@ def phase_wkv6_kernels(peaks: dict, cases=WKV6_CASES) -> dict:
             if wkv and all(n % 10 == 0 for n in wkv):
                 break
         ops.LAUNCHES.update(saved)
+        retaken += retries > 1
+        checks["trace_retakes"] = retaken < 2
         passes = sum(wkv) / 10
         checks["two_passes"] = passes == 2
+        events = {re.search(r"wkv6_\w+", k).group(0): n
+                  for k, n in counts.items() if "wkv6_" in k}
         plain_ms = cuda_ms(lambda: wkv_chunked(*args, chunk), iters=3,
                            warmup=1)
         bms, by, rate = wkv6_bound(B, S, H, dh, dtype, peaks)
         row = dict(phase="wkv6_kernel", case=name, B=B, S=S, H=H, dh=dh,
                    chunk=ops.chunk_rows(S, chunk), passes=passes,
+                   pass_events=events, trace_retries=retries,
                    dtype=dtype, decay=decay,
                    state_scale=s0, max_abs_err=err, scaled_err=scaled,
                    tol=WKV6_TOL[dtype], checks=checks,
@@ -2205,6 +2263,691 @@ def _hybrid_teacher_forced(model, tokens, n_new: int = 16) -> dict:
                 free=dict(logits_rel_err=run()), decoded=n_new)
 
 
+# ---------------------------------------------------------------------------
+# the lifecycle builtins, rand and parfor (grid search, cross validation)
+# ---------------------------------------------------------------------------
+
+LIFE_M, LIFE_N = 100_000, 1_000   # the lmds point
+LIFE_ITERS = 10                   # kmeans / l2svm / mlogreg max_iter (cut)
+GRID_K = 70                       # paper_hpo.k_models
+CV_FOLDS = 8                      # paper_hpo.n_folds
+# (batch, rows, cols) of the batched kernel rows at the paper's size (8
+# folds of 100,000 x 1,000): CV's training stacks, the shape of the path's
+# batched launches (7 folds a configuration), and one fold a configuration
+CV_STACK = (CV_FOLDS, LIFE_M // CV_FOLDS * (CV_FOLDS - 1), LIFE_N)
+BATCHED = (CV_FOLDS, LIFE_M // CV_FOLDS, LIFE_N)
+
+
+def _host_peak_gb() -> float:
+    """The process's peak resident host memory so far, in GB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def _htod_s(by_name: dict) -> float:
+    """Seconds of host-to-device copies in a trace's {name: device s}."""
+    return sum(v for k, v in by_name.items() if "HtoD" in k)
+
+
+def _sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _trace_of(fn, dev):
+    """On the card, a separate call of `fn` under the profiler: its wall
+    (the profiler's cost included), device busy and host-to-device copy
+    seconds; None elsewhere. Walls and launches are taken from untraced
+    calls."""
+    import torch
+    if torch.device(dev).type != "cuda":
+        return None
+    _, wall, busy, by_name = device_trace(fn)
+    htod = _htod_s(by_name)
+    return dict(wall_s=wall, device_busy_s=busy, htod_s=htod,
+                upload_share=htod / wall)
+
+
+def _kmeans_xtv(xk, run: dict, dev) -> dict:
+    """kmeans' per-cluster sums AᵀX (A one-hot, 8 columns; X 1,000) as one
+    xtv at the lmds point: a narrow X and a wide v, where the xtv plan was
+    tuned for one column of v. Against the plain version (float64) with
+    the kernel's plan, its split workspace and torch.matmul's time."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.gram import ops, ref
+    m, n = xk.shape
+    lab = np.random.default_rng(SEED).integers(0, 8, size=m)
+    a = torch.from_numpy(np.eye(8)[lab]).to(dev)
+    x = torch.from_numpy(xk).to(dev)
+    saved = dict(ops.LAUNCHES)
+    got = ops.xtv_cuda(a, x)
+    err = ref.scaled_err(got, ref.xtv(a, x), a, x)
+    ms = cuda_ms(lambda: ops.xtv_cuda(a, x))
+    ops.LAUNCHES.update(saved)  # timing launches are not the path's
+    splits, rows = ops.xtv_plan(m, 8, n, torch.float64,
+                                ops._sm_count(x.device))
+    bms, by = bound("xtv", m, 8, n, "float64",
+                    peaks_for(torch.cuda.get_device_name(0))[1])
+    return dict(shape=[m, 8, n], scaled_err=err, ok=err <= TOL["float64"],
+                ms=ms, library_ms=cuda_ms(lambda: torch.matmul(a.mT, x)),
+                bound_ms=bms, bound_by=by, splits=splits,
+                rows_per_split=rows,
+                workspace_mb=splits * 8 * n * 8 / 2**20,
+                path_launches=run["launches"]["xtv"])
+
+
+def phase_algorithms(dev=DEVICE, m: int = LIFE_M, n: int = LIFE_N,
+                     iters: int = LIFE_ITERS) -> dict:
+    """pca, kmeans, l2svm and mlogreg at the lmds point on the card, each
+    against the same call on the CPU (the CPU tests' limits). Returns the
+    gram/xtv launches of the card's runs."""
+    import numpy as np
+    import torch
+    from repro_torch.core import LineageRuntime, compile_plan, input_tensor, ops
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.lifecycle import kmeans, l2svm, mlogreg, pca
+    rng = np.random.default_rng(SEED)
+    # ten leading directions of distinct variance, the rest unit
+    scales = np.concatenate([np.linspace(10.0, 5.5, 10), np.ones(n - 10)])
+    xn = rng.standard_normal((m, n)) * scales
+    y_svm = np.sign(xn @ rng.standard_normal((n, 1)) + 1e-9)
+    labels = np.argmax(xn @ rng.standard_normal((n, 10)), axis=1)
+    y_oh = np.eye(10)[labels]
+    centers = 3.0 * rng.standard_normal((8, n))
+    xk = centers[rng.integers(0, 8, size=m)] + rng.standard_normal((m, n))
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+    # the lane the compiler picks for pca's covariance
+    X = input_tensor("X", xn)
+    cov_plan = compile_plan([ops.gram(X - ops.colMeans(X)) * (1.0 / (m - 1))])
+    lane = "chunked" if cov_plan.chunk_sliced else "in-memory"
+
+    runs = {
+        "pca": (lambda rt, a=xn: pca(input_tensor("X", a), 10, runtime=rt),
+                1),
+        "kmeans": (lambda rt: kmeans(input_tensor("X", xk), 8,
+                                     max_iter=iters, seed=1, tol=0.0,
+                                     runtime=rt), iters),
+        "l2svm": (lambda rt: l2svm(input_tensor("X", xn),
+                                   input_tensor("y", y_svm),
+                                   max_iter=iters, tol=0.0, runtime=rt),
+                  iters),
+        "mlogreg": (lambda rt: mlogreg(input_tensor("X", xn),
+                                       input_tensor("Y", y_oh),
+                                       max_iter=iters, runtime=rt), iters),
+    }
+    rows, launches = {}, {}
+    for name, (fn, its) in runs.items():
+        rt = LineageRuntime(device=dev)
+        gops.reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = fn(rt)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches[name] = dict(gops.LAUNCHES)
+        traced = _trace_of(lambda: fn(LineageRuntime(device=dev)), dev)
+        t0 = time.perf_counter()
+        want = fn(LineageRuntime(device="cpu"))
+        cpu_s = time.perf_counter() - t0
+        if name == "pca":
+            s = np.where(np.sum(got[0] * want[0], axis=0) < 0, -1.0, 1.0)
+            err = dict(components=float(np.max(np.abs(got[0] * s - want[0]))),
+                       projections=rel(got[1] * s, want[1]))
+            ok = err["components"] <= 1e-10 and err["projections"] <= 1e-10
+        elif name == "kmeans":
+            err = dict(centers=float(np.max(np.abs(got[0] - want[0]))),
+                       assignments_differ=int(np.sum(got[1] != want[1])))
+            ok = err["centers"] <= 1e-10 and err["assignments_differ"] == 0
+        else:
+            err = dict(rel=rel(got, want))
+            ok = err["rel"] <= 1e-9
+        rows[name] = dict(wall_s=wall, iterations=its,
+                          s_per_iteration=wall / its, traced=traced,
+                          cpu_s=cpu_s, err_vs_cpu=err,
+                          launches=launches[name], ok=ok)
+    kmeans_xtv = _kmeans_xtv(xk, rows["kmeans"], dev) \
+        if torch.device(dev).type == "cuda" else None
+    row = dict(phase="algorithms", shape=[m, n], dtype="float64",
+               pca_k=10, pca_lane=lane, kmeans_k=8, mlogreg_classes=10,
+               kmeans_xtv=kmeans_xtv,
+               cut=dict(max_iter=iters, note="kmeans, l2svm and mlogreg stop "
+                        f"after {iters} iterations (tol 0)"),
+               runs=rows)
+    emit(row)
+    if not all(r["ok"] for r in rows.values()) or (
+            kmeans_xtv is not None and not kmeans_xtv["ok"]):
+        raise AssertionError(f"algorithms disagree with the CPU: {row}")
+    if not (launches["pca"]["gram"] and launches["kmeans"]["xtv"]
+            and launches["l2svm"]["xtv"] and launches["mlogreg"]["xtv"]):
+        raise AssertionError(f"algorithms missed gram/xtv: {launches}")
+    return launches
+
+
+def phase_cleaning(dev=DEVICE, m: int = LIFE_M, n: int = LIFE_N) -> None:
+    """Every cleaning builtin on m x n float64 with 1 % NaNs against
+    numpy's nan-aware functions (mice_lite, whose 1,000 regressions a
+    round do not fit the phase, on 8 columns, against the CPU)."""
+    import numpy as np
+    from repro_torch.core import LineageRuntime, input_tensor
+    from repro_torch.lifecycle import cleaning as cl
+    rng = np.random.default_rng(SEED + 1)
+    x = rng.standard_normal((m, n)) * (1.0 + np.arange(n) / n)
+    x[rng.random((m, n)) < 0.01] = np.nan
+    nan = np.isnan(x)
+    q = np.nanquantile(x, [0.05, 0.25, 0.5, 0.75, 0.95], axis=0,
+                       keepdims=True)
+    mean = np.nanmean(x, axis=0, keepdims=True)
+    imputed = np.where(nan, mean, x)
+    lo, hi = q[1] - 1.5 * (q[3] - q[1]), q[3] + 1.5 * (q[3] - q[1])
+    mu_i, sd_i = imputed.mean(0, keepdims=True), imputed.std(0, ddof=1,
+                                                             keepdims=True)
+
+    def same(got, want, rtol=1e-12):
+        if got.shape != want.shape:
+            return float("inf")
+        gn, wn = np.isnan(got), np.isnan(want)
+        if not np.array_equal(gn, wn):
+            return float("inf")
+        scale = max(float(np.max(np.abs(want[~wn]), initial=0.0)), 1e-300)
+        return float(np.max(np.abs(got[~wn] - want[~wn]), initial=0.0)
+                     / scale)
+
+    checks = {
+        "impute_by_mean": (lambda rt: cl.impute_by_mean(
+            input_tensor("X", x), runtime=rt), imputed),
+        "impute_by_median": (lambda rt: cl.impute_by_median(
+            input_tensor("X", x), runtime=rt), np.where(nan, q[2], x)),
+        "outlier_by_iqr": (lambda rt: cl.outlier_by_iqr(
+            input_tensor("X", x), repair="nan", runtime=rt),
+            np.where((x < lo) | (x > hi), np.nan, x)),
+        "winsorize": (lambda rt: cl.winsorize(
+            input_tensor("X", x), runtime=rt), np.clip(x, q[0], q[4])),
+        # the mean/sd builtins are not nan-aware (as in the reference): a
+        # pipeline runs them on the mean-imputed matrix
+        "outlier_by_sd": (lambda rt: cl.outlier_by_sd(
+            input_tensor("Xi", imputed), k=3.0, repair="flag", runtime=rt),
+            (np.abs(imputed - mu_i) > 3.0 * sd_i).astype(np.float32)),
+        "scale_matrix": (lambda rt: cl.scale_matrix(
+            input_tensor("Xi", imputed), runtime=rt),
+            (imputed - mu_i) / sd_i),
+    }
+    rows, ok = {}, True
+    for name, (fn, want) in checks.items():
+        rt = LineageRuntime(device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = fn(rt)
+        wall = time.perf_counter() - t0
+        err = same(np.asarray(got, dtype=want.dtype), want)
+        good = err <= 1e-12
+        rows[name] = dict(wall_s=wall, rel_err_vs_numpy=err, ok=good)
+        ok &= good
+    # mice_lite: chained regressions, held against the CPU run
+    xm = x[:, :8].copy()
+    t0 = time.perf_counter()
+    got = cl.mice_lite(input_tensor("Xm", xm), n_iter=2,
+                       runtime=LineageRuntime(device=dev))
+    wall = time.perf_counter() - t0
+    want = cl.mice_lite(input_tensor("Xm", xm), n_iter=2,
+                        runtime=LineageRuntime(device="cpu"))
+    err = same(got, want)
+    rows["mice_lite"] = dict(wall_s=wall, shape=list(xm.shape),
+                             rel_err_vs_cpu=err, ok=err <= 1e-10)
+    ok &= err <= 1e-10
+    row = dict(phase="cleaning", shape=[m, n], dtype="float64",
+               nan_share=float(nan.mean()), builtins=rows,
+               cut="mice_lite on 8 of the 1,000 columns, 2 rounds")
+    emit(row)
+    if not ok:
+        raise AssertionError(f"cleaning builtins disagree: {row}")
+
+
+def phase_rand(dev=DEVICE, shape=(LIFE_M, LIFE_N), seed: int = 42,
+               block: int = 2000) -> None:
+    """`ops.rand(shape, seed, "normal", sparsity=0.1)` through the runtime
+    on the card, bitwise against the CPU's draw of three row blocks."""
+    import numpy as np
+    import torch
+    from repro_torch.core import LineageRuntime, ops
+    from repro_torch.core import random as trand
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    t0 = time.perf_counter()
+    got = LineageRuntime(device=dev).evaluate(
+        [ops.rand(shape, seed, "normal", sparsity=0.1)])[0]
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if torch.device(dev).type == "cuda" else None)
+    m = shape[0]
+    blocks = [(0, block), (m // 2 - block // 2, m // 2 + block // 2),
+              (m - block, m)]
+    same = []
+    t0 = time.perf_counter()
+    for r0, r1 in blocks:
+        want = trand.rand(shape, seed, "normal", 0.1, "cpu",
+                          rows=(r0, r1)).numpy()
+        same.append(bool(np.array_equal(got[r0:r1].view(np.int64),
+                                        want.view(np.int64))))
+    cpu_s = time.perf_counter() - t0
+    nz = got[got != 0]
+    row = dict(phase="rand", shape=list(shape), seed=seed, dist="normal",
+               sparsity=0.1, wall_s=wall, peak_device_gb=peak,
+               density=float(nz.size / got.size), mean=float(nz.mean()),
+               std=float(nz.std()), bitwise_vs_cpu=same, cpu_s=cpu_s,
+               cut=f"the CPU draws rows {blocks} ({3 * block:,} of {m:,}; "
+                   "a whole CPU draw takes ~50 s)")
+    emit(row)
+    if not (all(same) and abs(row["density"] - 0.1) < 1e-3
+            and abs(row["std"] - 1.0) < 1e-2):
+        raise AssertionError(f"rand on the card failed: {row}")
+
+
+def phase_grid_search(dev=DEVICE, m: int = LIFE_M, n: int = LIFE_N,
+                      k: int = GRID_K) -> dict:
+    """grid_search_lm (Fig. 5) over k λs at the lmds point: auto mode,
+    forced vmap and the sequential loop with a ReuseCache, against each
+    other and numpy's solve."""
+    import numpy as np
+    from repro_torch.core import LineageRuntime, ReuseCache, input_tensor
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.lifecycle import grid_search_lm
+    rng = np.random.default_rng(SEED + 2)
+    xn = rng.standard_normal((m, n))
+    yn = xn @ rng.standard_normal((n, 1)) + 0.1 * rng.standard_normal((m, 1))
+    lams = list(np.logspace(-3, 4, k))
+    g, b = xn.T @ xn, xn.T @ yn
+    want = np.concatenate([np.linalg.solve(g + lam * np.eye(n), b)
+                           for lam in lams], axis=1)
+    runs, betas = {}, {}
+    for mode in ("auto", "vmap", "sequential"):
+        rt = LineageRuntime(cache=None if mode == "vmap" else ReuseCache(),
+                            device=dev)
+        gops.reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        beta, _ = grid_search_lm(input_tensor("X", xn), input_tensor("y", yn),
+                                 lams, runtime=rt, mode=mode)
+        wall = time.perf_counter() - t0
+        betas[mode] = beta
+        runs[mode] = dict(
+            wall_s=wall, batched_segments=rt.stats.batched_segments,
+            mode_chosen=("vmap" if rt.stats.batched_segments else
+                         "sequential"),
+            launches=dict(gops.LAUNCHES),
+            rel_err_vs_numpy=float(np.max(np.abs(beta - want))
+                                   / np.max(np.abs(want))),
+            reuse_hits=None if rt.cache is None else rt.cache.stats.hits)
+    agree = max(float(np.max(np.abs(betas[a] - betas["vmap"]))
+                      / np.max(np.abs(betas["vmap"])))
+                for a in ("auto", "sequential"))
+    row = dict(phase="grid_search", shape=[m, n], k=k, runs=runs,
+               max_rel_diff_between_modes=agree)
+    emit(row)
+    ok = (agree <= 1e-8 and all(r["rel_err_vs_numpy"] <= 1e-9
+                                for r in runs.values())
+          and runs["vmap"]["batched_segments"] > 0
+          and runs["sequential"]["batched_segments"] == 0)
+    if not ok:
+        raise AssertionError(f"grid search failed: {row}")
+    return runs["vmap"]["launches"]
+
+
+def _sparse_fold_row(kind, xd, mask, w, peaks) -> dict:
+    """One masked product under torch.func.vmap over a batch of w (the
+    sparse grid's X @ β over the λs): the batch folds into one launch of
+    the hand kernel with k·c columns. Against k lone calls and the plain
+    version (float64, within TOL), bitwise against a second call, with
+    device, bound, the lone calls' summed and the library's times."""
+    import torch
+    from repro_torch.kernels.gram.ref import scaled_err
+    from repro_torch.kernels.spmm import ops, ref
+    k, rows, c = w.shape
+    m, n = xd.shape
+    op, lone, plain = ((ops.spmm_masked_op, ops.spmm_cuda, ref.spmm)
+                       if kind == "spmm" else
+                       (ops.xtv_masked_op, ops.xtv_bs_cuda, ref.xtv))
+    fn = torch.func.vmap(op, in_dims=(None, 0, None))
+    a = xd.mT if kind == "spmm" else xd
+    cols = w.permute(1, 0, 2).reshape(rows, k * c)
+    lib = ((lambda: torch.matmul(xd, cols)) if kind == "spmm" else
+           (lambda: torch.matmul(xd.mT, cols)))
+    saved = dict(ops.LAUNCHES)
+    got = fn(xd, w, mask)
+    counts = {key: ops.LAUNCHES[key] - saved[key] for key in saved
+              if ops.LAUNCHES[key] != saved[key]}
+    lones = [lone(xd, w[b], mask) for b in range(k)]
+    plains = [plain(xd, w[b], mask, ops.ROWS, ops.TILE) for b in range(k)]
+    torch.cuda.synchronize()
+    err_lone = max(scaled_err(got[b], lones[b], a, w[b]) for b in range(k))
+    err_plain = max(scaled_err(got[b], plains[b], a, w[b])
+                    for b in range(k))
+    max_abs = max((got[b] - plains[b]).abs().max().item() for b in range(k))
+    bitwise = torch.equal(got, fn(xd, w, mask))
+    ms = cuda_ms(lambda: fn(xd, w, mask))
+    us = host_us(lambda: fn(xd, w, mask), calls=50)
+    lone_ms = cuda_ms(lambda: [lone(xd, w[b], mask) for b in range(k)])
+    dev_ms, pass_ms, events = per_call_ms(lambda: fn(xd, w, mask))
+    ops.LAUNCHES.update(saved)  # timing launches are not the path's
+    plain_ms = cuda_ms(lambda: [plain(xd, w[b], mask, ops.ROWS, ops.TILE)
+                                for b in range(k)], iters=5)
+    row = dict(phase="sparse_kernel", kernel=kind, route="fold", batch=k,
+               m=m, n=n, c=c, dtype="float64",
+               launches_per_call=counts, max_abs_err=max_abs,
+               scaled_err_lone=err_lone, scaled_err_plain=err_plain,
+               tol=TOL["float64"], bitwise_repeat=bitwise, ms=ms,
+               device_ms=dev_ms, pass_ms=pass_ms, trace_events=events,
+               host_us=us, lone_ms=lone_ms, plain_ms=plain_ms,
+               library_ms=cuda_ms(lib),
+               **sparse_bounds(kind, mask, m, n, k * c, "float64", peaks))
+    row["ok"] = (err_lone <= TOL["float64"] and err_plain <= TOL["float64"]
+                 and bitwise and counts.get(kind) == 1
+                 and set(counts) <= {kind, f"{kind}_reduce"})
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"{kind} under vmap failed: {row}")
+    return row
+
+
+def phase_sparse_grid(peaks: dict, m: int = LIFE_M, n: int = LIFE_N,
+                      k: int = GRID_K) -> dict:
+    """grid_search_lm over k λs on the bcoo lane (sparse_inputs, the lmds
+    point's blocky X of density 0.05), forced vmap: the λ-invariant
+    gram_bs/xtv_bs once, the variant suffix's X @ β one spmm launch over
+    the λs folded into columns. Against the dense lane's vmap grid on the
+    same data and numpy's solve over the populated blocks; and the fold
+    of spmm and xtv_bs at this shape against lone calls and the plain
+    version. Returns the sparse kernels' launches in the grid run and the
+    fold rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core import LineageRuntime, input_tensor
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.kernels.spmm import ref as sref
+    from repro_torch.lifecycle import grid_search_lm
+    rng = np.random.default_rng(SEED + 6)
+    xh, keep = blocky(rng, m, n, *BLOCKY)
+    yh = xh @ rng.standard_normal((n, 1)) + 0.1 * rng.standard_normal((m, 1))
+    density = float(np.count_nonzero(xh)) / xh.size
+    lams = list(np.logspace(-3, 4, k))
+    g, b = blocky_gram(xh, keep), xh.T @ yh
+    want = np.concatenate([np.linalg.solve(g + lam * np.eye(n), b)
+                           for lam in lams], axis=1)
+    runs, betas = {}, {}
+    for lane in ("sparse", "dense"):
+        rt = LineageRuntime(sparse_inputs=lane == "sparse", device=DEVICE)
+        gops.reset_launches()
+        sops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beta, _ = grid_search_lm(
+            input_tensor("X", xh, sparsity=density), input_tensor("y", yh),
+            lams, runtime=rt, mode="vmap")
+        wall = time.perf_counter() - t0
+        betas[lane] = beta
+        runs[lane] = dict(
+            wall_s=wall, batched_segments=rt.stats.batched_segments,
+            launches={**sops.LAUNCHES, **gops.LAUNCHES},
+            rel_err_vs_numpy=float(np.max(np.abs(beta - want))
+                                   / np.max(np.abs(want))))
+    diff = float(np.max(np.abs(betas["sparse"] - betas["dense"]))
+                 / np.max(np.abs(betas["dense"])))
+    # the fold alone at the grid's shapes: X @ β (k columns of n rows) and
+    # Xᵀv (k columns of m rows)
+    xd = torch.from_numpy(xh).to(DEVICE)
+    mask = sref.block_mask(xd, sops.ROWS, sops.TILE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    folds = {kind: _sparse_fold_row(
+        kind, xd, mask, torch.randn((k, rows, 1), generator=gen,
+                                    device=DEVICE, dtype=torch.float64),
+        peaks) for kind, rows in (("spmm", n), ("xtv_bs", m))}
+    del xd, mask
+    torch.cuda.empty_cache()
+    row = dict(phase="sparse_grid", shape=[m, n], density=density, k=k,
+               runs=runs, rel_diff_sparse_vs_dense=diff)
+    emit(row)
+    ls = runs["sparse"]["launches"]
+    ok = (diff <= 1e-8
+          and all(r["rel_err_vs_numpy"] <= 1e-9 for r in runs.values())
+          and runs["sparse"]["batched_segments"] > 0
+          and ls["spmm"] == 1 and ls["gram_bs"] == 1 and ls["xtv_bs"] == 1
+          and ls["gram"] == 0 and ls["xtv"] == 0)
+    if not ok:
+        raise AssertionError(f"sparse grid search failed: {row}")
+    return dict(launches=ls, folds=folds)
+
+
+def phase_cv(dev=DEVICE, m: int = LIFE_M, n: int = LIFE_N,
+             folds: int = CV_FOLDS) -> dict:
+    """cross_validate_lm (Fig. 7) over `folds` folds at the lmds point:
+    forced vmap (the fold grams and xtvs as batched launches) against the
+    sequential loop with a ReuseCache. Returns the vmap run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import LineageRuntime, ReuseCache
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.lifecycle import cross_validate_lm, make_folds
+    rng = np.random.default_rng(SEED + 3)
+    xn = rng.standard_normal((m, n))
+    yn = xn @ rng.standard_normal((n, 1)) + 0.1 * rng.standard_normal((m, 1))
+    runs, out = {}, {}
+    for mode in ("vmap", "sequential"):
+        rt = LineageRuntime(cache=ReuseCache() if mode == "sequential"
+                            else None, device=dev)
+        fx, fy = make_folds(xn, yn, folds, seed=3)
+        gops.reset_launches()
+        cuda = torch.device(dev).type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[mode] = cross_validate_lm(fx, fy, runtime=rt, mode=mode)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        runs[mode] = dict(
+            wall_s=wall, batched_segments=rt.stats.batched_segments,
+            launches=dict(gops.LAUNCHES),
+            peak_device_gb=(torch.cuda.max_memory_allocated() / 2**30
+                            if cuda else None),
+            peak_host_gb=_host_peak_gb())
+        if cuda and mode == "vmap":
+            # a second vmap run under the profiler: the batched kernels'
+            # device time at the path's own shapes (its wall is not used)
+            fx, fy = make_folds(xn, yn, folds, seed=3)
+            _, twall, busy, by_name = device_trace(
+                lambda: cross_validate_lm(
+                    fx, fy, runtime=LineageRuntime(device=dev), mode=mode))
+            runs[mode]["traced"] = dict(
+                wall_s=twall, device_busy_s=busy, kernel_ms={
+                    k: 1e3 * v for k, v in by_name.items()
+                    if "gram_" in k or "xtv_" in k})
+    (bv, ev), (bs, es) = out["vmap"], out["sequential"]
+    diff = float(np.max(np.abs(bv - bs)) / np.max(np.abs(bs)))
+    ediff = float(np.max(np.abs(np.subtract(ev, es)) / np.abs(es)))
+    row = dict(phase="cv", shape=[m, n], folds=folds,
+               fold_rows=m // folds, runs=runs, max_rel_diff_beta=diff,
+               max_rel_diff_mse=ediff)
+    emit(row)
+    lv = runs["vmap"]["launches"]
+    if not (diff <= 1e-8 and ediff <= 1e-8
+            and runs["vmap"]["batched_segments"] > 0
+            and lv["gram_batched"] > 0 and lv["xtv_batched"] > 0
+            and lv["gram"] == 0):
+        raise AssertionError(f"cross validation failed: {row}")
+    return lv
+
+
+def batched_bound(kind: str, k: int, m: int, n: int, c: int, dtype: str,
+                  peaks: dict, v_batched: bool = True,
+                  x_batched: bool = True) -> tuple[float, str]:
+    """`bound` for a batch of k products: every input read once (a shared
+    X or v once for the batch), every output written once."""
+    size = {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
+    out = 8 if dtype == "float64" else 4
+    if kind == "gram":
+        ops_, nbytes = k * m * n * (n + 1), k * (m * n * size + n * n * out)
+    else:
+        ops_ = 2 * k * m * n * c
+        nbytes = ((k if x_batched else 1) * m * n * size
+                  + (k if v_batched else 1) * m * c * size + k * n * c * out)
+    t_ops, t_bytes = ops_ / peaks[dtype], nbytes / peaks["bw"]
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_batched_kernels(peaks: dict, stack=CV_STACK,
+                          fold=BATCHED) -> dict:
+    """gram and xtv under torch.func.vmap: one batched launch (plus its
+    reduce). At CV's training-stack shape `stack` in float64, the path's
+    own launches; at `fold` in float64/float32/bfloat16, with xtv's
+    broadcast-v and fold routes. Each against k lone calls (within TOL)
+    and the plain version computed in float64 from the same inputs
+    (within TOL), bitwise against a second call, with device, bound, the
+    lone calls' summed and the library's (torch.bmm) times. Returns the
+    stack rows by kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.interop import from_reference
+    from repro_torch.kernels.gram import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = {"float64": torch.float64, "float32": torch.float32,
+          "bfloat16": torch.bfloat16}
+    # the stack drawn on the card (5.6 GB in float64), the fold on the host
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    k0, m0, n0 = stack
+    inputs = {
+        stack: {"x": torch.randn(stack, generator=gen, device="cuda",
+                                 dtype=torch.float64),
+                "v": torch.randn((k0, m0, 1), generator=gen, device="cuda",
+                                 dtype=torch.float64)}}
+    rng = np.random.default_rng(SEED + 4)
+    k1, m1, n1 = fold
+    inputs[fold] = from_reference({"x": rng.standard_normal(fold),
+                                   "v": rng.standard_normal((k1, m1, 1))},
+                                  "cuda")
+    cases = [(stack, "gram", "batched", "float64"),
+             (stack, "xtv", "batched", "float64")] \
+        + [(fold, "gram", "batched", name) for name in dt] \
+        + [(fold, "xtv", "batched", name) for name in dt] \
+        + [(fold, "xtv", "broadcast", "float64"),
+           (fold, "xtv", "fold", "float64")]
+
+    def plan(kind, route, x):
+        k, m, n = x.shape
+        sms = ops._sm_count(x.device)
+        if kind == "gram":
+            return ops.gram_plan(m, n, x.dtype, sms, ops.GRAM_TILE_N, k)
+        if route == "fold":  # one xtv of k columns
+            return ops.xtv_plan(m, n, k, x.dtype, sms)
+        return ops.xtv_plan(m, n, 1, x.dtype, sms, k)
+
+    main = {}
+    for shape, kind, route, name in cases:
+        k, m, n = shape
+        x = inputs[shape]["x"].to(dt[name])
+        v = inputs[shape]["v"].to(dt[name])
+        if kind == "gram":
+            fn = (lambda x=x: torch.func.vmap(ops.gram_op)(x))
+            lone = (lambda x=x: [ops.gram_cuda(x[i]) for i in range(k)])
+            lib = (lambda x=x: torch.bmm(x.mT, x))
+            pairs = [(x[i], x[i]) for i in range(k)]
+            bms, by = batched_bound("gram", k, m, n, 0, name, peaks)
+        elif route == "batched":
+            fn = (lambda x=x, v=v: torch.func.vmap(ops.xtv_op)(x, v))
+            lone = (lambda x=x, v=v: [ops.xtv_cuda(x[i], v[i])
+                                      for i in range(k)])
+            lib = (lambda x=x, v=v: torch.bmm(x.mT, v))
+            pairs = [(x[i], v[i]) for i in range(k)]
+            bms, by = batched_bound("xtv", k, m, n, 1, name, peaks)
+        elif route == "broadcast":
+            fn = (lambda x=x, v=v: torch.func.vmap(
+                ops.xtv_op, in_dims=(0, None))(x, v[0]))
+            lone = (lambda x=x, v=v: [ops.xtv_cuda(x[i], v[0])
+                                      for i in range(k)])
+            lib = (lambda x=x, v=v: torch.matmul(x.mT, v[0]))
+            pairs = [(x[i], v[0]) for i in range(k)]
+            bms, by = batched_bound("xtv", k, m, n, 1, name, peaks,
+                                    v_batched=False)
+        else:  # fold: one X, a batch of v
+            fn = (lambda x=x, v=v: torch.func.vmap(
+                ops.xtv_op, in_dims=(None, 0))(x[0], v))
+            lone = (lambda x=x, v=v: [ops.xtv_cuda(x[0], v[i])
+                                      for i in range(k)])
+            lib = (lambda x=x, v=v: torch.matmul(x[0].mT, v))
+            pairs = [(x[0], v[i]) for i in range(k)]
+            bms, by = batched_bound("xtv", k, m, n, 1, name, peaks,
+                                    x_batched=False)
+        saved = dict(ops.LAUNCHES)
+        got = fn()
+        counts = {key: ops.LAUNCHES[key] - saved[key] for key in saved
+                  if ops.LAUNCHES[key] != saved[key]}
+        lones = lone()
+        torch.cuda.synchronize()
+        err_lone = max(ref.scaled_err(got[i], lones[i], a, b)
+                       for i, (a, b) in enumerate(pairs))
+        # plain version in float64 from the same inputs: at 12,500 rows
+        # two float32 summation orders (this kernel's, cuBLAS's) differ by
+        # up to ~1.6e-5 of the column-norm scale, so the float32 plain
+        # run is reported (scaled_err_plain) and the float64 one is held
+        plain64 = [ref.gram(a.double()) if kind == "gram"
+                   else ref.xtv(a.double(), b.double()) for a, b in pairs]
+        err64 = max(ref.scaled_err(got[i], plain64[i], a, b)
+                    for i, (a, b) in enumerate(pairs))
+        plain = [ref.gram(a) if kind == "gram" else ref.xtv(a, b)
+                 for a, b in pairs]
+        err_plain = max(ref.scaled_err(got[i], plain[i], a, b)
+                        for i, (a, b) in enumerate(pairs))
+        max_abs = max((got[i].double() - plain64[i]).abs().max().item()
+                      for i in range(k))
+        bitwise = torch.equal(got, fn())
+        ok = err_lone <= TOL[name] and err64 <= TOL[name] and bitwise
+        if kind == "gram" and not torch.equal(got, got.mT):
+            ok = False
+        ms = cuda_ms(fn)
+        lone_ms = cuda_ms(lone)
+        plain_ms = cuda_ms(lambda: [ref.gram(a) if kind == "gram"
+                                    else ref.xtv(a, b) for a, b in pairs])
+        library_ms = cuda_ms(lib)
+        dev_ms, pass_ms, events = per_call_ms(fn)
+        us = host_us(fn, calls=20)
+        ops.LAUNCHES.update(saved)  # timing launches are not the path's
+        row = dict(phase="kernel", kernel=f"{kind}_batched", route=route,
+                   case="cv_stack" if shape == stack else "cv_fold",
+                   batch=k, m=m, n=n, c=None if kind == "gram" else 1,
+                   dtype=name, launches_per_call=counts,
+                   max_abs_err=max_abs, scaled_err_lone=err_lone,
+                   scaled_err_plain64=err64, scaled_err_plain=err_plain,
+                   tol=TOL[name], bitwise_repeat=bitwise, ok=ok, ms=ms,
+                   device_ms=dev_ms, pass_ms=pass_ms, trace_events=events,
+                   host_us=us,
+                   lone_ms=lone_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bms, bound_by=by,
+                   plan=plan(kind, route, x))
+        emit(row)
+        if not ok:
+            raise AssertionError(f"{kind} {route} {name} failed: {row}")
+        # one launch of the batched kernel (the fold: of the lone xtv)
+        # and at most one of its reduce, nothing else
+        one = ("xtv" if route == "fold" else f"{kind}_batched")
+        if counts.get(one) != 1 or any(
+                key not in (one, f"{one}_reduce") or c != 1
+                for key, c in counts.items()):
+            raise AssertionError(f"{kind} {route} {name}: launches per "
+                                 f"call {counts}, not one batched launch")
+        if shape == stack:
+            main[f"{kind}_batched"] = row
+        del x, v, got, lones, plain64, plain
+    del inputs
+    torch.cuda.empty_cache()
+    return main
+
+
 def ptxas_spills(log: str, entry: str) -> dict:
     """Spill bytes (stores + loads) of each kernel whose mangled name
     matches `entry`, keyed by the pattern's groups, from ptxas's report
@@ -2327,15 +3070,26 @@ def main() -> int:
             raise AssertionError(f"{prefix}* kernels of spmm.cu spill (or "
                                  f"are not all built): {got}")
 
+    # the WKV6 phase counts each call's kernels in profiler traces: it
+    # runs first, since after a hundred earlier traces in one process the
+    # profiler was seen to drop one record of every trace of a case (on
+    # an H100, two runs in a row; the phase alone never did)
+    wkv6_row = phase_wkv6_kernels(peaks)
     main_rows = phase_kernels(peaks)
     sparse_rows = phase_sparse_kernels(peaks)
     flash_row = phase_flash_kernels(peaks)
-    wkv6_row = phase_wkv6_kernels(peaks)
     ssm_row = phase_ssm_kernels(peaks)
+    batched_rows = phase_batched_kernels(peaks)
     phase_quickstart()
     launches = phase_lmds()
     phase_steplm()
     sparse_launches = phase_sparse_lm()
+    algo_launches = phase_algorithms()
+    phase_cleaning()
+    phase_rand()
+    grid_launches = phase_grid_search()
+    sparse_grid = phase_sparse_grid(peaks)
+    cv_launches = phase_cv()
     serve_launches = phase_lm_serve(peaks)
     rwkv_launches = phase_rwkv_serve(peaks)
     hybrid_launches = phase_hybrid_serve(peaks)
@@ -2348,27 +3102,63 @@ def main() -> int:
             replaces=f"src/repro/kernels/gram/kernel.py:{line}",
             launches=launches[kind],
             reduce_launches=launches[f"{kind}_reduce"],
+            launches_by_path=dict(
+                lmds=launches[kind],
+                **{a: v[kind] for a, v in algo_launches.items()},
+                grid_search_vmap=grid_launches[kind],
+                cv_vmap=cv_launches[kind]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             device_ms=r["device_ms"], host_us=r["host_us"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # the same kernels under torch.func.vmap: one launch over a batch, at
+    # the CV path's training stacks (8, 87,500, 1,000) float64; per path,
+    # launches x (device ms - bound ms) at that shape
+    for kind, line in (("gram", 49), ("xtv", 83)):
+        r = batched_rows[f"{kind}_batched"]
+        dev_ms = r["ms"] if r["device_ms"] is None else r["device_ms"]
+        kernels.append(dict(
+            name=f"{kind}_batched", route="cuda",
+            source="src/repro_torch/csrc/gram.cu",
+            replaces=f"src/repro/kernels/gram/kernel.py:{line}",
+            launches=cv_launches[f"{kind}_batched"],
+            reduce_launches=cv_launches[f"{kind}_batched_reduce"],
+            launches_by_path=dict(
+                cv_vmap=cv_launches[f"{kind}_batched"],
+                grid_search_vmap=grid_launches[f"{kind}_batched"]),
+            shape=[r["batch"], r["m"], r["n"]],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            device_ms=r["device_ms"], lone_ms=r["lone_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            excess_ms_by_path=dict(
+                cv_vmap=cv_launches[f"{kind}_batched"]
+                * (dev_ms - r["bound_ms"]))))
     # each kernel's row at the shape of most of its launches; per path,
     # launches x (device ms - bound ms) at that path's shapes (a stream
     # bucket for all but the stream's last launch, its 6,784-row tail)
     at = {"gram_bs": (100_000, 1000), "xtv_bs": (100_000, 2000),
           "spmm": (100_000, 2000)}
     shapes = {"sparse_lmds": (100_000, 1000), "sparse_lmcg": (100_000, 2000),
-              "sparse_stream": (32_768, 1000)}
+              "sparse_stream": (32_768, 1000),
+              "sparse_grid_vmap": (100_000, 1000)}
     for kind, line in (("gram_bs", 63), ("spmm", 112), ("xtv_bs", 158)):
         r = sparse_rows[(kind, *at[kind])]
         by_path = {p: v[kind] for p, v in sparse_launches.items() if v[kind]}
+        if sparse_grid["launches"][kind]:
+            by_path["sparse_grid_vmap"] = sparse_grid["launches"][kind]
 
         def over(rows, cols, kind=kind):
             r = sparse_rows[(kind, rows, cols)]
             dev = r["ms"] if r["device_ms"] is None else r["device_ms"]
             return dev - r["bound_ms"]
 
-        def excess(path, k):
+        def excess(path, k, kind=kind):
+            if path == "sparse_grid_vmap" and kind == "spmm":
+                # the fold: one launch of 70 columns (its own row)
+                r = sparse_grid["folds"]["spmm"]
+                dev = r["ms"] if r["device_ms"] is None else r["device_ms"]
+                return k * (dev - r["bound_ms"])
             if path != "sparse_stream":
                 return k * over(*shapes[path])
             return (k - 1) * over(*shapes[path]) + over(6784, 1000)
@@ -2408,8 +3198,8 @@ def main() -> int:
         max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], bound_rate=r["bound_rate"],
-        passes=r["passes"], library_ms=r["library_ms"],
-        library=r["library"]))
+        passes=r["passes"], trace_retries=r["trace_retries"],
+        library_ms=r["library_ms"], library=r["library"]))
     r = ssm_row
     kernels.append(dict(
         name="ssm_scan", route="cuda", source="src/repro_torch/csrc/ssd.cu",

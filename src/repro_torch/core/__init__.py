@@ -4,8 +4,10 @@ lineage-based reuse and an optimizing compiler, on PyTorch (port of
 like the reference's jax x64 flag; node dtypes default to float64 as
 the DSL's generators do."""
 from . import ops  # noqa: F401
+from .batching import (BatchedPlan, BatchingError,  # noqa: F401
+                       compile_batched)
 from .compiler import Plan, compile_plan  # noqa: F401
-from .dag import LTensor, input_tensor  # noqa: F401
+from .dag import LTensor, batch_input, input_tensor  # noqa: F401
 from .jit_cache import clear_jit_cache, get_jit_cache  # noqa: F401
 from .reuse import ReuseCache  # noqa: F401
 from .runtime import (LineageRuntime, PreparedScript, evaluate,  # noqa: F401

@@ -25,7 +25,9 @@ get the dense kernel behind a densify boundary. `gram`/`xtv` route
 through `repro_torch.kernels.gram.ops` on dense operands and through
 `repro_torch.kernels.spmm.ops` (with `matmul`) on bcoo ones: the
 hand-written CUDA kernels on a CUDA tensor, the plain torch versions on a
-CPU tensor.
+CPU tensor. Every kernel also runs inside `torch.func.vmap` (the parfor
+lane's config-variant segments): gram and xtv take their custom ops'
+vmap rules there, one batched launch over the whole batch.
 
 Kernels take device tensors and return device tensors; generators
 (`literal`, `full`, `eye`, `seq`) are built for an explicit device and
@@ -263,23 +265,22 @@ def _promote(*xs: torch.Tensor) -> list[torch.Tensor]:
 # op implementations
 # ---------------------------------------------------------------------------
 
-def _rows(x: torch.Tensor) -> torch.Tensor:
-    """`x` with contiguous rows, as the gram kernels read it (a column
-    slice keeps its leading dimension and is not copied)."""
-    if x.ndim == 2 and x.shape[1] > 1 and x.stride(1) != 1:
-        return x.contiguous()
-    return x
-
-
 def _gram(x):
     from repro_torch.kernels.gram import ops as gram_ops
-    return gram_ops.gram(_rows(x))
+    if gram_ops.vmapped(x):
+        # the custom op's vmap rule: one batched launch over the batch
+        return gram_ops.gram_op(x)
+    return gram_ops.gram(gram_ops.rows(x))
 
 
 def _xtv(x, v):
     from repro_torch.kernels.gram import ops as gram_ops
     x, v = _promote(x, v)
-    return gram_ops.xtv(_rows(x), _rows(v))
+    if gram_ops.vmapped(x, v):
+        if v.ndim == 1:
+            return gram_ops.xtv_op(x, v[:, None])[:, 0]
+        return gram_ops.xtv_op(x, v)
+    return gram_ops.xtv(gram_ops.rows(x), gram_ops.rows(v))
 
 
 def _matmul(a, b):
@@ -567,9 +568,14 @@ def _build_seq(attrs):
 
 @register_kernel("rand")
 def _build_rand(attrs):
-    raise NotImplementedError(
-        "rand draws JAX threefry bits in the reference; the port's "
-        "bit-exact generator is not written yet (ROADMAP Queue 1 item 2)")
+    """JAX's threefry draw, bit for bit (`core/random.py`): float64
+    uniform or normal, zeroed outside the sparsity mask, then cast to
+    the node's dtype."""
+    from . import random
+    shape, seed = attrs["_shape"], attrs["seed"]
+    dist, sp = attrs.get("dist"), attrs.get("sparsity_gen", 1.0)
+    dtype, device = torch_dtype(attrs["_dtype"]), attrs["_device"]
+    return lambda: random.rand(shape, seed, dist, sp, device).to(dtype)
 
 
 # -- sparse (bcoo) kernel variants -------------------------------------------

@@ -10,11 +10,17 @@ metadata alone, *before* anything runs. Consumers:
   * chunked placement — `should_chunk` / `chunk_rows` decide when a
     leaf streams and how many rows each bucket holds.
 
-Port of `repro.core.costmodel` for the lanes this package runs (local
-and chunked). The constants, environment names and formulas are the
-reference's, unchanged, so both packages compile identical plans; they
-are NOT tuned for the GPU. The federated, sharded, parfor, serving and
-fault-policy sections of the reference are not carried over yet.
+  * parfor arbitration — `batched_cost_s` / `sequential_cost_s` price
+    the vmapped grid against the sequential-reuse loop
+    (`repro_torch.core.batching.choose_mode`).
+
+Port of `repro.core.costmodel` for the lanes this package runs (local,
+chunked and the batched parfor lane). The constants, environment names
+and formulas are the reference's, unchanged, so both packages compile
+identical plans and choose the same parfor mode; they are NOT tuned for
+the GPU. The federated, sharded (`config_shard_cost_s` included),
+serving and fault-policy sections of the reference are not carried over
+yet.
 
 One deliberate difference: `pipeline_depth()` resolves to 1 (the
 synchronous lane, the only one ported) and refuses an explicit
@@ -229,3 +235,87 @@ def chunk_cost_s(n: Node) -> float:
         else LIGHT_OP_BASE_S
     return base + n_chunks * CHUNK_DISPATCH_S + max(
         _chunk_flops(n) / PEAK_FLOPS, node_bytes(n) / PEAK_BW)
+
+
+# ---------------------------------------------------------------------------
+# Task-parallel batched execution (§5 parfor): vmap-vs-sequential
+# arbitration for the config axis
+# ---------------------------------------------------------------------------
+
+# Control-program overhead per configuration on the sequential path: one
+# plan compile + leaf binding + per-segment python dispatch with a device
+# sync (the reference's calibration).
+PARFOR_DISPATCH_S = 300e-6
+
+# Memory ceiling for the vmapped config-variant suffix: every variant
+# intermediate is materialized `bucket` times at once, so giants must
+# fall back to the sequential loop instead of thrashing.
+VMAP_MEM_BUDGET = 1 << 30
+
+
+def _work_s(n: Node) -> float:
+    """Roofline term of one HOP (est_cost_s minus the launch constant)."""
+    return max(node_flops(n) / PEAK_FLOPS, node_bytes(n) / PEAK_BW)
+
+
+def batched_cost_s(invariant: list[Node], variant: list[Node],
+                   bucket: int) -> float:
+    """Estimated seconds for one batched (vmapped) execution.
+
+    The config-invariant prefix runs once at per-config size; every
+    config-variant instruction pays its launch constant ONCE but does
+    `bucket`× the per-config work (the batch axis is padded up to a
+    power-of-two bucket, so the padding waste is part of the estimate —
+    that is what lets a memory-bound giant lose to the sequential loop
+    when the bucket overshoots k).
+    """
+    total = PARFOR_DISPATCH_S  # one plan dispatch for the whole grid
+    for n in invariant:
+        total += est_cost_s(n)
+    for n in variant:
+        base = HEAVY_OP_BASE_S if n.op in HEAVY_OPS else LIGHT_OP_BASE_S
+        total += base + bucket * _work_s(n)
+    return total
+
+
+def sequential_cost_s(roots_list: list[list[Node]],
+                      reuse_active: bool) -> float:
+    """Estimated seconds for the sequential path over k configs.
+
+    Walks every per-config DAG and sums per-node estimates,
+    deduplicating across configs exactly where the sequential runtime
+    would: with an active reuse cache, a repeated intermediate whose
+    cost clears the probe threshold is served from the cache after its
+    first computation. Value identity is the lineage hash with
+    uid-based leaf identity — the same notion the cache keys on.
+    """
+    from .dag import _lhash_rec  # uid-keyed memo is shareable: uids are global
+    seen: set[str] = set()
+    memo: dict[int, str] = {}
+    total = len(roots_list) * PARFOR_DISPATCH_S
+    for roots in roots_list:
+        order: list[Node] = []
+        seen_uid: set[int] = set()
+
+        def rec(n: Node) -> None:
+            if n.uid in seen_uid:
+                return
+            seen_uid.add(n.uid)
+            for i in n.inputs:
+                rec(i)
+            order.append(n)
+
+        for r in roots:
+            rec(r)
+        for n in order:
+            if n.op in ("input", "literal"):
+                continue
+            h = _lhash_rec(n, {}, memo)
+            c = est_cost_s(n)
+            if h in seen:
+                if reuse_active and c >= PROBE_MIN_COST_S:
+                    continue  # cache hit on the sequential path
+            else:
+                seen.add(h)
+            total += c
+    return total

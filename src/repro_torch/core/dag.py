@@ -458,6 +458,49 @@ def _slice_fingerprint(sl: np.ndarray, table: np.ndarray,
     return h.hexdigest()
 
 
+def batch_input(name: Optional[str], stacked,
+                sparsity: Optional[float] = None,
+                lineage_id: Optional[str] = None) -> LTensor:
+    """Create a *batched* leaf: one template node standing for k
+    per-configuration values (the `parfor` config axis, §5).
+
+    The node's shape/dtype/sparsity describe ONE element — size
+    propagation, rewrites, and the cost model see the per-config plan —
+    while the bound value is the stacked ``(k,) + elem_shape`` array.
+    The batch axis exists only in the execution layer: the batched
+    compiler (`repro_torch.core.batching`) marks every transitive
+    consumer as config-variant and the runtime maps those segments over
+    axis 0 with `torch.func.vmap`. Leaves carry ``batch=k`` in their
+    attrs (still ``op == 'input'`` so leaf binding/lineage/rewrites need
+    no special cases); `is_batched_leaf` is the single detection helper.
+    """
+    arr = np.asarray(stacked)
+    if arr.ndim < 1 or arr.shape[0] < 1:
+        raise ValueError(
+            f"batch_input needs a stacked (k, ...) array, got {arr.shape}")
+    k = int(arr.shape[0])
+    if sparsity is None:
+        if arr.size and np.issubdtype(arr.dtype, np.floating):
+            sample = arr.ravel()[: 4096]
+            sparsity = float(np.count_nonzero(sample)) / sample.size
+        else:
+            sparsity = 1.0
+    name = name or f"cfg{next(_input_counter)}"
+    node = make_node("input", (), arr.shape[1:], arr.dtype, sparsity,
+                     name=name, batch=k)
+    # lineage is content-only (no auto-generated name): re-hoisting the
+    # same grid in a later parfor call yields the same lineage id, so
+    # repeated identical grids hit the reuse cache across calls
+    lid = lineage_id or f"batch:{_fingerprint(arr)}"
+    LEAVES.bind(node, arr, lid)
+    return LTensor(node)
+
+
+def is_batched_leaf(node: Node) -> bool:
+    """True for leaves created by `batch_input` (the hoisted config axis)."""
+    return node.op == "input" and node.attr("batch") is not None
+
+
 def input_tensor(name: Optional[str], value, sparsity: Optional[float] = None,
                  lineage_id: Optional[str] = None) -> LTensor:
     """Create a leaf bound to concrete data.

@@ -1,8 +1,7 @@
 """Functional surface of the declarative DSL (DML-flavoured builtins).
 
 These functions build HOP DAG nodes; nothing executes until
-`repro_torch.core.runtime.evaluate` is called. Port of `repro.core.ops`
-without `batch_input` (the parfor config axis is not ported yet).
+`repro_torch.core.runtime.evaluate` is called. Port of `repro.core.ops`.
 """
 from __future__ import annotations
 
@@ -10,7 +9,7 @@ from typing import Sequence
 
 import numpy as np
 
-from .dag import LTensor, as_ltensor, make_node
+from .dag import LTensor, as_ltensor, batch_input, make_node
 
 __all__ = [
     "t", "matmul", "gram", "xtv", "rbind", "cbind", "solve", "cholesky",
@@ -18,8 +17,14 @@ __all__ = [
     "colSums", "rowSums", "colMeans", "rowMeans", "colVars", "colMaxs",
     "colMins", "nnz", "exp", "log", "sqrt", "abs_", "sign", "sigmoid",
     "round_", "minimum", "maximum", "where", "ones", "zeros", "full", "eye",
-    "rand", "seq", "replace_nan", "cumsum", "quantile",
+    "rand", "seq", "replace_nan", "cumsum", "quantile", "batch_input",
 ]
+
+# `batch_input` (re-exported from `dag`) is the §5 task-parallel config
+# axis: a leaf whose node has the per-config element shape while the
+# binding is the stacked (k, ...) array — the batching pass
+# (`repro_torch.core.batching`) hoists varying literals/leaves into these,
+# and `LineageRuntime.evaluate_batch` vmaps their consumers.
 
 
 # -- structural -------------------------------------------------------------

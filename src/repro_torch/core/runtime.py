@@ -20,11 +20,20 @@ plan's formats, segment keys carry the boundary formats, and a reuse hit
 is coerced to the format the plan assigned. The streaming lane charges a
 bcoo leaf its sparse bytes per row and sparsifies each bucket it uploads.
 
-Not ported yet (each refuses rather than degrading silently): the
-batched/parfor lane (ROADMAP Queue 1 item 6), federated execution
-(item 8), serving (`PreparedScript.prepare_batched`, item 9), the
-asynchronous pipeline (item 10), the fault policy (item 11) and sharded
-execution (item 12).
+Batched lane (`evaluate_batch`, the §5 `parfor`): a `BatchedPlan`
+(`repro_torch.core.batching`) runs its config-invariant prefix once
+through the ordinary segment machinery and each config-variant segment
+as one `torch.func.vmap` closure over the padded bucket axis (cached
+under a `|vmap:{axes}` key; gram and xtv inside are one batched launch
+each); a host op (`quantile`) in the variant suffix loops over the true
+configs on the host and is padded back into the bucket.
+
+Not ported yet (each refuses rather than degrading silently): federated
+execution (ROADMAP Queue 1 item 8), serving
+(`PreparedScript.prepare_batched`, item 9), the asynchronous pipeline
+(item 10), the fault policy (item 11) and sharded execution (item 12),
+which also takes the reference's bucket-axis sharding (`mode="shard"`
+runs as plain vmap, as the reference does without a mesh).
 
 `PreparedScript` is the JMLC analogue: trace a python function once into
 a DAG with placeholder leaves, then re-execute with new in-memory inputs
@@ -100,7 +109,7 @@ class RuntimeStats:
     reused: int = 0
     exec_time: float = 0.0
     segments: int = 0        # segments dispatched on the fused path
-    batched_segments: int = 0  # parfor lane, not ported: always 0
+    batched_segments: int = 0  # vmapped config-variant segments (parfor)
     jit_cache_hits: int = 0  # warm cached-closure lookups
     trace_time: float = 0.0  # seconds spent building segment closures
     # out-of-core streaming meter, populated by chunked plans
@@ -120,6 +129,27 @@ class RuntimeStats:
             out["streaming"] = self.streaming.as_dict()
         out["jit_cache"] = get_jit_cache().stats.as_dict()
         return out
+
+
+@dataclass
+class _BatchCtx:
+    """Execution context of a batched (`parfor`) plan: which value uids
+    carry the leading config axis, and how wide the padded axis is."""
+
+    bplan: Any                 # repro_torch.core.batching.BatchedPlan
+    batch: int                 # true number of configurations (k)
+    bucket: int                # padded batch width (power-of-two)
+    bvals: frozenset           # uids with a leading batch axis
+
+
+def _pad_axis0(t: torch.Tensor, bucket: int) -> torch.Tensor:
+    """Re-pad a true-k host-op result back to the bucket width (repeating
+    the last config, like `batching.pad_batch`) so it slots into the
+    downstream vmapped closures built for the bucket."""
+    pad = bucket - t.shape[0]
+    if pad <= 0:
+        return t
+    return torch.cat([t, t[-1:].expand(pad, *t.shape[1:])])
 
 
 class LineageRuntime:
@@ -156,6 +186,52 @@ class LineageRuntime:
         else:
             self._run_instructions(plan, values, lin)
         return [backend.to_numpy(values[i]) for i in plan.output_ids]
+
+    # ------------------------------------------------------------------
+    def evaluate_batch(self, bplan) -> list[list[np.ndarray]]:
+        """Execute a `BatchedPlan` (see `repro_torch.core.batching`): the
+        config-invariant prefix runs once through the ordinary segment
+        machinery (same closures, same reuse probes as single-config
+        plans), config-variant segments run vmapped over the padded
+        batch axis. Returns one output list per configuration, in grid
+        order, padding sliced off.
+
+        Batched execution is inherently fused — the vmapped suffix IS a
+        segment closure — so this path is used regardless of
+        `self.fuse` (the interpreter equivalent of a batched plan is the
+        sequential per-config loop, which `parfor` falls back to)."""
+        from .batching import pad_batch
+        costmodel.pipeline_depth()  # refuses an async depth up front
+        plan = bplan.plan
+        bctx = _BatchCtx(bplan=bplan, batch=bplan.batch,
+                         bucket=bplan.bucket,
+                         bvals=bplan.batched_value_uids)
+        leaf_values = {
+            uid: pad_batch(np.asarray(LEAVES.values[uid]), bplan.bucket)
+            for uid in bplan.batched_leaf_uids}
+        values, lin = self._bind_leaves(plan, leaf_values, None)
+        self._run_segments(plan, values, lin, bctx=bctx)
+        return self._unpack_batch(plan, values, bctx)
+
+    @staticmethod
+    def _unpack_batch(plan: Plan, values: dict[int, Any],
+                      bctx: _BatchCtx) -> list[list[np.ndarray]]:
+        """Split a batched run's outputs into one list per config, in
+        order, with the bucket padding sliced off."""
+        k = bctx.batch
+        per_config: list[list[np.ndarray]] = [[] for _ in range(k)]
+        for uid in plan.output_ids:
+            arr = backend.to_numpy(values[uid])
+            if uid in bctx.bvals:
+                for j in range(k):
+                    per_config[j].append(arr[j])
+            else:
+                # config-invariant output: every config gets its own
+                # copy, matching the sequential path's independent
+                # arrays (callers may mutate results in place)
+                for j in range(k):
+                    per_config[j].append(arr if j == 0 else arr.copy())
+        return per_config
 
     # ------------------------------------------------------------------
     def _bind_leaves(self, plan: Plan,
@@ -250,19 +326,30 @@ class LineageRuntime:
 
     # ------------------------------------------------------------------
     def _run_segments(self, plan: Plan, values: dict[int, Any],
-                      lin: dict[int, str]) -> None:
+                      lin: dict[int, str],
+                      bctx: Optional[_BatchCtx] = None) -> None:
         """Segment executor: maximal fusable runs replayed through cached
         closures. With an active reuse cache, probe points are
         segment-final: the cache is probed before a probe-final segment
         runs — a hit skips the whole segment — and populated from its
-        output afterwards."""
+        output afterwards.
+
+        With a `_BatchCtx` (batched `parfor` plans), segmentation is
+        variance-aware and config-variant segments run as
+        `torch.func.vmap` closures over the padded batch axis, cached
+        under a vmap-tagged key so they never collide with the
+        unbatched closure of the same segment body."""
         reuse = self.cache is not None
-        segments = plan.segments_for(reuse)
+        segments = (bctx.bplan.segments_for(reuse) if bctx is not None
+                    else plan.segments_for(reuse))
         fmts = plan.formats_for(self.sparse_inputs)
         jcache = get_jit_cache()
         lmemo: dict[int, str] = {}
         for seg in segments:
+            batched = bctx is not None and seg.variant
             self.stats.segments += 1
+            if batched:
+                self.stats.batched_segments += 1
             self.stats.instructions += len(seg.instructions)
             last = seg.instructions[-1]
             seg_key = seg.key
@@ -275,12 +362,24 @@ class LineageRuntime:
                                 for u in boundary)
                 seg_key = f"{seg_key}|f:{fsig}"
             if seg.chunked:
+                if batched:
+                    # the compiler chunks only leaf reductions, which
+                    # never read a batched leaf; a variant stream would
+                    # slice the config axis as rows
+                    raise NotImplementedError(
+                        f"a config-variant streamed segment "
+                        f"({seg.summary()}) has no batched lane")
                 # streaming lane: dispatch the segment once per row
                 # bucket and sum the partial aggregates
                 self._run_chunked_segment(plan, seg, seg_key, fmts, values,
                                           lin, lmemo, jcache)
                 self._free(values, seg.frees)
                 continue
+            if batched:
+                axes = "".join("0" if u in bctx.bvals else "-"
+                               for u in seg.input_uids)
+                seg_key = f"{seg_key}|vmap:{axes}"
+            vctx = bctx if batched else None
             args = [self._arg(values, u) for u in seg.input_uids]
             lhash = None
             if reuse and last.probe:
@@ -295,19 +394,20 @@ class LineageRuntime:
                     if rest:
                         self._run_compensation(seg, seg_key, fmts, args,
                                                rest, last.out_id, jcache,
-                                               values)
+                                               values, bctx=vctx)
                     self._free(values, seg.frees)
                     continue
             if last.node.op in backend.NON_TRACEABLE_OPS:
                 # host-path segment (always single-instruction): the SAME
                 # `_exec_one` the interpreter uses
                 t0 = time.perf_counter()
-                outs = (self._exec_one(last, values, fmts),)
+                outs = (self._exec_one(last, values, fmts, bctx=vctx),)
                 self.stats.exec_time += time.perf_counter() - t0
                 self.stats.executed += 1
             else:
                 outs = self._execute_cached(
-                    seg_key, self._seg_builder(seg, fmts), args, jcache)
+                    seg_key, self._seg_builder(seg, fmts, vctx), args,
+                    jcache)
                 self.stats.executed += len(seg.instructions)
             for uid, val in zip(seg.output_uids, outs, strict=True):
                 values[uid] = val
@@ -318,9 +418,15 @@ class LineageRuntime:
 
     # ------------------------------------------------------------------
     def _seg_builder(self, seg, fmts: dict,
+                     bctx: Optional[_BatchCtx] = None,
                      drop_output: Optional[int] = None):
-        """Deferred closure builder, only called on a jit-cache miss."""
-        from .segments import build_segment_fn
+        """Deferred closure builder, only called on a jit-cache miss:
+        plain for invariant segments, vmap-wrapped for config-variant
+        ones."""
+        from .segments import build_batched_segment_fn, build_segment_fn
+        if bctx is not None:
+            return lambda: build_batched_segment_fn(
+                seg, self.device, fmts, bctx.bvals, drop_output=drop_output)
         return lambda: build_segment_fn(seg, self.device, fmts,
                                         drop_output=drop_output)
 
@@ -344,13 +450,14 @@ class LineageRuntime:
     # ------------------------------------------------------------------
     def _run_compensation(self, seg, seg_key: str, fmts: dict, args,
                           rest: tuple, probe_uid: int, jcache,
-                          values: dict[int, Any]) -> None:
+                          values: dict[int, Any],
+                          bctx: Optional[_BatchCtx] = None) -> None:
         """Execute a probe-hit segment's remaining outputs (the segment
         with the cached value dead-code eliminated)."""
         outs = self._execute_cached(
             f"{seg_key}|comp",
-            self._seg_builder(seg, fmts, drop_output=probe_uid), args,
-            jcache)
+            self._seg_builder(seg, fmts, bctx, drop_output=probe_uid),
+            args, jcache)
         # interpreter-equivalent accounting: it would execute every
         # instruction except the one reused
         self.stats.executed += len(seg.instructions) - 1
@@ -546,16 +653,32 @@ class LineageRuntime:
         self.stats.executed += len(seg.instructions) - len(hits)
 
     # ------------------------------------------------------------------
-    def _exec_one(self, ins, values: dict[int, Any], fmts: dict):
+    def _exec_one(self, ins, values: dict[int, Any], fmts: dict,
+                  bctx: Optional[_BatchCtx] = None):
         """Execute one instruction eagerly and wait for the device — the
         single implementation shared by the interpreter loop and the
-        segment executor's host path."""
+        segment executor's host path.
+
+        `bctx` (batched plans) marks operands carrying the config axis:
+        a host op (quantile) loops over the TRUE k configs on the host
+        (order statistics on concrete values cannot vmap) and its
+        result is padded back into the bucket, never recomputed for the
+        padding configs."""
         kern = backend.kernel_for_node(
             ins.node, self.device,
             in_fmts=tuple(fmts.get(u, backend.DENSE)
                           for u in ins.input_ids),
             out_fmt=fmts.get(ins.out_id, backend.DENSE))
-        out = kern(*[self._arg(values, u) for u in ins.input_ids])
+        args = [self._arg(values, u) for u in ins.input_ids]
+        if bctx is not None:
+            bpos = {i for i, u in enumerate(ins.input_ids)
+                    if u in bctx.bvals}
+            rows = [kern(*[a[j] if i in bpos else a
+                           for i, a in enumerate(args)])
+                    for j in range(bctx.batch)]
+            out = _pad_axis0(torch.stack(rows, dim=0), bctx.bucket)
+        else:
+            out = kern(*args)
         backend.synchronize(self.device)
         return out
 

@@ -18,7 +18,14 @@ Segment boundaries are forced by:
     target-neutral and join either side). A `chunked` segment is run by
     the streaming executor once per row bucket;
   * non-traceable ops — anything in `backend.NON_TRACEABLE_OPS` (the
-    host `quantile`) runs in its own segment, on the host path.
+    host `quantile`) runs in its own segment, on the host path;
+  * config-variance flips — for batched plans
+    (`repro_torch.core.batching`), instructions whose value carries the
+    batch axis (`variant_uids`) never share a segment with
+    config-invariant ones: the invariant prefix runs ordinary closures
+    (shared with single-config plans through the closure cache) ONCE
+    per grid, while variant segments are wrapped in `torch.func.vmap`
+    by the runtime (`build_batched_segment_fn`).
 
 The segmentation rules and the canonical structural key are the
 reference's, so the same plan yields the same segments and the same
@@ -53,6 +60,7 @@ class Segment:
     frees: tuple[int, ...]        # uids dead after this segment
     target: str                   # 'local' | 'distributed' | 'chunked'
     key: str                      # canonical structural hash
+    variant: bool = False         # carries the config batch axis (vmapped)
     chunked: bool = False         # streaming lane: the runtime dispatches
                                   # this closure once per row chunk and
                                   # sums the partial aggregates
@@ -60,6 +68,19 @@ class Segment:
     @property
     def fused(self) -> bool:
         return len(self.instructions) > 1
+
+    def summary(self) -> str:
+        """One-line human identity of this segment, with its lanes
+        (`+vmap` for a config-variant segment, `+chunk` for a streamed
+        one), for error messages where the structural hash alone tells
+        an operator nothing."""
+        ops = [ins.node.op for ins in self.instructions]
+        shown = ",".join(ops[:6]) + (",…" if len(ops) > 6 else "")
+        lanes = "".join(tag for flag, tag in
+                        ((self.variant, "+vmap"), (self.chunked, "+chunk"))
+                        if flag)
+        return (f"segment#{self.index}[{self.target}{lanes}] "
+                f"ops={shown} ins={len(self.instructions)}")
 
 
 def _target_neutral(ins) -> bool:
@@ -80,11 +101,23 @@ def _segment_key(instructions, input_uids, output_positions,
         f"seg1|{target}|{body}|outs={outs}".encode()).hexdigest()
 
 
-def segment_plan(plan: "Plan", reuse_active: bool) -> list[Segment]:
-    """Partition `plan.instructions` into segments (pure, static)."""
+def segment_plan(plan: "Plan", reuse_active: bool,
+                 variant_uids: Optional[frozenset[int]] = None
+                 ) -> list[Segment]:
+    """Partition `plan.instructions` into segments (pure, static).
+
+    `variant_uids` (batched plans only) forces boundaries where the
+    config-variance of adjacent instructions differs — target-neutral
+    scalar generators still join either side; inside a vmapped segment
+    they run unbatched, so letting them ride along costs nothing."""
+    def is_var(ins) -> bool:
+        return variant_uids is not None and ins.out_id in variant_uids
+
     groups: list[list] = []
     group_targets: list[str] = []
+    group_variant: list[bool] = []
     cur_target: Optional[str] = None  # None while the group is all-neutral
+    cur_variant: Optional[bool] = None
     for ins in plan.instructions:
         neutral = _target_neutral(ins)
         start_new = (
@@ -98,16 +131,24 @@ def segment_plan(plan: "Plan", reuse_active: bool) -> list[Segment]:
             or groups[-1][-1].node.op in backend.NON_TRACEABLE_OPS
             or ins.node.op in backend.NON_TRACEABLE_OPS
             or (not neutral and cur_target is not None
-                and ins.target != cur_target))
+                and ins.target != cur_target)
+            or (not neutral and cur_variant is not None
+                and is_var(ins) != cur_variant))
         if start_new:
             groups.append([ins])
             group_targets.append(ins.target)
+            group_variant.append(is_var(ins))
             cur_target = None if neutral else ins.target
+            cur_variant = None if neutral else is_var(ins)
         else:
             groups[-1].append(ins)
             if not neutral and cur_target is None:
                 cur_target = ins.target
                 group_targets[-1] = ins.target
+            if not neutral and cur_variant is None:
+                cur_variant = is_var(ins)
+            if is_var(ins):
+                group_variant[-1] = True
 
     consumer_segs: dict[int, set[int]] = {}
     for si, group in enumerate(groups):
@@ -154,6 +195,7 @@ def segment_plan(plan: "Plan", reuse_active: bool) -> list[Segment]:
             target=group_targets[si],
             key=_segment_key(group, input_uids, output_positions,
                              group_targets[si]),
+            variant=group_variant[si],
             chunked=group_targets[si] == "chunked"))
     return segments
 
@@ -205,3 +247,27 @@ def build_segment_fn(seg: Segment, device: torch.device,
         return tuple(env[u] for u in out_uids)
 
     return run
+
+
+def build_batched_segment_fn(seg: Segment, device: torch.device,
+                             formats: Optional[dict[int, str]],
+                             batched_uids: frozenset,
+                             drop_output: Optional[int] = None):
+    """Lower a config-variant segment to one `torch.func.vmap`-wrapped
+    closure.
+
+    Inputs carrying the batch axis (batched leaves and earlier variant
+    segment outputs — `batched_uids`) map over dim 0; config-invariant
+    inputs broadcast (`in_dims` None), so the prefix's gram/xtv is
+    computed once and shared across the whole batch. Outputs mirror the
+    same split. gram and xtv are custom ops with a vmap rule
+    (`repro_torch.kernels.gram.ops`): under this closure each is ONE
+    batched launch over the bucket, not one launch a config. The result
+    is cached through the ordinary closure cache (with a vmap-tagged
+    key, see the runtime)."""
+    fn = build_segment_fn(seg, device, formats, drop_output=drop_output)
+    out_uids = tuple(u for u in seg.output_uids if u != drop_output)
+    in_dims = tuple(0 if u in batched_uids else None
+                    for u in seg.input_uids)
+    out_dims = tuple(0 if u in batched_uids else None for u in out_uids)
+    return torch.func.vmap(fn, in_dims=in_dims, out_dims=out_dims)

@@ -39,6 +39,17 @@
 // Neither uses atomics: results are bitwise reproducible from run to run
 // (the wrapper's plan depends only on the shape and the card).
 //
+// Batched forms (repro_gram_batched, repro_xtv_batched): what
+// torch.func.vmap over the lifecycle's gram/xtv asks for (a parfor grid's
+// config-variant suffix, CV's per-fold products), where the reference's
+// vmap turns the pallas_call into one launch whose grid carries the
+// configurations. Here too the batch is one launch: grid.z is the batch
+// element, X (and v, or v broadcast with batch stride 0) advance by their
+// batch strides, and each element's workspace and output are whole
+// copies of a lone call's. The split plan covers the whole batch (batch x
+// tiles x splits), and each element's blocks and reduce compute exactly a
+// lone call's sums under that plan, so results repeat bitwise.
+//
 // Interface: plain C entry points for ctypes. Each takes device pointers,
 // sizes, leading dimensions and the CUDA stream, launches its kernels on
 // that stream (repro_gram and repro_xtv: the partial and the reduce pass,
@@ -50,13 +61,16 @@
 
 namespace {
 
-// The partial kernels: block (tile, split) accumulates its tile over rows
-// [split * rows_per_split, ...) in order and writes its partial to slot
-// (split, tile) of the tile-major workspace.
+// The partial kernels: block (tile, split, batch element) accumulates its
+// tile over rows [split * rows_per_split, ...) of its element's X (xbatch
+// elements after the previous one's) in order and writes its partial to
+// slot (element, split, tile) of the tile-major workspace.
 template <int BN, int VEC>
 __global__ void __launch_bounds__(GRAM_THREADS, 1)
 gram_f64_partial_kernel(const double* __restrict__ x, int64_t m, int64_t n, int64_t ldx,
-                        int64_t rows_per_split, int64_t tiles, double* __restrict__ ws) {
+                        int64_t rows_per_split, int64_t tiles, double* __restrict__ ws,
+                        int64_t xbatch) {
+  x += (int64_t)blockIdx.z * xbatch;
   int64_t i0, j0;
   upper_tile<BN>(blockIdx.x, n, i0, j0);
   const int64_t r0 = (int64_t)blockIdx.y * rows_per_split;
@@ -64,14 +78,15 @@ gram_f64_partial_kernel(const double* __restrict__ x, int64_t m, int64_t n, int6
   gram_tile<double, BN, VEC>(
       x, ldx, n, i0, j0, (int)((r1 - r0 + F64_BK - 1) / F64_BK),
       [&](int it) { return r0 + (int64_t)it * F64_BK; }, r1,
-      ws + ((int64_t)blockIdx.y * tiles + blockIdx.x) * (BM * BN));
+      ws + (((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * tiles + blockIdx.x) * (BM * BN));
 }
 
 template <int BN, int VEC>
 __global__ void __launch_bounds__(GRAM_THREADS, 1)
 gram_bf16_partial_kernel(const __nv_bfloat16* __restrict__ x, int64_t m, int64_t n,
                          int64_t ldx, int64_t rows_per_split, int64_t tiles,
-                         float* __restrict__ ws) {
+                         float* __restrict__ ws, int64_t xbatch) {
+  x += (int64_t)blockIdx.z * xbatch;
   int64_t i0, j0;
   upper_tile<BN>(blockIdx.x, n, i0, j0);
   const int64_t r0 = (int64_t)blockIdx.y * rows_per_split;
@@ -79,13 +94,15 @@ gram_bf16_partial_kernel(const __nv_bfloat16* __restrict__ x, int64_t m, int64_t
   gram_tile<__nv_bfloat16, BN, VEC>(
       x, ldx, n, i0, j0, (int)((r1 - r0 + BF16_BK - 1) / BF16_BK),
       [&](int it) { return r0 + (int64_t)it * BF16_BK; }, r1,
-      ws + ((int64_t)blockIdx.y * tiles + blockIdx.x) * (BM * BN));
+      ws + (((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * tiles + blockIdx.x) * (BM * BN));
 }
 
 template <int BN, int VEC>
 __global__ void __launch_bounds__(GRAM_THREADS)
 gram_f32_partial_kernel(const float* __restrict__ x, int64_t m, int64_t n, int64_t ldx,
-                        int64_t rows_per_split, int64_t tiles, float* __restrict__ ws) {
+                        int64_t rows_per_split, int64_t tiles, float* __restrict__ ws,
+                        int64_t xbatch) {
+  x += (int64_t)blockIdx.z * xbatch;
   int64_t i0, j0;
   upper_tile<BN>(blockIdx.x, n, i0, j0);
   const int64_t r0 = (int64_t)blockIdx.y * rows_per_split;
@@ -93,7 +110,7 @@ gram_f32_partial_kernel(const float* __restrict__ x, int64_t m, int64_t n, int64
   gram_tile<float, BN, VEC>(
       x, ldx, n, i0, j0, (int)((r1 - r0 + F32_BK - 1) / F32_BK),
       [&](int it) { return r0 + (int64_t)it * F32_BK; }, r1,
-      ws + ((int64_t)blockIdx.y * tiles + blockIdx.x) * (BM * BN));
+      ws + (((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * tiles + blockIdx.x) * (BM * BN));
 }
 
 // ---- xtv -------------------------------------------------------------------
@@ -126,15 +143,20 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, __nv_bfloat16 (&e
 }
 
 // One block: a slab of 32 * P columns (P = 16 / sizeof(T)) over one row
-// range, warp w taking rows r0 + w, r0 + w + 8, ...; XC columns of v a
-// pass. VEC: lane l loads columns [l P, l P + P) with one 16-byte load;
-// otherwise columns l + 32 p, one element a load.
+// range of one batch element (blockIdx.z: X and v advance by xbatch and
+// vbatch, vbatch 0 for a broadcast v), warp w taking rows r0 + w,
+// r0 + w + 8, ...; XC columns of v a pass. VEC: lane l loads columns
+// [l P, l P + P) with one 16-byte load; otherwise columns l + 32 p, one
+// element a load.
 template <typename T, bool VEC, int XC>
 __global__ void __launch_bounds__(XTV_THREADS)
 xtv_slab_kernel(const T* __restrict__ x, const T* __restrict__ v, int64_t m, int64_t n,
                 int64_t c, int64_t ldx, int64_t ldv, int64_t rows_per_split,
-                typename Acc<T>::type* __restrict__ ws) {
+                typename Acc<T>::type* __restrict__ ws, int64_t xbatch, int64_t vbatch) {
   using A = typename Acc<T>::type;
+  x += (int64_t)blockIdx.z * xbatch;
+  v += (int64_t)blockIdx.z * vbatch;
+  ws += (int64_t)blockIdx.z * gridDim.y * n * c;
   constexpr int P = 16 / (int)sizeof(T), SLAB = 32 * P, WARPS = XTV_THREADS / 32;
   __shared__ A red[WARPS][SLAB * XC];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -198,11 +220,12 @@ xtv_slab_kernel(const T* __restrict__ x, const T* __restrict__ v, int64_t m, int
 
 template <typename T, int BN, int VEC>
 int launch_gram_partial(const void* x, int64_t m, int64_t n, int64_t ldx,
-                        int64_t rows_per_split, int splits, void* ws, cudaStream_t stream) {
+                        int64_t rows_per_split, int splits, void* ws, cudaStream_t stream,
+                        int batch, int64_t xbatch) {
   using A = typename Acc<T>::type;
   const int64_t tiles = upper_tiles<BN>(n);
-  const dim3 grid((unsigned int)tiles, (unsigned int)splits);
-  void (*kernel)(const T*, int64_t, int64_t, int64_t, int64_t, int64_t, A*);
+  const dim3 grid((unsigned int)tiles, (unsigned int)splits, (unsigned int)batch);
+  void (*kernel)(const T*, int64_t, int64_t, int64_t, int64_t, int64_t, A*, int64_t);
   if constexpr (sizeof(T) == 8) {
     kernel = gram_f64_partial_kernel<BN, VEC>;
   } else if constexpr (sizeof(T) == 4) {
@@ -215,44 +238,112 @@ int launch_gram_partial(const void* x, int64_t m, int64_t n, int64_t ldx,
   const int rc = allow_smem(kernel, smem, ready);
   if (rc != 0) return rc;
   kernel<<<grid, GRAM_THREADS, smem, stream>>>(static_cast<const T*>(x), m, n, ldx,
-                                               rows_per_split, tiles, static_cast<A*>(ws));
+                                               rows_per_split, tiles, static_cast<A*>(ws),
+                                               xbatch);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_gram_partial(int tile_n, int vec, const void* x, int64_t m, int64_t n, int64_t ldx,
-                        int64_t rows_per_split, int splits, void* ws, cudaStream_t stream) {
+                        int64_t rows_per_split, int splits, void* ws, cudaStream_t stream,
+                        int batch, int64_t xbatch) {
   constexpr int V = 16 / (int)sizeof(T);
   if (tile_n == 128)
-    return vec ? launch_gram_partial<T, 128, V>(x, m, n, ldx, rows_per_split, splits, ws, stream)
-               : launch_gram_partial<T, 128, 1>(x, m, n, ldx, rows_per_split, splits, ws, stream);
+    return vec ? launch_gram_partial<T, 128, V>(x, m, n, ldx, rows_per_split, splits, ws, stream,
+                                                batch, xbatch)
+               : launch_gram_partial<T, 128, 1>(x, m, n, ldx, rows_per_split, splits, ws, stream,
+                                                batch, xbatch);
   if (tile_n == 64)
-    return vec ? launch_gram_partial<T, 64, V>(x, m, n, ldx, rows_per_split, splits, ws, stream)
-               : launch_gram_partial<T, 64, 1>(x, m, n, ldx, rows_per_split, splits, ws, stream);
+    return vec ? launch_gram_partial<T, 64, V>(x, m, n, ldx, rows_per_split, splits, ws, stream,
+                                               batch, xbatch)
+               : launch_gram_partial<T, 64, 1>(x, m, n, ldx, rows_per_split, splits, ws, stream,
+                                               batch, xbatch);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, bool VEC, int XC>
 int launch_xtv(const void* x, const void* v, int64_t m, int64_t n, int64_t c, int64_t ldx,
                int64_t ldv, int64_t rows_per_split, int splits, void* ws,
-               cudaStream_t stream) {
+               cudaStream_t stream, int batch, int64_t xbatch, int64_t vbatch) {
   constexpr int SLAB = 32 * 16 / (int)sizeof(T);
-  const dim3 grid(blocks_for(n, SLAB), (unsigned int)splits);
+  const dim3 grid(blocks_for(n, SLAB), (unsigned int)splits, (unsigned int)batch);
   xtv_slab_kernel<T, VEC, XC><<<grid, XTV_THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(v), m, n, c, ldx, ldv, rows_per_split,
-      static_cast<typename Acc<T>::type*>(ws));
+      static_cast<typename Acc<T>::type*>(ws), xbatch, vbatch);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_xtv(int vec, const void* x, const void* v, int64_t m, int64_t n, int64_t c,
                int64_t ldx, int64_t ldv, int64_t rows_per_split, int splits, void* ws,
-               cudaStream_t stream) {
+               cudaStream_t stream, int batch, int64_t xbatch, int64_t vbatch) {
   if (c == 1)
-    return vec ? launch_xtv<T, true, 1>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws, stream)
-               : launch_xtv<T, false, 1>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws, stream);
-  return vec ? launch_xtv<T, true, 4>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws, stream)
-             : launch_xtv<T, false, 4>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws, stream);
+    return vec ? launch_xtv<T, true, 1>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws,
+                                        stream, batch, xbatch, vbatch)
+               : launch_xtv<T, false, 1>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws,
+                                         stream, batch, xbatch, vbatch);
+  return vec ? launch_xtv<T, true, 4>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws,
+                                      stream, batch, xbatch, vbatch)
+             : launch_xtv<T, false, 4>(x, v, m, n, c, ldx, ldv, rows_per_split, splits, ws,
+                                       stream, batch, xbatch, vbatch);
+}
+
+// gram of `batch` elements of X, xbatch elements apart: the partial pass
+// and the reduce pass (see repro_gram)
+int gram_entry(int dtype, int tile_n, int vec, const void* x, int batch, int64_t xbatch,
+               int64_t m, int64_t n, int64_t ldx, int64_t rows_per_split, int splits, void* ws,
+               void* out, cudaStream_t st) {
+  int rc;
+  switch (dtype) {
+    case kF64:
+      rc = launch_gram_partial<double>(tile_n, vec, x, m, n, ldx, rows_per_split, splits, ws, st,
+                                       batch, xbatch);
+      break;
+    case kF32:
+      rc = launch_gram_partial<float>(tile_n, vec, x, m, n, ldx, rows_per_split, splits, ws, st,
+                                      batch, xbatch);
+      break;
+    case kBF16:
+      rc = launch_gram_partial<__nv_bfloat16>(tile_n, vec, x, m, n, ldx, rows_per_split, splits,
+                                              ws, st, batch, xbatch);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (rc != 0) return rc;
+  const bool f64 = dtype == kF64;
+  if (tile_n == 128)
+    return f64 ? launch_gram_tile_reduce<double, 128, false>(ws, splits, n, out, nullptr, st, batch)
+               : launch_gram_tile_reduce<float, 128, false>(ws, splits, n, out, nullptr, st, batch);
+  return f64 ? launch_gram_tile_reduce<double, 64, false>(ws, splits, n, out, nullptr, st, batch)
+             : launch_gram_tile_reduce<float, 64, false>(ws, splits, n, out, nullptr, st, batch);
+}
+
+// X^T v of `batch` elements (X and v xbatch and vbatch elements apart):
+// the partial pass and, with more than one split, the reduce pass (see
+// repro_xtv)
+int xtv_entry(int dtype, int vec, const void* x, const void* v, int batch, int64_t xbatch,
+              int64_t vbatch, int64_t m, int64_t n, int64_t c, int64_t ldx, int64_t ldv,
+              int64_t rows_per_split, int splits, void* ws, void* out, cudaStream_t st) {
+  void* part = splits > 1 ? ws : out;
+  int rc;
+  switch (dtype) {
+    case kF64:
+      rc = launch_xtv<double>(vec, x, v, m, n, c, ldx, ldv, rows_per_split, splits, part, st,
+                              batch, xbatch, vbatch);
+      break;
+    case kF32:
+      rc = launch_xtv<float>(vec, x, v, m, n, c, ldx, ldv, rows_per_split, splits, part, st,
+                             batch, xbatch, vbatch);
+      break;
+    case kBF16:
+      rc = launch_xtv<__nv_bfloat16>(vec, x, v, m, n, c, ldx, ldv, rows_per_split, splits, part,
+                                     st, batch, xbatch, vbatch);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (rc != 0 || splits == 1) return rc;
+  return dtype == kF64 ? launch_xtv_reduce<double>(ws, splits, n * c, out, st, batch)
+                       : launch_xtv_reduce<float>(ws, splits, n * c, out, st, batch);
 }
 
 }  // namespace
@@ -267,28 +358,20 @@ extern "C" {
 int repro_gram(int dtype, int tile_n, int vec, const void* x, long long m, long long n,
                long long ldx, long long rows_per_split, int splits, void* ws, void* out,
                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc;
-  switch (dtype) {
-    case kF64:
-      rc = launch_gram_partial<double>(tile_n, vec, x, m, n, ldx, rows_per_split, splits, ws, st);
-      break;
-    case kF32:
-      rc = launch_gram_partial<float>(tile_n, vec, x, m, n, ldx, rows_per_split, splits, ws, st);
-      break;
-    case kBF16:
-      rc = launch_gram_partial<__nv_bfloat16>(tile_n, vec, x, m, n, ldx, rows_per_split, splits,
-                                              ws, st);
-      break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (rc != 0) return rc;
-  const bool f64 = dtype == kF64;
-  if (tile_n == 128)
-    return f64 ? launch_gram_tile_reduce<double, 128, false>(ws, splits, n, out, nullptr, st)
-               : launch_gram_tile_reduce<float, 128, false>(ws, splits, n, out, nullptr, st);
-  return f64 ? launch_gram_tile_reduce<double, 64, false>(ws, splits, n, out, nullptr, st)
-             : launch_gram_tile_reduce<float, 64, false>(ws, splits, n, out, nullptr, st);
+  return gram_entry(dtype, tile_n, vec, x, 1, 0, m, n, ldx, rows_per_split, splits, ws, out,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// G_b = X_b^T X_b for b < batch, X_b = x + b * xbatch: one partial launch
+// over the batch into ws ([batch, splits, tiles, 128, tile_n]) and one
+// reduce launch into out ([batch, n, n] contiguous). vec: x, ldx and
+// xbatch are 16-byte aligned.
+int repro_gram_batched(int dtype, int tile_n, int vec, const void* x, int batch,
+                       long long xbatch, long long m, long long n, long long ldx,
+                       long long rows_per_split, int splits, void* ws, void* out,
+                       void* stream) {
+  return gram_entry(dtype, tile_n, vec, x, batch, xbatch, m, n, ldx, rows_per_split, splits, ws,
+                    out, static_cast<cudaStream_t>(stream));
 }
 
 // X^T v: the partial pass into ws ([splits, n, c] of the accumulation
@@ -298,25 +381,21 @@ int repro_gram(int dtype, int tile_n, int vec, const void* x, long long m, long 
 int repro_xtv(int dtype, int vec, const void* x, const void* v, long long m, long long n,
               long long c, long long ldx, long long ldv, long long rows_per_split, int splits,
               void* ws, void* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  void* part = splits > 1 ? ws : out;
-  int rc;
-  switch (dtype) {
-    case kF64:
-      rc = launch_xtv<double>(vec, x, v, m, n, c, ldx, ldv, rows_per_split, splits, part, st);
-      break;
-    case kF32:
-      rc = launch_xtv<float>(vec, x, v, m, n, c, ldx, ldv, rows_per_split, splits, part, st);
-      break;
-    case kBF16:
-      rc = launch_xtv<__nv_bfloat16>(vec, x, v, m, n, c, ldx, ldv, rows_per_split, splits, part,
-                                     st);
-      break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (rc != 0 || splits == 1) return rc;
-  return dtype == kF64 ? launch_xtv_reduce<double>(ws, splits, n * c, out, st)
-                       : launch_xtv_reduce<float>(ws, splits, n * c, out, st);
+  return xtv_entry(dtype, vec, x, v, 1, 0, 0, m, n, c, ldx, ldv, rows_per_split, splits, ws,
+                   out, static_cast<cudaStream_t>(stream));
+}
+
+// X_b^T v_b for b < batch, X_b = x + b * xbatch, v_b = v + b * vbatch
+// (vbatch 0: one v for every element): one partial launch over the batch
+// into ws ([batch, splits, n, c]) and, with more than one split, one
+// reduce launch into out ([batch, n, c] contiguous). vec: x, ldx and
+// xbatch are 16-byte aligned.
+int repro_xtv_batched(int dtype, int vec, const void* x, const void* v, int batch,
+                      long long xbatch, long long vbatch, long long m, long long n, long long c,
+                      long long ldx, long long ldv, long long rows_per_split, int splits,
+                      void* ws, void* out, void* stream) {
+  return xtv_entry(dtype, vec, x, v, batch, xbatch, vbatch, m, n, c, ldx, ldv, rows_per_split,
+                   splits, ws, out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -26,7 +26,9 @@
 //
 // The partials are tile-major, [splits][tiles][BM][BN]; gram_tile_reduce
 // sums them in split order and writes each upper-triangle element and its
-// mirror from the same sum, so G is bitwise symmetric. No atomics.
+// mirror from the same sum, so G is bitwise symmetric. No atomics. A
+// batched call (gram.cu's repro_gram_batched) stacks one such workspace
+// and one n x n output per batch element; grid.z walks the batch.
 
 #pragma once
 
@@ -410,7 +412,9 @@ constexpr int gram_smem_bytes() {
 // of the adds, so a long split list is not one load latency a split.
 // FILLED: only the splits whose filled[tile * splits + split] is nonzero
 // wrote a partial (the others hold only zeros, which add nothing); the
-// block sums those, LIST at a time, still in split order.
+// block sums those, LIST at a time, still in split order. blockIdx.z is
+// the batch element (workspace and output offset by whole ones; each
+// element's sum is the lone call's, in the same order).
 template <typename A, int BN, bool FILLED>
 __global__ void __launch_bounds__(256)
 gram_tile_reduce_kernel(const A* __restrict__ ws, int splits, int64_t tiles, int64_t n,
@@ -426,6 +430,8 @@ gram_tile_reduce_kernel(const A* __restrict__ ws, int splits, int64_t tiles, int
   if (ib >= n || jb >= n || ib > jb + 31) return;  // uniform over the block
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int64_t stride = tiles * BM * BN;
+  ws += (int64_t)blockIdx.z * splits * stride;
+  out += (int64_t)blockIdx.z * n * n;
   const A* w = ws + blockIdx.x * (int64_t)(BM * BN) + (sr * 32 + ty) * BN + sc * 32 + tx;
   A s[R];
   if constexpr (!FILLED) {
@@ -507,7 +513,8 @@ gram_tile_reduce_kernel(const A* __restrict__ ws, int splits, int64_t tiles, int
 // sum), warp w of a block adding groups w, w + 8, ... in order, and the
 // warps' sums added in warp order. A block takes 32 outputs; a thread
 // loads a group's splits ahead of their adds, so a long split list costs
-// a few load latencies, not one a split.
+// a few load latencies, not one a split. blockIdx.y is the batch element
+// of a batched call ([batch][splits][nc] partials, [batch][nc] out).
 constexpr int XR_GROUP = 16;
 
 template <typename A>
@@ -516,6 +523,8 @@ xtv_reduce_kernel(const A* __restrict__ ws, int splits, int64_t nc, A* __restric
   __shared__ A red[8][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t idx = (int64_t)blockIdx.x * 32 + lane;
+  ws += (int64_t)blockIdx.y * splits * nc;
+  out += (int64_t)blockIdx.y * nc;
   const int groups = (splits + XR_GROUP - 1) / XR_GROUP;
   A s = A(0);
   if (idx < nc) {
@@ -545,17 +554,19 @@ inline unsigned int blocks_for(int64_t items, int threads) {
 }
 
 template <typename A>
-int launch_xtv_reduce(const void* ws, int splits, int64_t nc, void* out, cudaStream_t st) {
-  xtv_reduce_kernel<A><<<blocks_for(nc, 32), 256, 0, st>>>(static_cast<const A*>(ws), splits,
-                                                           nc, static_cast<A*>(out));
+int launch_xtv_reduce(const void* ws, int splits, int64_t nc, void* out, cudaStream_t st,
+                      int batch = 1) {
+  const dim3 grid(blocks_for(nc, 32), (unsigned int)batch);
+  xtv_reduce_kernel<A><<<grid, 256, 0, st>>>(static_cast<const A*>(ws), splits, nc,
+                                             static_cast<A*>(out));
   return (int)cudaGetLastError();
 }
 
 template <typename A, int BN, bool FILLED>
 int launch_gram_tile_reduce(const void* ws, int splits, int64_t n, void* out,
-                            const int32_t* filled, cudaStream_t stream) {
+                            const int32_t* filled, cudaStream_t stream, int batch = 1) {
   const int64_t tiles = upper_tiles<BN>(n);
-  const dim3 grid((unsigned int)tiles, (BM / 32) * (BN / 32));
+  const dim3 grid((unsigned int)tiles, (BM / 32) * (BN / 32), (unsigned int)batch);
   gram_tile_reduce_kernel<A, BN, FILLED><<<grid, 256, 0, stream>>>(
       static_cast<const A*>(ws), splits, tiles, n, static_cast<A*>(out), filled);
   return (int)cudaGetLastError();

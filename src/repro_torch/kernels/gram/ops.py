@@ -10,9 +10,20 @@ Port of `repro.kernels.gram.ops`. Each CUDA wrapper counts its launches
 in `LAUNCHES` (the partial pass under the op's name, the reduce pass
 apart), so a run can show that its main path went through the kernels.
 
+Under `torch.func.vmap` (the parfor lane's config-variant segments),
+`gram_op` and `xtv_op` — `torch.library` custom ops with a vmap rule —
+batch the call into ONE launch over the vmapped axis
+(`gram_batched_cuda`, `xtv_batched_cuda`: the C entries
+`repro_gram_batched` / `repro_xtv_batched`, counted under
+`gram_batched`/`xtv_batched`); an x shared by the batch with a batched v
+folds the batch into v's columns (one ordinary xtv launch of k·c
+columns). On the CPU the rule computes the plain version batched.
+
 The launch plans (`gram_plan`, `xtv_plan`) are pure functions of the
-shape, the dtype and the card's SM count, so a call is reproducible bit
-for bit; each is computed once per shape and card. The host path of a
+shape, the batch, the dtype and the card's SM count, so a call is
+reproducible bit for bit; each is computed once per shape and card. A
+batched call's plan covers the whole batch (batch x tiles x splits), and
+its elements' results are those of lone calls under that plan. The host path of a
 call is kept short (it sets the small kernels' time): the SM count and
 the plans are cached, the device is switched only when the tensor is not
 on the current one, the stream is read as a raw handle, and the split
@@ -29,7 +40,9 @@ import torch
 from . import ref
 
 # One count per launched kernel pass; reset with `reset_launches()`.
-LAUNCHES = {"gram": 0, "gram_reduce": 0, "xtv": 0, "xtv_reduce": 0}
+LAUNCHES = {"gram": 0, "gram_reduce": 0, "xtv": 0, "xtv_reduce": 0,
+            "gram_batched": 0, "gram_batched_reduce": 0, "xtv_batched": 0,
+            "xtv_batched_reduce": 0}
 
 # the instantiations of gram.cu; float16 has none and is refused on the card
 _DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -79,7 +92,13 @@ def _library():
                                    p, p, p]
         lib.repro_xtv.argtypes = [i32, i32, p, p, i64, i64, i64, i64, i64,
                                   i64, i32, p, p, p]
-        for fn in (lib.repro_gram, lib.repro_xtv):
+        lib.repro_gram_batched.argtypes = [i32, i32, i32, p, i32, i64, i64,
+                                           i64, i64, i64, i32, p, p, p]
+        lib.repro_xtv_batched.argtypes = [i32, i32, p, p, i32, i64, i64, i64,
+                                          i64, i64, i64, i64, i64, i32, p, p,
+                                          p]
+        for fn in (lib.repro_gram, lib.repro_xtv, lib.repro_gram_batched,
+                   lib.repro_xtv_batched):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -128,17 +147,18 @@ def gram_tiles(n: int, tile_n: int = GRAM_TILE_N) -> int:
 
 @lru_cache(maxsize=1024)
 def gram_plan(m: int, n: int, dtype: torch.dtype, sms: int,
-              tile_n: int) -> tuple[int, int, int]:
-    """(tile_n, splits, rows per split) of gram on a card with `sms` SMs.
+              tile_n: int, batch: int = 1) -> tuple[int, int, int]:
+    """(tile_n, splits, rows per split) of gram on a card with `sms` SMs,
+    for one X or a batch of `batch` of them in one launch.
 
     Splitting the rows fills the card but writes each split's partial
     tiles to device memory and reads them back. The plan takes the split
-    count with the least estimated time: the waves of blocks (tiles x
-    splits over the resident slots) times a block's rows, plus the
-    workspace's round trip (the first on a tie)."""
+    count with the least estimated time: the waves of blocks (batch x
+    tiles x splits over the resident slots) times a block's rows, plus
+    the workspace's round trip (the first on a tie)."""
     if n <= 64:
         tile_n = 64  # half the idle columns of a 128-wide tile
-    tiles = gram_tiles(n, tile_n)
+    tiles = batch * gram_tiles(n, tile_n)
     slots = sms  # one block a SM
     row_s = 2.0 * _BM * tile_n / _SM_FLOPS[dtype]
     ws_s = max(2.0 * tiles * _BM * tile_n * ref.acc_dtype(dtype).itemsize
@@ -156,12 +176,13 @@ def gram_plan(m: int, n: int, dtype: torch.dtype, sms: int,
 
 @lru_cache(maxsize=1024)
 def xtv_plan(m: int, n: int, c: int, dtype: torch.dtype,
-             sms: int) -> tuple[int, int]:
-    """(splits, rows per split) of xtv on a card with `sms` SMs: as many
-    splits of the column slabs (32 lanes x 16 bytes of a row each) as fit
+             sms: int, batch: int = 1) -> tuple[int, int]:
+    """(splits, rows per split) of xtv on a card with `sms` SMs, for one
+    X or a batch of `batch` in one launch: as many splits of the column
+    slabs (32 lanes x 16 bytes of a row each, per batch element) as fit
     on the card at once, each at least `_XTV_MIN_ROWS` rows, so a block
     reads hundreds of KB and the partials stay few."""
-    slabs = -(-n // (32 * 16 // dtype.itemsize))
+    slabs = batch * -(-n // (32 * 16 // dtype.itemsize))
     want = max(1, _XTV_BLOCKS_PER_SM[1 if c == 1 else 4] * sms // slabs)
     most = max(1, -(-m // _XTV_MIN_ROWS))
     splits = max(1, min(want, most, _MAX_SPLITS))
@@ -283,3 +304,174 @@ def xtv(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     squeeze = v.ndim == 1
     out = xtv_cuda(x, v[:, None] if squeeze else v)
     return out[:, 0] if squeeze else out
+
+
+def rows(x: torch.Tensor) -> torch.Tensor:
+    """`x` with contiguous rows, as the kernels read it: a matrix or a
+    (batch, rows, cols) stack whose last stride is 1 (a column slice keeps
+    its other strides and is not copied; a vector is returned as is)."""
+    if x.ndim >= 2 and x.shape[-1] > 1 and x.stride(-1) != 1:
+        return x.contiguous()
+    return x
+
+
+def vmapped(*xs) -> bool:
+    """Any of `xs` is a tensor batched by an enclosing torch.func.vmap
+    (a config-variant segment of the parfor lane)."""
+    return any(torch._C._functorch.is_batchedtensor(x) for x in xs)
+
+
+def fold_columns(fn, x: torch.Tensor, v: torch.Tensor, bv: int):
+    """A vmap rule's answer for one X and a batch of v (batch axis `bv`):
+    the batch folds into v's columns, one call `fn(x, v)` of k·c columns.
+    Returns the (batch, rows, c) result and its batch axis, 0."""
+    v = v.movedim(bv, 0)
+    k, r, c = v.shape
+    out = fn(x, rows(v.permute(1, 0, 2).reshape(r, k * c)))
+    return out.reshape(out.shape[0], k, c).permute(1, 0, 2), 0
+
+
+# -- the batch axis: one launch for a whole vmapped batch --------------------
+
+def _check_batched(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: unsupported dtype {x.dtype}")
+    if x.ndim != 3:
+        raise ValueError(f"{what}: expected a (batch, rows, cols) stack, "
+                         f"got shape {tuple(x.shape)}")
+    if x.shape[2] > 1 and x.stride(2) != 1:
+        raise ValueError(f"{what}: rows must be contiguous (stride "
+                         f"{tuple(x.stride())})")
+
+
+def _aligned16_batched(x: torch.Tensor) -> bool:
+    return aligned16(x[0]) and (x.stride(0) * x.element_size()) % 16 == 0
+
+
+def gram_batched_cuda(x: torch.Tensor) -> torch.Tensor:
+    """G_b = X_bᵀ X_b for a (batch, m, n) stack on the card: one partial
+    and one reduce launch over the whole batch."""
+    _check_batched(x, "gram_batched")
+    k, m, n = x.shape
+    dev = x.device
+    acc = ref.acc_dtype(x.dtype)
+    out = x.new_empty((k, n, n), dtype=acc)
+    if k == 0 or m == 0 or n == 0:
+        return out.zero_()
+    tile_n, splits, rows = gram_plan(m, n, x.dtype, _sm_count(dev),
+                                     GRAM_TILE_N, k)
+    nbytes = k * splits * gram_tiles(n, tile_n) * _BM * tile_n \
+        * acc.itemsize
+    lib = _library()
+    with _on(dev):
+        st = _raw_stream(dev)
+        ws = _workspace(dev, st, nbytes)
+        _check_rc(lib.repro_gram_batched(
+            _DTYPE_CODE[x.dtype], tile_n, _aligned16_batched(x),
+            x.data_ptr(), k, x.stride(0), m, n, x.stride(1), rows, splits,
+            ws.data_ptr(), out.data_ptr(), st), "gram_batched")
+    LAUNCHES["gram_batched"] += 1
+    LAUNCHES["gram_batched_reduce"] += 1
+    return out
+
+
+def xtv_batched_cuda(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """X_bᵀ v_b for a (batch, m, n) stack on the card, v a (batch, m, c)
+    stack or one (m, c) matrix for every element (batch stride 0): one
+    partial launch over the batch and, with more than one split, one
+    reduce launch."""
+    _check_batched(x, "xtv_batched")
+    k, m, n = x.shape
+    if v.ndim == 2:
+        v = v.expand(k, *v.shape)
+    _check_batched(v, "xtv_batched")
+    if v.dtype != x.dtype or v.device != x.device:
+        raise TypeError(f"xtv_batched: x is {x.dtype} on {x.device}, v is "
+                        f"{v.dtype} on {v.device}")
+    if v.shape[:2] != (k, m):
+        raise ValueError(f"xtv_batched: shapes differ, {tuple(x.shape)} vs "
+                         f"{tuple(v.shape)}")
+    c = v.shape[2]
+    dev = x.device
+    acc = ref.acc_dtype(x.dtype)
+    out = x.new_empty((k, n, c), dtype=acc)
+    if k == 0 or m == 0 or n == 0 or c == 0:
+        return out.zero_()
+    splits, rows = xtv_plan(m, n, c, x.dtype, _sm_count(dev), k)
+    lib = _library()
+    with _on(dev):
+        st = _raw_stream(dev)
+        ws = out if splits == 1 else \
+            _workspace(dev, st, k * splits * n * c * acc.itemsize)
+        _check_rc(lib.repro_xtv_batched(
+            _DTYPE_CODE[x.dtype], _aligned16_batched(x), x.data_ptr(),
+            v.data_ptr(), k, x.stride(0), v.stride(0), m, n, c, x.stride(1),
+            v.stride(1), rows, splits, ws.data_ptr(), out.data_ptr(), st),
+            "xtv_batched")
+    LAUNCHES["xtv_batched"] += 1
+    if splits > 1:
+        LAUNCHES["xtv_batched_reduce"] += 1
+    return out
+
+
+def gram_batched(x: torch.Tensor) -> torch.Tensor:
+    """G_b = X_bᵀ X_b over a (batch, m, n) stack."""
+    if x.device.type == "cpu":
+        return ref.gram_batched(x)
+    return gram_batched_cuda(rows(x))
+
+
+def xtv_batched(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """X_bᵀ v_b over a (batch, m, n) stack; v a (batch, m, c) stack or
+    one (m, c) matrix for every element."""
+    if x.device.type == "cpu":
+        return ref.xtv_batched(x, v)
+    return xtv_batched_cuda(rows(x), rows(v))
+
+
+# The custom ops the backend's gram/xtv take under torch.func.vmap: a
+# ctypes launch is opaque to vmap, so each op carries a vmap rule that
+# launches the batched kernel once over the vmapped axis. Outside vmap
+# the backend calls `gram`/`xtv` directly: the dispatcher would add its
+# host time to every unbatched call (chip_smoke's kernel rows measure it,
+# `op_host_us` beside the wrapper's `host_us`; PERF.md §6).
+
+@torch.library.custom_op("repro_torch::gram", mutates_args=())
+def gram_op(x: torch.Tensor) -> torch.Tensor:
+    return gram(rows(x))
+
+
+@gram_op.register_fake
+def _(x):
+    return x.new_empty((x.shape[1], x.shape[1]),
+                       dtype=ref.acc_dtype(x.dtype))
+
+
+@gram_op.register_vmap
+def _(info, in_dims, x):
+    (bx,) = in_dims
+    return gram_batched(x.movedim(bx, 0)), 0
+
+
+@torch.library.custom_op("repro_torch::xtv", mutates_args=())
+def xtv_op(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """X^T v for a 2-D v (the backend gives a 1-D v one column)."""
+    return xtv(rows(x), rows(v))
+
+
+@xtv_op.register_fake
+def _(x, v):
+    return x.new_empty((x.shape[1], v.shape[1]),
+                       dtype=ref.acc_dtype(x.dtype))
+
+
+@xtv_op.register_vmap
+def _(info, in_dims, x, v):
+    bx, bv = in_dims
+    if bx is None:  # one X, a batch of v: one ordinary xtv of k·c columns
+        return fold_columns(xtv, rows(x), v, bv)
+    x = x.movedim(bx, 0)
+    v = v if bv is None else v.movedim(bv, 0)
+    return xtv_batched(x, v), 0

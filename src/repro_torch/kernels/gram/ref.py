@@ -32,6 +32,20 @@ def xtv(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(acc).mT, v.to(acc))
 
 
+def gram_batched(x: torch.Tensor) -> torch.Tensor:
+    """X_bᵀ X_b over a (batch, m, n) stack, each mirrored like `gram`."""
+    xa = x.to(acc_dtype(x.dtype))
+    g = torch.matmul(xa.mT, xa)
+    return torch.triu(g) + torch.triu(g, 1).mT
+
+
+def xtv_batched(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """X_bᵀ v_b over a (batch, m, n) stack; v a (batch, m, c) stack or
+    one (m, c) matrix for every element."""
+    acc = acc_dtype(x.dtype)
+    return torch.matmul(x.to(acc).mT, v.to(acc))
+
+
 def scaled_err(got: torch.Tensor, want: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor) -> float:
     """max |got - want| of a product aᵀb, each entry over |a_i| |b_j|, the

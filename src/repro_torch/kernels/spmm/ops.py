@@ -316,12 +316,65 @@ def gram_bcoo(x) -> torch.Tensor:
 def xtv_bcoo(x, v: torch.Tensor) -> torch.Tensor:
     """Xᵀv for a BCOO X and dense v; a 1-D v gives a 1-D result."""
     xd, v, squeeze = _operand(x.todense(), v)
-    out = xtv_dense_masked(xd, v, block_mask_from_indices(x))
+    fn = xtv_masked_op if gram_ops.vmapped(v) else xtv_dense_masked
+    out = fn(xd, v, block_mask_from_indices(x))
     return out[:, 0] if squeeze else out
 
 
 def matmul_bcoo(a, b: torch.Tensor) -> torch.Tensor:
     """A @ B for a BCOO A and dense B; a 1-D B gives a 1-D result."""
     ad, b, squeeze = _operand(a.todense(), b)
-    out = spmm_dense_masked(ad, b, block_mask_from_indices(a))
+    fn = spmm_masked_op if gram_ops.vmapped(b) else spmm_dense_masked
+    out = fn(ad, b, block_mask_from_indices(a))
     return out[:, 0] if squeeze else out
+
+
+# -- under torch.func.vmap ----------------------------------------------------
+#
+# A parfor grid keeps a sparse X in its config-invariant prefix (a batched
+# value is never bcoo: `batching.choose_mode`), but its variant suffix may
+# multiply that X with a batched dense operand (X @ beta over a λ grid).
+# These custom ops carry the vmap rule for that case: the batch folds into
+# the dense operand's columns, one ordinary masked launch of k·c columns.
+
+def _fold(fn, xd, w, mask, in_dims):
+    bx, bw, bm = in_dims
+    if bx is not None or bm is not None:
+        raise NotImplementedError(
+            "a batched sparse operand has no batched lane (choose_mode "
+            "sends such grids to the sequential loop)")
+    return gram_ops.fold_columns(lambda x, v: fn(x, v, mask), xd, w, bw)
+
+
+@torch.library.custom_op("repro_torch::spmm_masked", mutates_args=())
+def spmm_masked_op(xd: torch.Tensor, w: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    return spmm_dense_masked(xd, w, mask)
+
+
+@spmm_masked_op.register_fake
+def _(xd, w, mask):
+    return xd.new_empty((xd.shape[0], w.shape[1]),
+                        dtype=gram_ref.acc_dtype(xd.dtype))
+
+
+@spmm_masked_op.register_vmap
+def _(info, in_dims, xd, w, mask):
+    return _fold(spmm_dense_masked, xd, w, mask, in_dims)
+
+
+@torch.library.custom_op("repro_torch::xtv_masked", mutates_args=())
+def xtv_masked_op(xd: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    return xtv_dense_masked(xd, v, mask)
+
+
+@xtv_masked_op.register_fake
+def _(xd, v, mask):
+    return xd.new_empty((xd.shape[1], v.shape[1]),
+                        dtype=gram_ref.acc_dtype(xd.dtype))
+
+
+@xtv_masked_op.register_vmap
+def _(info, in_dims, xd, v, mask):
+    return _fold(xtv_dense_masked, xd, v, mask, in_dims)

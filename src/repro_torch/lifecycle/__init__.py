@@ -1,4 +1,13 @@
 """Declarative lifecycle builtins (port of `repro.lifecycle`), written on
 the lineage-traced DSL so the compiler rewrites and the reuse cache
-optimize across lifecycle tasks. Ported so far: the regression family."""
+optimize across lifecycle tasks: the regression family, the §5
+validation workloads on `parfor`, the cleaning builtins and the
+algorithm library. (The federated builtins wait for the federated
+lane.)"""
 from .regression import lm, lmCG, lmDS, steplm  # noqa: F401
+from .validation import (cross_validate_lm, grid_search_lm,  # noqa: F401
+                         make_folds, parfor)
+from .cleaning import (impute_by_mean, impute_by_median, mice_lite,  # noqa: F401
+                       outlier_by_iqr, outlier_by_sd, scale_matrix,
+                       winsorize)
+from .algorithms import kmeans, l2svm, mlogreg, pca  # noqa: F401

@@ -206,10 +206,16 @@ def test_execute_op_defaults_to_cuda():
         tb.execute_op("eye", {"_shape": (3, 3)}, [])
 
 
-def test_rand_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tb.execute_op("rand", {"_shape": (2, 2), "seed": 0}, [],
-                      device="cpu")
+@pytest.mark.parametrize("sp", [1.0, 0.25])
+def test_rand_matches_reference(sp):
+    """The port's threefry draw: bitwise the reference's uniform draw and
+    sparsity mask (tests/test_torch_rand.py holds normal draws and more
+    shapes and seeds)."""
+    attrs = {"_shape": (6, 9), "seed": 17, "dist": "uniform",
+             "sparsity_gen": sp}
+    want, got = _run("rand", attrs, [])
+    assert want.dtype == got.dtype == np.float64
+    assert np.array_equal(want.view(np.int64), got.view(np.int64))
 
 
 def test_chunk_ops_are_their_base_ops():

@@ -88,7 +88,37 @@ def cleaning_mix(pk, xn, yn):
     return [pk.ops.colSums(pk.ops.where(Z > q, q, Z)), pk.ops.sum_(Z * Z)]
 
 
-PROGRAMS = [quickstart, lmds_intercept, steplm_step, cleaning_mix]
+def pca_program(pk, xn, yn):
+    """pca's two plans (lifecycle/algorithms.py): the covariance of the
+    centred X and the projection onto bound components."""
+    X = pk.input_tensor("X", xn)
+    n = xn.shape[0]
+    Xc = X - pk.ops.colMeans(X)
+    comps = pk.input_tensor("pca_comps", np.eye(xn.shape[1])[:, :2])
+    return [pk.ops.gram(Xc) * (1.0 / (n - 1)), Xc @ comps]
+
+
+def cleaning_repairs(pk, xn, yn):
+    """The repair builtins' programs in one plan: outlier_by_iqr's fences
+    and NaN repair, impute_by_mean's mask algebra, winsorize's clamp and
+    outlier_by_sd's flags."""
+    X = pk.input_tensor("X", xn)
+    q1, q3 = pk.ops.quantile(X, 0.25), pk.ops.quantile(X, 0.75)
+    lo, hi = q1 - 1.5 * (q3 - q1), q3 + 1.5 * (q3 - q1)
+    bad = (X < lo)._bin(X > hi, "or")
+    mask = X._bin(X, "ne")
+    x0 = pk.ops.replace_nan(X, 0.0)
+    mu = pk.ops.colSums(x0) / pk.ops.maximum(
+        X.shape[0] - pk.ops.colSums(mask), 1.0)
+    wins = pk.ops.minimum(pk.ops.maximum(X, pk.ops.quantile(X, 0.05)),
+                          pk.ops.quantile(X, 0.95))
+    sd = pk.ops.abs_(X - pk.ops.colMeans(X)) > 3.0 * pk.ops.sqrt(
+        pk.ops.colVars(X))
+    return [pk.ops.where(bad, float("nan"), X), x0 + mask * mu, wins, sd]
+
+
+PROGRAMS = [quickstart, lmds_intercept, steplm_step, cleaning_mix,
+            pca_program, cleaning_repairs]
 
 
 @pytest.mark.parametrize("reuse", [False, True])
@@ -157,3 +187,36 @@ def test_unported_placements_are_refused():
     X = T.input_tensor("X", xn)
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         T.compile_plan([T.ops.gram(X)], mesh=Mesh())
+
+
+@pytest.mark.parametrize("reuse", [False, True])
+def test_batched_grid_plans_identical(reuse):
+    """grid_search_lm's template over a λ grid (lifecycle/validation.py):
+    the same template plan, variant set, segment split and batched
+    `explain()` text in both packages (hoisted leaves' generated names
+    carry each package's own counter and are compared without it)."""
+    from repro.core import batching as rbat
+    from repro_torch.core import batching as tbat
+    xn, yn = _data(512, 6)
+    text = {}
+    for key, pk, bat in (("ref", R, rbat), ("port", T, tbat)):
+        X, y = pk.input_tensor("X", xn), pk.input_tensor("y", yn)
+
+        def model(lam, pk=pk, X=X, y=y):
+            beta = pk.ops.solve(pk.ops.gram(X) + lam * pk.ops.eye(6),
+                                pk.ops.xtv(X, y))
+            resid = y - X @ beta
+            return [beta, pk.ops.sum_(resid * resid)]
+        bplan = bat.compile_batched([model(lam) for lam in
+                                     (0.01, 0.1, 1.0, 10.0, 100.0)],
+                                    reuse_enabled=reuse)
+        segs = ",".join(f"{int(s.variant)}{len(s.instructions)}"
+                        for s in bplan.segments_for(reuse))
+        text[key] = "\n".join([
+            canon(bplan.plan), f"bucket {bplan.bucket} segments {segs}",
+            re.sub(r"'cfg\d+'", "'cfg'", bplan.explain())])
+        text[key] = re.sub(
+            r"%(\d+)", lambda m, ids={}: f"%{ids.setdefault(m.group(1), len(ids))}",
+            text[key])
+    assert "[batch=5]" in text["port"]
+    assert text["port"] == text["ref"]

@@ -311,3 +311,53 @@ def test_cuda_wrappers_refuse_float16(cuda_device):
         tops.gram(x)
     with pytest.raises(TypeError, match="unsupported dtype"):
         tops.xtv(x, x[:, :1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("k,m,n,c", [
+    pytest.param(8, 12_500, 1000, 1, id="cv-fold-8-12500-1000"),
+    pytest.param(3, 777, 130, 3, id="3-777-130-3"),
+    pytest.param(2, 1, 5, 1, id="m-1"),
+    pytest.param(5, 3000, 1001, 2, id="odd-n-5-3000-1001"),
+])
+def test_cuda_batched_kernels_match_lone_calls(cuda_device, k, m, n, c,
+                                               dtype):
+    """gram and xtv under torch.func.vmap on the card: one batched launch
+    (and its reduce) per call, each element within the kernel limit of a
+    lone call and of the plain version computed in float64 from the same
+    inputs, bitwise repeatable; xtv also with one v for the batch (batch
+    stride 0) and with one X (the batch folded into v's columns)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = TORCH_DTYPE[dtype]
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(k, m, n))).to(cuda_device, dt)
+    v = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(k, m, c))).to(cuda_device, dt)
+    tol = KERNEL_RTOL[dtype]
+    before = dict(tops.LAUNCHES)
+    g = torch.func.vmap(tops.gram_op)(x)
+    xv = torch.func.vmap(tops.xtv_op)(x, v)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["gram_batched"] == before["gram_batched"] + 1
+    assert tops.LAUNCHES["xtv_batched"] == before["xtv_batched"] + 1
+    assert tops.LAUNCHES["gram"] == before["gram"]
+    assert torch.equal(g, g.mT)
+    for i in range(k):
+        xi, vi = x[i], v[i]
+        assert tref.scaled_err(g[i], tops.gram_cuda(xi), xi, xi) <= tol
+        assert tref.scaled_err(g[i], tref.gram(xi.double()), xi, xi) <= tol
+        assert tref.scaled_err(xv[i], tops.xtv_cuda(xi, vi), xi, vi) <= tol
+        assert tref.scaled_err(xv[i], tref.xtv(xi.double(), vi.double()),
+                               xi, vi) <= tol
+    assert torch.equal(g, torch.func.vmap(tops.gram_op)(x))
+    assert torch.equal(xv, torch.func.vmap(tops.xtv_op)(x, v))
+    shared_v = torch.func.vmap(tops.xtv_op, in_dims=(0, None))(x, v[0])
+    folded = torch.func.vmap(tops.xtv_op, in_dims=(None, 0))(x[0], v)
+    for i in range(k):
+        assert tref.scaled_err(shared_v[i], tref.xtv(x[i].double(),
+                                                     v[0].double()),
+                               x[i], v[0]) <= tol
+        assert tref.scaled_err(folded[i], tref.xtv(x[0].double(),
+                                                   v[i].double()),
+                               x[0], v[i]) <= tol

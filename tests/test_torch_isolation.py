@@ -60,6 +60,17 @@ X = input_tensor("Xs", np.vstack([xs] * 5), sparsity=0.1)
 Y = input_tensor("ys", np.vstack([yn] * 5))
 rt = LineageRuntime(device="cpu", sparse_inputs=True)
 assert np.isfinite(lmDS(X, Y, reg=1e-3, runtime=rt)).all()
+from repro_torch.core import ops
+from repro_torch.lifecycle import grid_search_lm, pca, winsorize
+cpu = LineageRuntime(device="cpu")
+betas, _ = grid_search_lm(input_tensor("Xg", xn), input_tensor("yg", yn),
+                          [0.1, 1.0, 10.0], runtime=cpu, mode="vmap")
+assert betas.shape == (5, 3) and cpu.stats.batched_segments > 0
+comps, proj = pca(input_tensor("Xp", xn), 2, runtime=cpu)
+assert comps.shape == (5, 2) and proj.shape == (200, 2)
+assert np.isfinite(winsorize(input_tensor("Xw", xn), runtime=cpu)).all()
+r = cpu.evaluate([ops.rand((4, 3), seed=1, dist="normal", sparsity=0.5)])[0]
+assert r.shape == (4, 3)
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, v in sys.modules.items() if v is not None)
 print("ok")

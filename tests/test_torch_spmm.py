@@ -757,3 +757,35 @@ def test_cuda_wrappers_refuse_what_they_do_not_take(cuda_device):
         tops.gram_dense_masked(x, bm=16, bn=16)
     with pytest.raises(TypeError, match="unsupported dtype"):
         tops.gram_bs_cuda(x.half(), mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["spmm", "xtv_bs"])
+def test_cuda_sparse_fold_rules_launch_once(cuda_device, kind):
+    """The masked ops under torch.func.vmap on the card (a sparse grid's
+    X @ β over 70 λs): one launch of the hand kernel over the folded
+    k·c columns, each element within the kernel limit of a lone call and
+    of the plain version computed in float64, bitwise repeatable."""
+    rng = np.random.default_rng(5)
+    k, m, n = 70, 20_000, 1000
+    x = torch.from_numpy(_blocky(rng, m, n, 1024, 128, 0.25, 0.2)).to(
+        cuda_device)
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    rows = n if kind == "spmm" else m
+    w = torch.from_numpy(rng.normal(size=(k, rows, 1))).to(cuda_device)
+    op, lone, plain = ((tops.spmm_masked_op, tops.spmm_cuda, tref.spmm)
+                       if kind == "spmm" else
+                       (tops.xtv_masked_op, tops.xtv_bs_cuda, tref.xtv))
+    fn = torch.func.vmap(op, in_dims=(None, 0, None))
+    before = dict(tops.LAUNCHES)
+    got = fn(x, w, mask)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES[kind] == before[kind] + 1
+    a = x.mT if kind == "spmm" else x
+    tol = KERNEL_TOL[torch.float64]
+    for b in range(k):
+        assert gram_ref.scaled_err(got[b], lone(x, w[b], mask), a,
+                                   w[b]) <= tol
+        assert gram_ref.scaled_err(got[b], plain(x, w[b], mask, tops.ROWS,
+                                                 tops.TILE), a, w[b]) <= tol
+    assert torch.equal(got, fn(x, w, mask))
