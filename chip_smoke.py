@@ -134,7 +134,36 @@ card. One JSON line per phase:
                      (Fig. 7): vmap (the fold products as batched
                      launches) against sequential with reuse; peak device
                      and host memory
- 21. kernels       — the summary line of every ported kernel (the
+ 21. lifecycle_pipeline — examples/lifecycle_pipeline.py at 1,000,000
+                     rows (the example's columns, rates and seed; a ~40 MB
+                     raw CSV): the generated reader, schema detection,
+                     outlier clipping and imputation, transformencode,
+                     steplm (5 features), the 12-λ grid and 5-fold CV
+                     (sequential with reuse), the β checkpointed and
+                     restored onto the card; against the same run on the
+                     CPU: the same features and reuse hits, betas and CV
+                     errors within rtol 1e-9, the restored β bitwise;
+                     seconds per stage, parse rows/s, gram/xtv launches
+ 22. csv_stream    — 100,000 x 200 float64 (199 features and y) written
+                     at %.17g, read by read_csv_chunks in 8,192-row
+                     chunks, each uploaded into the gram/xtv calls the
+                     streaming lane makes per bucket, summed in row order
+                     and solved: within rel 1e-9 of numpy's solve and of
+                     lmDS on the assembled array; the first 16,384 rows
+                     read again with chunk_io@0,1 injected: the same β
+                     bitwise, 2 injected and 2 retries; parse MB/s and
+                     the card's seconds
+ 23. serve_plan    — examples/serve_plan.py at the lmds point: lmDS on
+                     100,000 x 1,000 float64 (streamed), x (1, 1,000) ->
+                     (x β, sigmoid(x β)) behind ModelServer(max_batch 16,
+                     max_wait_us 2,000): deploy (buckets 2-16 warmed and
+                     pinned), 256 requests one after another and 256 from
+                     16 threads, each bitwise the solo score and within
+                     1e-12 of numpy, 0 retraces; a (16, 1,000) request;
+                     serving_dispatch@0 restarts the coalescer once and
+                     fails only its batch; p50/p99 latency, requests/s,
+                     mean coalesce, padded lanes
+ 24. kernels       — the summary line of every ported kernel (the
                      block-sparse ones at the shape of most of their
                      launches, with launches x (device ms - bound ms) by
                      path; gram and xtv also batched, with their
@@ -2948,6 +2977,400 @@ def phase_batched_kernels(peaks: dict, stack=CV_STACK,
     return main
 
 
+# ---------------------------------------------------------------------------
+# the lifecycle's two ends: CSV ingestion, frames, checkpoints; plan serving
+# ---------------------------------------------------------------------------
+
+LIFE_ROWS = 1_000_000             # examples/lifecycle_pipeline.py: 4,000
+CSV_SHAPE = (100_000, 200)        # 199 features and y, float64
+CSV_CHUNK = 8192                  # rows a chunk (read_csv_chunks)
+CSV_PREFIX = 16_384               # rows of the file the faulted read takes
+LIFE_COLUMNS = [("age", "f64"), ("income", "f64"), ("tenure", "f64"),
+                ("region", "str"), ("score", "f64")]
+
+
+def messy_csv(path: str, n: int) -> None:
+    """examples/lifecycle_pipeline.py's `synthesize_messy_csv` (same
+    columns, rates, seed and draws, in the same order), its row loop's
+    draws taken at once: a raw file with a categorical column, 2 % gross
+    income outliers and 5 % of incomes missing."""
+    import numpy as np
+    rng = np.random.default_rng(42)
+    age = rng.integers(18, 80, n).astype(float)
+    income = rng.lognormal(10, 0.5, n)
+    income[rng.random(n) < 0.02] *= 50
+    tenure = rng.exponential(5, n)
+    region = rng.choice(["north", "south", "east", "west"], n)
+    score = (0.04 * age + 0.8 * np.log(income) - 0.2 * tenure
+             + (region == "north") * 1.5 + rng.normal(0, 0.3, n))
+    missing = rng.random(n) < 0.05
+    rows = [f"{a:.0f},{'' if m else f'{i:.2f}'},{t:.3f},{r},{s:.4f}"
+            for a, i, t, r, s, m in zip(age.tolist(), income.tolist(),
+                                        tenure.tolist(), region.tolist(),
+                                        score.tolist(), missing.tolist())]
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def _pipeline(cols: dict, dev, ckpt_dir: str) -> dict:
+    """The example's steps after ingestion on `dev`: schema, cleaning,
+    transformencode, steplm, the 12-λ grid and 5-fold CV (sequential with
+    reuse), then the chosen β checkpointed and restored onto `dev`."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.core import LineageRuntime, ReuseCache, input_tensor
+    from repro_torch.core.hetero import DataTensor, transformencode
+    from repro_torch.lifecycle import (cross_validate_lm, grid_search_lm,
+                                       impute_by_mean, make_folds,
+                                       outlier_by_iqr, steplm)
+    secs = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    dt = stage("schema", lambda: DataTensor.from_dict(
+        {k: cols[k] for k in ("age", "income", "tenure", "region")},
+        types={"region": "str"}))
+
+    def clean():
+        rt = LineageRuntime(device=dev)
+        x = outlier_by_iqr(input_tensor("Xraw", dt.numeric_matrix()),
+                           k=3.0, repair="clip", runtime=rt)
+        return impute_by_mean(input_tensor("Xclip", x), runtime=rt)
+    x_num = stage("clean", clean)
+    for j, name in enumerate(("age", "income", "tenure")):
+        dt.columns[dt.names.index(name)] = x_num[:, j]
+    x, meta = stage("transformencode", lambda: transformencode(
+        dt, {"age": "scale", "income": "scale", "tenure": "scale",
+             "region": "dummycode"}))
+    y = cols["score"][:, None]
+    rt = LineageRuntime(cache=ReuseCache(), device=dev)
+    X, Y = input_tensor("X", x), input_tensor("y", y)
+    beta_sel, selected = stage("steplm", lambda: steplm(
+        X, Y, max_features=5, runtime=rt))
+    lambdas = np.logspace(-3, 2, 12).tolist()
+    betas, losses = stage("grid", lambda: grid_search_lm(
+        X, Y, lambdas, runtime=rt, mode="sequential"))
+    best = int(np.argmin(losses))
+    fx, fy = make_folds(x, y, 5, seed=0)
+    _, cv_errs = stage("cv", lambda: cross_validate_lm(
+        fx, fy, reg=lambdas[best], runtime=rt, mode="sequential"))
+    beta = betas[:, best:best + 1]
+
+    def checkpoint():
+        save(ckpt_dir, 0, {"beta": beta},
+             lineage={"lambda": lambdas[best], "features": meta.out_names,
+                      "cv_mse": [float(e) for e in cv_errs]})
+        back, manifest = restore(ckpt_dir, {"beta": torch.zeros(
+            beta.shape, dtype=torch.float64, device=dev)})
+        return back["beta"], manifest
+    restored, manifest = stage("checkpoint", checkpoint)
+    return dict(seconds=secs, schema=dt.schema, names=meta.out_names,
+                selected=selected, beta_sel=beta_sel, betas=betas,
+                cv_errs=np.asarray(cv_errs), reuse=rt.cache.stats.as_dict(),
+                restored_device=str(restored.device),
+                restored_bitwise=bool(restored.cpu().numpy().tobytes()
+                                      == np.ascontiguousarray(beta).tobytes()),
+                lineage_ok=manifest["lineage"]["features"] == meta.out_names)
+
+
+def phase_lifecycle_pipeline(dev=DEVICE, n: int = LIFE_ROWS) -> dict:
+    """examples/lifecycle_pipeline.py at `n` rows: the generated reader
+    parses the raw CSV once (host numpy), then the pipeline runs on the
+    card and, held against it, on the CPU. Returns the card run's gram/xtv
+    launches."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.data.csv_io import make_reader
+    from repro_torch.kernels.gram import ops as gops
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "customers.csv")
+        t0 = time.perf_counter()
+        messy_csv(path, n)
+        write_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        reader = make_reader({"delimiter": ",", "columns": LIFE_COLUMNS})
+        t0 = time.perf_counter()
+        cols = reader(path)
+        parse_s = time.perf_counter() - t0
+        gops.reset_launches()
+        card = _pipeline(cols, dev, os.path.join(tmp, "ckpt_card"))
+        launches = dict(gops.LAUNCHES)
+        cpu = _pipeline(cols, "cpu", os.path.join(tmp, "ckpt_cpu"))
+
+    def rel(k):
+        return float(np.max(np.abs(card[k] - cpu[k]) / np.abs(cpu[k])))
+    row = dict(phase="lifecycle_pipeline", rows=n, csv_bytes=nbytes,
+               write_s=write_s, parse_s=parse_s, parse_rows_per_s=n / parse_s,
+               parse_mb_per_s=nbytes / parse_s / 1e6,
+               seconds=card["seconds"], seconds_cpu=cpu["seconds"],
+               launches=launches, schema=card["schema"],
+               selected=card["selected"], selected_cpu=cpu["selected"],
+               features=card["names"], reuse=card["reuse"],
+               reuse_cpu=cpu["reuse"],
+               rel_beta_sel=rel("beta_sel"), rel_betas=rel("betas"),
+               rel_cv_errs=rel("cv_errs"),
+               restored_device=card["restored_device"],
+               restored_bitwise=card["restored_bitwise"],
+               cut=f"rows {n:,} (the example's 4,000)")
+    emit(row)
+    if not (card["selected"] == cpu["selected"]
+            and card["reuse"] == cpu["reuse"] and card["reuse"]["hits"] > 0
+            and card["schema"] == cpu["schema"]
+            and 1 <= len(card["selected"]) <= 5
+            and max(rel("beta_sel"), rel("betas"), rel("cv_errs")) <= 1e-9
+            and card["restored_bitwise"] and card["lineage_ok"]
+            and card["restored_device"].startswith(str(dev))
+            and launches["gram"] > 0 and launches["xtv"] > 0):
+        raise AssertionError(f"lifecycle pipeline failed: {row}")
+    return launches
+
+
+def _stream_fit(path: str, dev, reg: float, fault_log=None) -> dict:
+    """read_csv_chunks at CSV_CHUNK rows; each chunk's X and y uploaded
+    and fed to the gram and xtv calls the streaming lane makes per bucket,
+    the partials summed on the host in row order, as the lane sums them,
+    and solved."""
+    import numpy as np
+    import torch
+    from repro_torch.data.csv_io import read_csv_chunks
+    from repro_torch.kernels.gram import ops as gops
+    g = b = None
+    parse_s = card_s = 0.0
+    t0 = time.perf_counter()
+    for _, chunk in read_csv_chunks(path, CSV_CHUNK, fault_log=fault_log):
+        t1 = time.perf_counter()
+        parse_s += t1 - t0
+        xc = torch.from_numpy(np.ascontiguousarray(chunk[:, :-1])).to(dev)
+        yc = torch.from_numpy(np.ascontiguousarray(chunk[:, -1:])).to(dev)
+        pg, pb = gops.gram(xc).cpu().numpy(), gops.xtv(xc, yc).cpu().numpy()
+        g, b = (pg, pb) if g is None else (g + pg, b + pb)
+        t0 = time.perf_counter()
+        card_s += t0 - t1
+    parse_s += time.perf_counter() - t0
+    beta = np.linalg.solve(g + reg * np.eye(g.shape[0]), b)
+    return dict(beta=beta, parse_s=parse_s, card_s=card_s)
+
+
+def phase_csv_stream(dev=DEVICE, shape=CSV_SHAPE, prefix: int = CSV_PREFIX
+                     ) -> dict:
+    """A float64 CSV written at %.17g streamed through read_csv_chunks
+    into the gram/xtv chunk partials and solved: against numpy's solve
+    and lmDS on the assembled array; then a prefix of the file read again
+    with two chunk-IO faults injected, bitwise the clean read's β. Returns
+    the chunk loop's launches."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import LineageRuntime, faults, input_tensor
+    from repro_torch.data.csv_io import write_csv
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.lifecycle import lmDS
+    m, n = shape
+    reg = 1e-7
+    rng = np.random.default_rng(SEED + 7)
+    xn = rng.standard_normal((m, n - 1))
+    yn = xn @ rng.standard_normal((n - 1, 1)) + 0.1 * rng.standard_normal(
+        (m, 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "xy.csv")
+        t0 = time.perf_counter()
+        nbytes = write_csv(path, np.hstack([xn, yn]), fmt="%.17g")
+        write_s = time.perf_counter() - t0
+        gops.reset_launches()
+        t0 = time.perf_counter()
+        run = _stream_fit(path, dev, reg)
+        wall = time.perf_counter() - t0
+        launches = dict(gops.LAUNCHES)
+        want = np.linalg.solve(xn.T @ xn + reg * np.eye(n - 1), xn.T @ yn)
+        lm = lmDS(input_tensor("Xs", xn), input_tensor("ys", yn), reg=reg,
+                  runtime=LineageRuntime(device=dev))
+        # the faulted read: the file's first `prefix` rows, clean and with
+        # the first byte window's read failing twice (retried)
+        ppath = os.path.join(tmp, "prefix.csv")
+        with open(path, "rb") as src, open(ppath, "wb") as dst:
+            for _ in range(prefix):
+                dst.write(src.readline())
+        clean = _stream_fit(ppath, dev, reg)
+        flog = faults.FaultLog()
+        with faults.inject("seed=1;chunk_io@0,1") as plan:
+            faulted = _stream_fit(ppath, dev, reg, fault_log=flog)
+    rel_np = float(np.max(np.abs(run["beta"] - want)) / np.max(np.abs(want)))
+    rel_lm = float(np.max(np.abs(run["beta"] - lm)) / np.max(np.abs(lm)))
+    chunks = -(-m // CSV_CHUNK)
+    row = dict(phase="csv_stream", shape=[m, n], csv_bytes=nbytes,
+               write_s=write_s, chunk_rows=CSV_CHUNK, chunks=chunks,
+               wall_s=wall, parse_s=run["parse_s"],
+               parse_mb_per_s=nbytes / run["parse_s"] / 1e6,
+               card_s=run["card_s"], launches=launches,
+               rel_err_vs_numpy=rel_np, rel_err_vs_lmds=rel_lm,
+               faulted=dict(rows=prefix, fired=dict(plan.fired),
+                            injected=flog.injected, retries=flog.retries,
+                            backoff_s=flog.backoff_s,
+                            bitwise=bool(np.array_equal(faulted["beta"],
+                                                        clean["beta"]))),
+               cut=f"the faulted read takes the first {prefix:,} rows")
+    emit(row)
+    if not (rel_np <= 1e-9 and rel_lm <= 1e-9
+            and launches["gram"] == launches["xtv"] == chunks
+            and row["faulted"]["bitwise"] and flog.injected == 2
+            and flog.retries == 2 and plan.fired == {"chunk_io": 2}):
+        raise AssertionError(f"CSV stream failed: {row}")
+    return launches
+
+
+def phase_serve_plan(dev=DEVICE, m: int = 100_000, n: int = 1_000,
+                     requests: int = 256, clients: int = 16) -> dict:
+    """examples/serve_plan.py at the lmds point: lmDS trained on the
+    card (X streamed in 13 buckets), x (1, n) -> (x β, sigmoid(x β))
+    compiled once and deployed behind ModelServer(max_batch=16,
+    max_wait_us=2000); requests one after another, then from `clients`
+    threads; every score bitwise the solo score and within 1e-12 of
+    numpy's x @ β; a (16, n) block request; one injected coalescer crash.
+    Returns the training's gram/xtv launches."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.core import (LineageRuntime, PreparedScript, costmodel,
+                                  faults, get_jit_cache, input_tensor, ops)
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.lifecycle import lmDS
+    from repro_torch.serving import ModelServer
+    # X and y stream together: (n + 1) float64 values per row
+    buckets = -(-m // costmodel.chunk_rows(8.0 * (n + 1)))
+    rng = np.random.default_rng(SEED + 11)
+    xn = rng.standard_normal((m, n))
+    yn = xn @ rng.standard_normal((n, 1)) + 0.01 * rng.standard_normal((m, 1))
+    rt = LineageRuntime(device=dev)
+    gops.reset_launches()
+    t0 = time.perf_counter()
+    beta = lmDS(input_tensor("X", xn), input_tensor("y", yn), reg=1e-3,
+                runtime=rt)
+    train_s = time.perf_counter() - t0
+    launches = dict(gops.LAUNCHES)
+    B = input_tensor("beta", beta)
+
+    def scoring(x):
+        yhat = ops.matmul(x, B)
+        return yhat, ops.sigmoid(yhat)
+
+    script = PreparedScript(scoring, [(1, n)], runtime=rt)
+    server = ModelServer(script, max_batch=16, max_wait_us=2000.0)
+    jc = get_jit_cache().stats
+    pinned0 = jc.pinned
+    t0 = time.perf_counter()
+    server.deploy()
+    deploy_s = time.perf_counter() - t0
+    pinned = jc.pinned - pinned0
+    rows = rng.standard_normal((2 * requests, 1, n))
+    preds: list = [None] * (2 * requests)
+    lat = np.zeros(2 * requests)
+
+    def score(i):
+        t = time.perf_counter()
+        preds[i] = server.score(rows[i], timeout=60.0)
+        lat[i] = time.perf_counter() - t
+
+    try:
+        t0 = time.perf_counter()
+        for i in range(requests):
+            score(i)
+        seq_s = time.perf_counter() - t0
+        seq_log = rt.stats.serving.as_dict()
+
+        def client(c):
+            for i in range(requests + c, 2 * requests, clients):
+                score(i)
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300.0)
+        conc_s = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("serve_plan: a client thread hung")
+        log = rt.stats.serving.as_dict()
+        conc_log = {k: log[k] - seq_log[k] for k in
+                    ("requests", "batches", "padded", "retraces")}
+        conc_log["mean_coalesce"] = conc_log["requests"] / conc_log["batches"]
+        f0 = (rt.stats.faults.restarts, rt.stats.faults.injected)
+        with faults.inject("seed=1;serving_dispatch@0"):
+            try:
+                server.score(rows[0], timeout=60.0)
+                crashed = False
+            except faults.InjectedFault:
+                crashed = True
+            after, = server.score(rows[1], timeout=60.0)[:1]
+        fault = dict(crashed_batch_failed=crashed,
+                     restarts=rt.stats.faults.restarts - f0[0],
+                     injected=rt.stats.faults.injected - f0[1],
+                     next_score_bitwise=bool(np.array_equal(
+                         after, preds[1][0])))
+        explain = server.explain().splitlines()[0]
+    finally:
+        server.shutdown()
+    # every served score against the same row scored alone, then numpy
+    solo = [script(rows[i]) for i in range(2 * requests)]
+    bitwise = all(np.array_equal(a, b) for i in range(2 * requests)
+                  for a, b in zip(preds[i], solo[i], strict=True))
+    got = np.concatenate([p[0] for p in preds])
+    want = rows[:, 0, :] @ beta
+    rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+    sig = np.concatenate([p[1] for p in preds])
+    rel_sig = float(np.max(np.abs(sig - 1.0 / (1.0 + np.exp(-want)))))
+    # one (16, n) block request through its own server
+    block = rng.standard_normal((16, n))
+    script16 = PreparedScript(scoring, [(16, n)], runtime=rt)
+    with ModelServer(script16, max_batch=16, max_wait_us=2000.0) as srv16:
+        yb, _ = srv16.score(block, timeout=60.0)
+    want_b = block @ beta
+    rel_block = float(np.max(np.abs(yb - want_b)) / np.max(np.abs(want_b)))
+    # why the port sums a one-row product in a fixed order: torch.matmul's
+    # rows apart between a vmapped bucket and the same rows one by one
+    xs = torch.from_numpy(rows[:16]).to(dev)
+    bt = torch.from_numpy(beta).to(dev)
+    lone = torch.stack([torch.matmul(x, bt) for x in xs])
+    apart = {b: int((torch.func.vmap(lambda x: torch.matmul(x, bt))(xs[:b])
+                     != lone[:b]).sum()) for b in (2, 4, 8, 16)}
+    ms = 1e3 * lat
+    row = dict(phase="serve_plan", shape=[m, n], train_s=train_s,
+               train_buckets=buckets, launches=launches, deploy_s=deploy_s, server=explain,
+               warm_buckets=[2, 4, 8, 16], pinned=pinned,
+               sequential=dict(requests=requests, wall_s=seq_s,
+                               requests_per_s=requests / seq_s,
+                               p50_ms=float(np.percentile(ms[:requests], 50)),
+                               p99_ms=float(np.percentile(ms[:requests], 99)),
+                               serving=seq_log),
+               concurrent=dict(requests=requests, clients=clients,
+                               wall_s=conc_s,
+                               requests_per_s=requests / conc_s,
+                               p50_ms=float(np.percentile(ms[requests:], 50)),
+                               p99_ms=float(np.percentile(ms[requests:], 99)),
+                               serving=conc_log),
+               serving=log, bitwise_vs_solo=bitwise, rel_err_vs_numpy=rel,
+               sigmoid_abs_err=rel_sig, block_rel_err=rel_block,
+               fault=fault, torch_matmul_rows_apart=apart, cut="none")
+    emit(row)
+    if not (bitwise and rel <= 1e-12 and rel_sig <= 1e-12
+            and rel_block <= 1e-12 and log["retraces"] == 0
+            and pinned == 4 and log["requests"] == 2 * requests
+            and fault == dict(crashed_batch_failed=True, restarts=1,
+                              injected=1, next_score_bitwise=True)
+            and buckets > 1
+            and launches["gram"] == launches["xtv"] == buckets):
+        raise AssertionError(f"serve_plan failed: {row}")
+    return launches
+
+
 def ptxas_spills(log: str, entry: str) -> dict:
     """Spill bytes (stores + loads) of each kernel whose mangled name
     matches `entry`, keyed by the pattern's groups, from ptxas's report
@@ -3090,6 +3513,9 @@ def main() -> int:
     grid_launches = phase_grid_search()
     sparse_grid = phase_sparse_grid(peaks)
     cv_launches = phase_cv()
+    life_launches = phase_lifecycle_pipeline()
+    csv_launches = phase_csv_stream()
+    plan_launches = phase_serve_plan()
     serve_launches = phase_lm_serve(peaks)
     rwkv_launches = phase_rwkv_serve(peaks)
     hybrid_launches = phase_hybrid_serve(peaks)
@@ -3106,7 +3532,10 @@ def main() -> int:
                 lmds=launches[kind],
                 **{a: v[kind] for a, v in algo_launches.items()},
                 grid_search_vmap=grid_launches[kind],
-                cv_vmap=cv_launches[kind]),
+                cv_vmap=cv_launches[kind],
+                lifecycle_pipeline=life_launches[kind],
+                csv_stream=csv_launches[kind],
+                serve_plan_train=plan_launches[kind]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             device_ms=r["device_ms"], host_us=r["host_us"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

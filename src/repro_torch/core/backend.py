@@ -217,8 +217,10 @@ def to_device(arr, device: torch.device):
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
-        if not a.flags.writeable:
-            a = a.copy()  # torch.from_numpy wants a writable buffer
+        if not a.flags.writeable or any(s % a.itemsize for s in a.strides):
+            # torch.from_numpy wants a writable buffer whose strides are
+            # whole elements (a field of a packed record array is not)
+            a = a.copy()
         t = torch.from_numpy(a)
     return t.to(device)
 
@@ -283,9 +285,35 @@ def _xtv(x, v):
     return gram_ops.xtv(gram_ops.rows(x), gram_ops.rows(v))
 
 
+# Largest n * c for which a one-row product takes the fixed-order route.
+ROW_PRODUCT_MAX_ELEMS = 1 << 20
+
+
+def _row_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(1, n) @ (n, c) summed in a fixed pairwise order: the products in
+    one elementwise pass, then halves added until one row is left. Every
+    step is elementwise, so the bits of a row do not depend on how many
+    rows run beside it (under `torch.func.vmap` the serving lane stacks
+    1, 2, 4, ... requests); torch.matmul does not keep that: on the CPU
+    and under cuBLAS a single row and a stack of rows go to different
+    kernels, which sum in different orders."""
+    p = a.mT * b                      # (n, c): row i scaled by a[0, i]
+    while p.shape[-2] > 1:
+        h = p.shape[-2] // 2
+        s = p[..., :h, :] + p[..., h:2 * h, :]
+        p = torch.cat([s, p[..., 2 * h:, :]], dim=-2) \
+            if p.shape[-2] % 2 else s
+    return p
+
+
 def _matmul(a, b):
-    # a plain product the reference leaves to XLA: torch.matmul here
+    # a plain product the reference leaves to XLA: torch.matmul, but a
+    # one-row left operand (a served request's x @ beta) is summed in a
+    # fixed order, so a coalesced score is bitwise the solo one
     a, b = _promote(a, b)
+    if (a.dim() == 2 and b.dim() == 2 and a.shape[0] == 1 and a.shape[1]
+            and a.shape[1] * b.shape[1] <= ROW_PRODUCT_MAX_ELEMS):
+        return _row_product(a, b)
     return torch.matmul(a, b)
 
 

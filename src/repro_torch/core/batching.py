@@ -1,6 +1,6 @@
 """Task-parallel batched execution (SystemDS §5 `parfor`).
 
-Port of `repro.core.batching` (its parfor half). Takes k structurally
+Port of `repro.core.batching`. Takes k structurally
 identical HOP DAGs that differ only in scalar literals and/or leaf
 bindings — a λ grid, CV fold selections, seeds — and compiles them into
 ONE plan over a *template* DAG:
@@ -22,10 +22,13 @@ ONE plan over a *template* DAG:
 
 `choose_mode` is the cost-model arbitration, with the reference's gates
 and constants, so both packages choose the same mode for the same plan.
-The serving half of the reference module (`compile_serving`,
-`stack_requests`) is not ported yet (ROADMAP Queue 1 item 9).
 
-The user-facing entry point is `repro_torch.lifecycle.validation.parfor`.
+The serving half (`compile_serving`, `stack_requests`) traces one scoring
+function over batched request leaves instead of merging k DAGs; the
+runtime replays it at any batch size (`LineageRuntime.replay_batch`).
+
+The user-facing entry points are `repro_torch.lifecycle.validation.parfor`
+and `repro_torch.serving.ModelServer`.
 """
 from __future__ import annotations
 
@@ -199,6 +202,10 @@ class BatchedPlan:
     # runs as plain vmap here: the port has no device mesh yet (ROADMAP
     # Queue 1 item 12), as the reference degrades without one
     mode: str = "vmap"
+    # serving plans (`compile_serving`): batched leaf uids in argument
+    # order, so `LineageRuntime.replay_batch` can bind positional
+    # request stacks without consulting the global leaf registry
+    leaf_order: tuple = ()
     _segments: dict = field(default_factory=dict, repr=False)
 
     @property
@@ -213,7 +220,7 @@ class BatchedPlan:
         are parfor-internal temporaries, and leaving one per call in
         `LEAVES` would grow resident memory without bound across a
         long session. After release the plan cannot be re-executed."""
-        for uid in self.batched_leaf_uids:
+        for uid in self.batched_leaf_uids | set(self.leaf_order):
             LEAVES.values.pop(uid, None)
             LEAVES.lineage.pop(uid, None)
 
@@ -317,6 +324,51 @@ def _finalize_bplan(plan: Plan, k: int) -> BatchedPlan:
                        variant_uids=_variant_uids(plan))
 
 
+def compile_serving(fn, arg_shapes: Sequence[tuple], arg_dtypes=None,
+                    arg_sparsities=None, *, reuse_enabled: bool = False,
+                    opt_level: int = 2) -> BatchedPlan:
+    """Compile a scoring function once into a *serving* `BatchedPlan`.
+
+    The serving counterpart of `compile_batched`, without the
+    `merge_roots` pass: every request executes the SAME plan with
+    different leaf bindings, so there is nothing to merge — `fn` is
+    traced directly over batched placeholder leaves (`dag.batch_input`
+    with a ``(1,) + shape`` zero stack, element shape = the declared
+    per-request shape). Every transitive consumer of a request leaf is
+    request-variant and lowers to vmapped segments; anything else
+    (model weights, folded constants) is the request-invariant prefix.
+
+    The returned plan carries `leaf_order` (batched-leaf uid per
+    argument position) and is replayed at ANY batch size through
+    `LineageRuntime.replay_batch`: batch k and its power-of-two bucket
+    are call-time properties — the segment set is k-independent and
+    closures re-specialize per bucket via the closure cache's concrete
+    argument signature, which is exactly what lets a server warm every
+    bucket at deploy time and replay live traffic with zero retraces.
+
+    Placeholder stacks are zeros, so `arg_sparsities` defaults to dense
+    (1.0) like `PreparedScript` — formats are declared, not guessed.
+    """
+    dtypes = list(arg_dtypes) if arg_dtypes is not None \
+        else [np.float64] * len(arg_shapes)
+    sps = list(arg_sparsities) if arg_sparsities is not None \
+        else [1.0] * len(arg_shapes)
+    leaves = [
+        batch_input(f"req{i}", np.zeros((1,) + tuple(s), dtype=d),
+                    sparsity=sp)
+        for i, (s, d, sp) in enumerate(zip(arg_shapes, dtypes, sps,
+                                           strict=True))]
+    outs = fn(*leaves)
+    if isinstance(outs, LTensor):
+        outs = [outs]
+    plan = compile_plan(list(outs), reuse_enabled=reuse_enabled,
+                        opt_level=opt_level)
+    bplan = _finalize_bplan(plan, 1)
+    bplan.bucket = bucket_size(1)
+    bplan.leaf_order = tuple(leaf.node.uid for leaf in leaves)
+    return bplan
+
+
 # ---------------------------------------------------------------------------
 # Cost-model arbitration: vmapped batch vs sequential-reuse loop
 # ---------------------------------------------------------------------------
@@ -369,3 +421,11 @@ def pad_batch(arr: np.ndarray, bucket: int) -> np.ndarray:
         return arr
     pad = np.repeat(arr[-1:], bucket - k, axis=0)
     return np.concatenate([arr, pad], axis=0)
+
+
+def stack_requests(request_arg_lists: Sequence[Sequence[np.ndarray]],
+                   n_args: int) -> list[np.ndarray]:
+    """Stack k per-request argument lists into the one-array-per-arg
+    layout `LineageRuntime.replay_batch` consumes."""
+    return [np.stack([reqs[i] for reqs in request_arg_lists])
+            for i in range(n_args)]

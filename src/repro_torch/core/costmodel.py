@@ -12,15 +12,20 @@ metadata alone, *before* anything runs. Consumers:
 
   * parfor arbitration — `batched_cost_s` / `sequential_cost_s` price
     the vmapped grid against the sequential-reuse loop
-    (`repro_torch.core.batching.choose_mode`).
+    (`repro_torch.core.batching.choose_mode`);
+  * serving — `coalesce_wait_s` prices the coalescer's window
+    (`repro_torch.serving.ModelServer`);
+  * fault policy — `max_retries` / `retry_backoff_s` bound the chunk-IO
+    retry ladder (`repro_torch.data.csv_io`).
 
 Port of `repro.core.costmodel` for the lanes this package runs (local,
-chunked and the batched parfor lane). The constants, environment names
-and formulas are the reference's, unchanged, so both packages compile
-identical plans and choose the same parfor mode; they are NOT tuned for
-the GPU. The federated, sharded (`config_shard_cost_s` included),
-serving and fault-policy sections of the reference are not carried over
-yet.
+chunked, the batched parfor lane, serving and the fault policy). The
+constants, environment names and formulas are the reference's,
+unchanged, so both packages compile identical plans, choose the same
+parfor mode and hold a request for the same window; they are NOT tuned
+for the GPU. The federated and sharded sections of the reference
+(`fed_timeout_s` and `config_shard_cost_s` included) come with those
+lanes.
 
 One deliberate difference: `pipeline_depth()` resolves to 1 (the
 synchronous lane, the only one ported) and refuses an explicit
@@ -181,6 +186,105 @@ def chunk_rows(row_bytes: float) -> int:
     return max(c, CHUNK_MIN_ROWS)
 
 
+# ---------------------------------------------------------------------------
+# Serving (repro_torch.serving): coalesced-dispatch cost and the adaptive
+# batching-delay policy — padding waste traded against queue delay
+# ---------------------------------------------------------------------------
+
+def _serve_bucket(k: int) -> int:
+    """Power-of-two vmap bucket for k coalesced requests. Mirrors
+    `batching.bucket_size` (duplicated here because `batching` imports
+    this module) — serving replays warm under exactly those buckets."""
+    return 2 if k <= 2 else 1 << (k - 1).bit_length()
+
+
+def serve_batch_cost_s(invariant: list[Node], variant: list[Node],
+                       bucket: int) -> float:
+    """Estimated seconds for ONE coalesced serving dispatch.
+
+    Same cost structure as `batched_cost_s` — the `PARFOR_DISPATCH_S`
+    control-program constant is paid once for the whole coalesced
+    batch, the request-invariant prefix runs once, and every
+    request-variant instruction does `bucket`× the per-request work.
+    The padding waste is priced in: a batch of k requests padded to a
+    `bucket` > k executes `bucket - k` wasted lanes, which is what the
+    coalescer's delay policy weighs against queue time.
+    """
+    return batched_cost_s(invariant, variant, bucket)
+
+
+def coalesce_gain_s(invariant: list[Node], variant: list[Node],
+                    k: int, max_batch: int) -> float:
+    """Seconds saved by absorbing ONE more request into a pending batch
+    of k instead of letting it pay its own dispatch later.
+
+    Three regimes:
+      * k below the current bucket — the next request rides a padding
+        lane that is already paid for: the full cost of a solo dispatch
+        is saved;
+      * k exactly on a bucket boundary — absorbing one more request
+        doubles the vmap bucket, so the marginal batched work eats into
+        the solo-dispatch saving;
+      * k at `max_batch` — nothing to gain, dispatch now.
+    """
+    if k >= max_batch:
+        return 0.0
+    solo = serve_batch_cost_s(invariant, variant, _serve_bucket(1))
+    b = _serve_bucket(k)
+    if k < b:
+        return solo
+    marginal = (serve_batch_cost_s(invariant, variant, 2 * b)
+                - serve_batch_cost_s(invariant, variant, b))
+    return max(solo - marginal, 0.0)
+
+
+def coalesce_wait_s(invariant: list[Node], variant: list[Node],
+                    k: int, max_batch: int, max_wait_s: float) -> float:
+    """Adaptive batching delay: how much LONGER a coalescer holding k
+    queued requests should wait for the next arrival.
+
+    Waiting dt seconds delays all k held requests (total queue-delay
+    cost k·dt); absorbing the next arrival saves `coalesce_gain_s`.
+    Break-even at dt = gain / k — the budget shrinks as the batch
+    fills, so a nearly-full batch dispatches almost immediately while a
+    lone request is willing to wait for company. Clamped to the
+    operator-set `max_wait_s` policy ceiling (the p99 guard).
+    """
+    if k >= max_batch:
+        return 0.0
+    gain = coalesce_gain_s(invariant, variant, k, max_batch)
+    return min(max_wait_s, gain / max(k, 1))
+
+
+# ---------------------------------------------------------------------------
+# Fault policy: bounded exponential backoff for the retry ladders (chunk
+# IO here; site RPCs with the federated lane)
+# ---------------------------------------------------------------------------
+
+# Exponential-backoff base: sleep RETRY_BASE_S * 2^(attempt-1) before
+# re-attempt k. Small — the local transport has no congestion to yield
+# to; real deployments raise it via env.
+RETRY_BASE_S = 0.01
+
+# Bounded retries per IO read (re-attempts after the first try).
+# Exhaustion hands over to the degradation ladder.
+MAX_RETRIES = 2
+
+
+def retry_base_s() -> float:
+    return float(os.environ.get("REPRO_RETRY_BASE_S", RETRY_BASE_S))
+
+
+def max_retries() -> int:
+    return int(os.environ.get("REPRO_MAX_RETRIES", MAX_RETRIES))
+
+
+def retry_backoff_s(attempt: int) -> float:
+    """Backoff before re-attempt `attempt` (1-based): exponential in
+    the attempt number, bounded by the caller's `max_retries` loop."""
+    return retry_base_s() * (2.0 ** max(attempt - 1, 0))
+
+
 def pipeline_depth() -> int:
     """Resolved dispatch depth for the runtime's segment executor.
 
@@ -192,8 +296,9 @@ def pipeline_depth() -> int:
     if env >= 2:
         raise NotImplementedError(
             f"REPRO_PIPELINE_DEPTH={env}: the asynchronous pipelined lane "
-            "is not ported yet (ROADMAP Queue 1 item 10); unset it or "
-            "set it to 1")
+            "(the streaming prefetch worker and the serving completion "
+            "worker) is not ported yet (ROADMAP Queue 1 item 10); unset "
+            "it or set it to 1")
     return 1
 
 

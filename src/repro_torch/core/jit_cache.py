@@ -13,20 +13,25 @@ dtypes and the device (torch has no weak types; a closure built for
 one device must never serve another). The hit/miss/eviction/pin
 counters, the LRU order and the entry/byte caps behave as in the
 reference, so the same program sequence from a cleared cache counts
-the same hits and misses in both packages. CUDA-graph capture of the
-closures is later work.
+the same hits and misses in both packages. The serving lane pins the
+closures it warms at deploy (`pinning()`), and the fault policy's
+`compile` kind fails a build here (`faults.compile_entry`), as in the
+reference. CUDA-graph capture of the closures waits for a benchmark
+(ROADMAP).
 """
 from __future__ import annotations
 
 import os
 import time
 from collections import OrderedDict
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from . import faults
 from .sparse import BCOO
 
 DEFAULT_CAPACITY = int(os.environ.get("REPRO_JIT_CACHE_ENTRIES", 512))
@@ -90,6 +95,8 @@ class JitProgramCache:
         self._entries: "OrderedDict[tuple, tuple[Callable, int]]" = \
             OrderedDict()
         self._pinned: set[tuple] = set()
+        # active pinning() recorders (normally 0 or 1)
+        self._recorders: list[set[tuple]] = []
         self.stats = JitCacheStats()
 
     def __len__(self) -> int:
@@ -103,6 +110,8 @@ class JitProgramCache:
                ) -> tuple[tuple, Optional[Callable]]:
         """Return (full key, closure-or-None); counts hit/miss."""
         key = (seg_key, arg_signature(args, device))
+        for rec in self._recorders:
+            rec.add(key)
         entry = self._entries.get(key)
         if entry is not None:
             self._entries.move_to_end(key)
@@ -114,7 +123,10 @@ class JitProgramCache:
     def compile(self, key: tuple, build_fn: Callable[[], Callable]
                 ) -> tuple[Callable, float]:
         """Build the closure with `build_fn()`, store it under `key`;
-        returns (closure, build seconds)."""
+        returns (closure, build seconds). A seeded `compile` fault fails
+        the call before the build; the runtime then degrades that segment
+        to the interpreter."""
+        faults.compile_entry(key[0] if isinstance(key, tuple) else key)
         t0 = time.perf_counter()
         exe = build_fn()
         dt = time.perf_counter() - t0
@@ -129,10 +141,14 @@ class JitProgramCache:
         return exe, dt
 
     def _evict(self) -> None:
-        # LRU-first, skipping pinned entries; the newest unpinned entry
-        # is never evicted (a single over-budget closure still runs)
+        # LRU-first, skipping pinned entries and the keys an open
+        # pinning() block has recorded (deploy warms more closures than
+        # the caps may hold at once); the newest unpinned entry is never
+        # evicted (a single over-budget closure still runs)
+        protected = self._pinned.union(*self._recorders) \
+            if self._recorders else self._pinned
         while True:
-            unpinned = [k for k in self._entries if k not in self._pinned]
+            unpinned = [k for k in self._entries if k not in protected]
             if len(unpinned) <= 1:
                 break
             over = (len(self._entries) > self.capacity
@@ -144,8 +160,7 @@ class JitProgramCache:
             self.stats.bytes_cached -= nb
             self.stats.evictions += 1
 
-    # -- pinning (the serving lane's deploy-time warmup pins; its
-    # `pinning()` recorder comes with that lane) ------------------------
+    # -- pinning (serving deploy-time warmup) ----------------------------
     def pin(self, key: tuple) -> None:
         """Exempt `key` from LRU eviction (no-op if already pinned)."""
         if key not in self._pinned:
@@ -156,6 +171,31 @@ class JitProgramCache:
         self._pinned.discard(key)
         self.stats.pinned = len(self._pinned)
         self._evict()
+
+    def unpin_all(self, keys=None) -> None:
+        """Unpin `keys` (or everything) and re-apply the caps."""
+        if keys is None:
+            self._pinned.clear()
+        else:
+            self._pinned.difference_update(keys)
+        self.stats.pinned = len(self._pinned)
+        self._evict()
+
+    @contextmanager
+    def pinning(self):
+        """Record every cache key touched inside the block and pin the
+        ones resident at exit. `ModelServer.deploy` wraps its bucket
+        warmup in this so the LRU can never evict a serving closure
+        mid-flight; the yielded set is kept so `shutdown` can unpin."""
+        rec: set[tuple] = set()
+        self._recorders.append(rec)
+        try:
+            yield rec
+        finally:
+            self._recorders.remove(rec)
+            for key in rec:
+                if key in self._entries:
+                    self.pin(key)
 
     def clear(self) -> None:
         self._entries.clear()

@@ -28,12 +28,22 @@ under a `|vmap:{axes}` key; gram and xtv inside are one batched launch
 each); a host op (`quantile`) in the variant suffix loops over the true
 configs on the host and is padded back into the bucket.
 
+Serving lane (`replay_batch`, behind `repro_torch.serving.ModelServer`):
+a serving `BatchedPlan` (`PreparedScript.prepare_batched`) replays k
+stacked requests through the same vmapped closures, padded to a
+power-of-two bucket; request leaves are bound per call, never through
+the global leaf registry, and reuse probes key on the request content.
+
+Fault policy (`repro_torch.core.faults`, metered in `stats.faults`): a
+segment whose closure build fails (`CompileFailedError`) runs its
+instructions through the `fuse=False` interpreter's kernels and counts
+one degradation; vmapped segments re-raise, as in the reference.
+
 Not ported yet (each refuses rather than degrading silently): federated
-execution (ROADMAP Queue 1 item 8), serving
-(`PreparedScript.prepare_batched`, item 9), the asynchronous pipeline
-(item 10), the fault policy (item 11) and sharded execution (item 12),
-which also takes the reference's bucket-axis sharding (`mode="shard"`
-runs as plain vmap, as the reference does without a mesh).
+execution (ROADMAP Queue 1 item 8), the asynchronous pipeline (item 10)
+and sharded execution (item 12), which also takes the reference's
+bucket-axis sharding (`mode="shard"` runs as plain vmap, as the
+reference does without a mesh).
 
 `PreparedScript` is the JMLC analogue: trace a python function once into
 a DAG with placeholder leaves, then re-execute with new in-memory inputs
@@ -49,9 +59,10 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from . import backend, costmodel
+from . import backend, costmodel, faults
 from .compiler import Plan, compile_plan
 from .dag import LEAVES, LTensor, Node, _fingerprint, _lhash_rec, input_tensor
+from .faults import CompileFailedError, FaultLog
 from .jit_cache import get_jit_cache
 from .reuse import ReuseCache
 from .reuse import nbytes as _reuse_nbytes
@@ -103,6 +114,43 @@ class StreamLog:
 
 
 @dataclass
+class ServingLog:
+    """Observability of the `repro_torch.serving` request path:
+    queue/coalesce behaviour and the warm-path hygiene counter. Updated
+    by the `ModelServer` owning this runtime — all mutation happens on
+    its single dispatcher thread (and, for `rejected`/`queue_peak`, under
+    its queue lock)."""
+
+    requests: int = 0        # requests scored (excludes rejections)
+    batches: int = 0         # coalesced dispatches
+    max_coalesce: int = 0    # largest coalesced batch observed
+    padded: int = 0          # padding lanes executed (bucket - k waste)
+    queue_peak: int = 0      # deepest queue observed at enqueue time
+    rejected: int = 0        # bounded-queue rejections (backpressure)
+    # closure-cache misses taken by a dispatch AFTER deploy-time warmup.
+    # The deploy contract is build-off-the-request-path: this MUST stay 0
+    # in steady state
+    retraces: int = 0
+    queue_wait_s: float = 0.0  # total enqueue->dispatch delay
+    busy_s: float = 0.0        # seconds the dispatch stage spent replaying
+
+    @property
+    def total(self) -> int:
+        return self.requests + self.rejected
+
+    def as_dict(self) -> dict:
+        out = dict(requests=self.requests, batches=self.batches,
+                   max_coalesce=self.max_coalesce, padded=self.padded,
+                   queue_peak=self.queue_peak, rejected=self.rejected,
+                   retraces=self.retraces,
+                   queue_wait_s=round(self.queue_wait_s, 6),
+                   busy_s=round(self.busy_s, 6))
+        if self.batches:
+            out["mean_coalesce"] = round(self.requests / self.batches, 2)
+        return out
+
+
+@dataclass
 class RuntimeStats:
     instructions: int = 0
     executed: int = 0      # instructions actually computed (not reused)
@@ -112,21 +160,32 @@ class RuntimeStats:
     batched_segments: int = 0  # vmapped config-variant segments (parfor)
     jit_cache_hits: int = 0  # warm cached-closure lookups
     trace_time: float = 0.0  # seconds spent building segment closures
+    # request-path meter, populated when this runtime backs a
+    # `repro_torch.serving.ModelServer`
+    serving: ServingLog = field(default_factory=ServingLog)
     # out-of-core streaming meter, populated by chunked plans
     streaming: StreamLog = field(default_factory=StreamLog)
+    # fault-policy meter (`repro_torch.core.faults`): injections
+    # observed, retries, degradations, serving sheds and restarts, plus
+    # the dispatch latency monitor
+    faults: FaultLog = field(default_factory=FaultLog)
 
     def as_dict(self):
-        """The reference's keys. Its exchange/shard/serving/pipeline/
-        faults meters appear there only when non-zero; their lanes are
-        not ported, so they are always zero here and never appear."""
+        """The reference's keys; each meter appears only when non-zero,
+        as there. The exchange/shard/pipeline meters belong to lanes not
+        ported, so they never appear."""
         out = dict(instructions=self.instructions, executed=self.executed,
                    reused=self.reused, exec_time_s=round(self.exec_time, 6),
                    segments=self.segments,
                    batched_segments=self.batched_segments,
                    jit_cache_hits=self.jit_cache_hits,
                    trace_time_s=round(self.trace_time, 6))
+        if self.serving.total:
+            out["serving"] = self.serving.as_dict()
         if self.streaming.total:
             out["streaming"] = self.streaming.as_dict()
+        if self.faults.total:
+            out["faults"] = self.faults.as_dict()
         out["jit_cache"] = get_jit_cache().stats.as_dict()
         return out
 
@@ -232,6 +291,43 @@ class LineageRuntime:
                 for j in range(k):
                     per_config[j].append(arr if j == 0 else arr.copy())
         return per_config
+
+    # ------------------------------------------------------------------
+    def replay_batch(self, bplan, stacked: Sequence[Any],
+                     k: int) -> list[list[np.ndarray]]:
+        """Replay a serving `BatchedPlan` (see `batching.compile_serving`)
+        on k stacked request bindings — the low-latency scoring entry.
+
+        `stacked` holds one ``(k,) + arg_shape`` array per argument,
+        aligned with `bplan.leaf_order`. The batch is padded up to the
+        power-of-two bucket (repeating the last request, exactly like
+        `parfor`) so every dispatch lands on a warm vmapped closure:
+        batch size and bucket are call-time properties — the segment set
+        is k-independent and the closure cache re-specializes per bucket
+        via the concrete argument signature. Nothing is read from or
+        written to the global leaf registry for the request leaves, so
+        concurrent plans cannot alias request data; padding is sliced
+        off before results are returned (each request's outputs leave
+        the device once, at the plan's roots)."""
+        from .batching import bucket_size, pad_batch
+        costmodel.pipeline_depth()  # refuses an async depth up front
+        plan = bplan.plan
+        bucket = bucket_size(k)
+        bctx = _BatchCtx(bplan=bplan, batch=k, bucket=bucket,
+                         bvals=bplan.batched_value_uids)
+        leaf_values = {
+            uid: pad_batch(np.asarray(a), bucket)
+            for uid, a in zip(bplan.leaf_order, stacked, strict=True)}
+        leaf_lineage = None
+        if self.cache is not None:
+            # reuse probes must key on the request content, not the
+            # released placeholder lineage — mirror PreparedScript
+            leaf_lineage = {
+                uid: f"req:{_fingerprint(np.asarray(a))}"
+                for uid, a in zip(bplan.leaf_order, stacked)}
+        values, lin = self._bind_leaves(plan, leaf_values, leaf_lineage)
+        self._run_segments(plan, values, lin, bctx=bctx)
+        return self._unpack_batch(plan, values, bctx)
 
     # ------------------------------------------------------------------
     def _bind_leaves(self, plan: Plan,
@@ -405,9 +501,20 @@ class LineageRuntime:
                 self.stats.exec_time += time.perf_counter() - t0
                 self.stats.executed += 1
             else:
-                outs = self._execute_cached(
-                    seg_key, self._seg_builder(seg, fmts, vctx), args,
-                    jcache)
+                try:
+                    outs = self._execute_cached(
+                        seg_key, self._seg_builder(seg, fmts, vctx), args,
+                        jcache)
+                except CompileFailedError as e:
+                    # degradation ladder: a segment whose closure build
+                    # failed runs its instructions eagerly through the
+                    # fuse=False kernels (parity by construction);
+                    # vmapped segments have no eager equivalent and
+                    # re-raise
+                    e.args = (f"{e.args[0]} [{seg.summary()}]",)
+                    if batched:
+                        raise
+                    outs = self._interpret_segment(seg, values, fmts, e)
                 self.stats.executed += len(seg.instructions)
             for uid, val in zip(seg.output_uids, outs, strict=True):
                 values[uid] = val
@@ -434,10 +541,17 @@ class LineageRuntime:
     def _execute_cached(self, seg_key: str, build_fn, args, jcache):
         """Run one segment closure through the jit cache (lookup, build
         on miss, execute, wait for the device), accounting build and
-        execution time."""
+        execution time. A failed build is raised as `CompileFailedError`
+        (the segment loop's degradation ladder) unless the fault policy
+        is off."""
         key, exe = jcache.lookup(seg_key, args, self.device)
         if exe is None:
-            exe, dt_build = jcache.compile(key, build_fn)
+            try:
+                exe, dt_build = jcache.compile(key, build_fn)
+            except Exception as e:
+                if faults.policy_enabled():
+                    raise CompileFailedError(seg_key, e) from e
+                raise
             self.stats.trace_time += dt_build
         else:
             self.stats.jit_cache_hits += 1
@@ -454,15 +568,42 @@ class LineageRuntime:
                           bctx: Optional[_BatchCtx] = None) -> None:
         """Execute a probe-hit segment's remaining outputs (the segment
         with the cached value dead-code eliminated)."""
-        outs = self._execute_cached(
-            f"{seg_key}|comp",
-            self._seg_builder(seg, fmts, bctx, drop_output=probe_uid),
-            args, jcache)
+        try:
+            outs = self._execute_cached(
+                f"{seg_key}|comp",
+                self._seg_builder(seg, fmts, bctx, drop_output=probe_uid),
+                args, jcache)
+        except CompileFailedError as e:
+            e.args = (f"{e.args[0]} [{seg.summary()}]",)
+            if bctx is not None:
+                raise
+            # eager fallback computes ALL segment outputs; deliver only
+            # the non-probe ones (the hit already filled probe_uid)
+            allouts = self._interpret_segment(seg, values, fmts, e)
+            by_uid = dict(zip(seg.output_uids, allouts, strict=True))
+            outs = tuple(by_uid[u] for u in rest)
         # interpreter-equivalent accounting: it would execute every
         # instruction except the one reused
         self.stats.executed += len(seg.instructions) - 1
         for uid, val in zip(rest, outs, strict=True):
             values[uid] = val
+
+    # ------------------------------------------------------------------
+    def _interpret_segment(self, seg, values: dict[int, Any],
+                           fmts: dict, err: CompileFailedError) -> tuple:
+        """Graceful-degradation lane for a failed closure build: run the
+        segment's instructions eagerly through `_exec_one` — the SAME
+        kernels the fuse=False interpreter dispatches. Intermediates
+        live in a private overlay; only the segment's declared outputs
+        are returned."""
+        flog = self.stats.faults
+        flog.degradations += 1
+        if isinstance(err.cause, faults.InjectedFault):
+            flog.injected += 1
+        env = dict(values)  # shallow overlay: refs only
+        for ins in seg.instructions:
+            env[ins.out_id] = self._exec_one(ins, env, fmts)
+        return tuple(env[u] for u in seg.output_uids)
 
     # ------------------------------------------------------------------
     def _run_chunked_segment(self, plan: Plan, seg, seg_key: str,
@@ -737,8 +878,7 @@ def value(x: LTensor, runtime: Optional[LineageRuntime] = None) -> np.ndarray:
 
 class PreparedScript:
     """Compile a DSL function once; execute repeatedly with new inputs.
-    (The serving form, `prepare_batched`, is not ported yet: ROADMAP
-    Queue 1 item 9.)"""
+    `prepare_batched` compiles its serving form (`repro_torch.serving`)."""
 
     def __init__(self, fn: Callable[..., Any],
                  arg_shapes: Sequence[tuple[int, ...]],
@@ -875,6 +1015,21 @@ class PreparedScript:
                 leaf_lineage[leaf.node.uid] = \
                     f"{leaf.node.attr('name')}:{_fingerprint(arr)}"
         return self.runtime.run_plan(self.plan, leaf_values, leaf_lineage)
+
+    # ------------------------------------------------------------------
+    def prepare_batched(self):
+        """Compile the serving form of this script: the same function
+        traced over *batched* request leaves, returning a
+        `batching.BatchedPlan` replayable at any batch size through
+        `LineageRuntime.replay_batch`. This is the deploy-time entry
+        `repro_torch.serving.ModelServer` warms its power-of-two vmap
+        buckets from — closure builds move off the request path."""
+        from .batching import compile_serving
+        return compile_serving(
+            self._fn, self._arg_shapes, self._arg_dtypes,
+            self._arg_sparsities,
+            reuse_enabled=self.runtime.cache is not None,
+            opt_level=self.runtime.opt_level)
 
 
 # ---------------------------------------------------------------------------

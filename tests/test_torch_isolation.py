@@ -1,7 +1,9 @@
 """The port stands alone: `repro_torch` and `chip_smoke.py` import
-neither jax nor anything of the JAX package `repro`, the package works
-with jax made unimportable, and the entry points compute on CUDA unless
-the CPU is asked for — never falling back to it."""
+neither jax nor anything of the JAX package `repro` (nor `ml_dtypes`,
+which only `core/backend.py`'s `to_numpy` takes where it is installed),
+the package works with jax made unimportable, and the entry points
+compute on CUDA unless the CPU is asked for — never falling back to
+it."""
 import ast
 import os
 import subprocess
@@ -31,11 +33,19 @@ def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+# the one optional import of ml_dtypes: to_numpy hands a bfloat16 result
+# back as ml_dtypes.bfloat16 where that package is installed, and raises
+# a clear error where it is not
+OPTIONAL = {PORT / "core" / "backend.py": {"ml_dtypes"}}
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_jax_or_reference_imports(path):
+    forbidden = {"jax", "jaxlib", "repro", "ml_dtypes"} - OPTIONAL.get(
+        path, set())
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+        assert top not in forbidden, (path, name)
 
 
 def test_imports_and_runs_with_jax_blocked():
@@ -71,8 +81,39 @@ assert comps.shape == (5, 2) and proj.shape == (200, 2)
 assert np.isfinite(winsorize(input_tensor("Xw", xn), runtime=cpu)).all()
 r = cpu.evaluate([ops.rand((4, 3), seed=1, dist="normal", sparsity=0.5)])[0]
 assert r.shape == (4, 3)
-assert not any(m == "jax" or m.startswith(("jax.", "repro."))
-               for m, v in sys.modules.items() if v is not None)
+import os, tempfile, threading
+import torch
+from repro_torch.core import PreparedScript, faults, hetero
+from repro_torch.data import csv_io, gen_regression
+from repro_torch.checkpoint import restore, save
+from repro_torch.serving import ModelServer
+from repro_torch.distributed import fault
+d = tempfile.mkdtemp()
+xr, yr, _ = gen_regression(300, 4, seed=1)
+csv_io.write_csv(os.path.join(d, "x.csv"), np.hstack([xr, yr]), fmt="%.17g")
+flog = faults.FaultLog()
+with faults.inject("seed=1;chunk_io@0"):
+    parts = [c for _, c in csv_io.read_csv_chunks(
+        os.path.join(d, "x.csv"), 128, chunk_bytes=4096, fault_log=flog)]
+data = np.vstack(parts)
+assert (data == np.hstack([xr, yr])).all() and flog.retries == 1
+beta = lmDS(input_tensor("Xc", data[:, :4]), input_tensor("yc", data[:, 4:]),
+            reg=1e-9, runtime=cpu)
+save(os.path.join(d, "ck"), 0, {"beta": torch.from_numpy(beta)})
+back, _ = restore(os.path.join(d, "ck"), {"beta": torch.zeros(4, 1,
+                                                              dtype=torch.float64)})
+assert torch.equal(back["beta"], torch.from_numpy(beta))
+B = input_tensor("B", beta)
+script = PreparedScript(lambda x: ops.matmul(x, B), [(1, 4)], runtime=cpu)
+with ModelServer(script, max_batch=4, max_wait_us=500.0) as srv:
+    got, = srv.score(xr[:1], timeout=30.0)
+assert (got == script(xr[:1])[0]).all() and cpu.stats.serving.retraces == 0
+x, meta = hetero.transformencode(hetero.DataTensor.from_dict(
+    {"c": np.array(["a", "b"], object)}, types={"c": "str"}), {"c": "dummycode"})
+assert x.shape == (2, 2)
+assert not any(m in ("jax", "ml_dtypes") or m.startswith(
+    ("jax.", "repro.", "ml_dtypes.")) for m, v in sys.modules.items()
+    if v is not None)
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
