@@ -163,7 +163,31 @@ card. One JSON line per phase:
                      serving_dispatch@0 restarts the coalescer once and
                      fails only its batch; p50/p99 latency, requests/s,
                      mean coalesce, padded lanes
- 24. kernels       — the summary line of every ported kernel (the
+ 24. pipeline      — the asynchronous pipeline (pipeline depth 2, the
+                     default) against depth 1 in one process: at the lmds
+                     point a cold lmDS fit at each depth from a fresh
+                     ReuseCache and a cleared closure cache (β bitwise,
+                     13 + 13 gram/xtv launches each, the same chunks, both
+                     meters, peak live bytes under CHUNK_MEM_BUDGET, peak
+                     device memory, a traced idle share), and a chunk_io
+                     fault on the prefetch worker that degrades to the
+                     synchronous loop (same β, no thread left); the bcoo
+                     stream (sparse_lm's 400,000 x 1,000) at both depths,
+                     β bitwise; serve_plan's 16 clients at both depths
+                     (rebatches > 0 at depth 2, the same bits, 0
+                     retraces, p50/p99 and requests/s of each)
+ 25. federated     — lmDS_federated at the lmds point over 4 sites (25,000
+                     rows a site): β within rel 1e-9 of numpy's solve and
+                     of the local lmDS, the exchange log byte for byte the
+                     eager oracle's, one gram and one xtv launch per site,
+                     a warm rerun off the reuse cache (no launch, no
+                     exchange); steplm_federated at 20,000 x 32 selecting
+                     the local run's columns; the reference's combined
+                     fault scenario (site_rpc, site_dead, chunk_io,
+                     compile) bitwise the clean run with its counters; an
+                     8-λ federated grid under parfor with one exchange
+                     round per site per fed instruction
+ 26. kernels       — the summary line of every ported kernel (the
                      block-sparse ones at the shape of most of their
                      launches, with launches x (device ms - bound ms) by
                      path; gram and xtv also batched, with their
@@ -515,6 +539,26 @@ def phase_quickstart() -> None:
         raise AssertionError(f"quickstart flow failed: {row}")
 
 
+# the lmds point's data and numpy's float64 solve, made once for the
+# phases that fit it (lmds, pipeline, federated) and dropped after them
+_LMDS_POINT: dict = {}
+LMDS_REG = 1e-7
+
+
+def _lmds_point(m: int, n: int):
+    """(X, y, numpy's float64 β) of the lmds point, seeded."""
+    import numpy as np
+    got = _LMDS_POINT.get((m, n))
+    if got is None:
+        rng = np.random.default_rng(SEED)
+        xn = rng.standard_normal((m, n))
+        yn = (xn @ rng.standard_normal((n, 1))
+              + 0.1 * rng.standard_normal((m, 1)))
+        want = np.linalg.solve(xn.T @ xn + LMDS_REG * np.eye(n), xn.T @ yn)
+        got = _LMDS_POINT[(m, n)] = (xn, yn, want)
+    return got
+
+
 def phase_lmds(m: int = 100_000, n: int = 1_000) -> dict:
     import numpy as np
     import torch
@@ -522,14 +566,11 @@ def phase_lmds(m: int = 100_000, n: int = 1_000) -> dict:
                                   get_jit_cache, input_tensor)
     from repro_torch.kernels.gram import ops as gops
     from repro_torch.lifecycle import lmDS
-    reg = 1e-7
+    reg = LMDS_REG
     # X and y stream together: (n + 1) float64 values per row
     c = costmodel.chunk_rows(8.0 * (n + 1))
     buckets = -(-m // c)
-    rng = np.random.default_rng(SEED)
-    xn = rng.standard_normal((m, n))
-    yn = xn @ rng.standard_normal((n, 1)) + 0.1 * rng.standard_normal((m, 1))
-    want = np.linalg.solve(xn.T @ xn + reg * np.eye(n), xn.T @ yn)
+    xn, yn, want = _lmds_point(m, n)
     jc = get_jit_cache().stats
 
     def fit(rt):
@@ -618,6 +659,306 @@ def phase_steplm() -> None:
     if sel != sel_cpu or rel > 1e-9 or not {3, 17, 25} <= set(sel) \
             or launches["gram"] == 0 or launches["xtv"] == 0:
         raise AssertionError(f"steplm failed: {row}")
+
+
+# ---------------------------------------------------------------------------
+# the asynchronous pipeline and federated placement
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _depth(d: int):
+    """`REPRO_PIPELINE_DEPTH` set to `d` for a block."""
+    old = os.environ.get("REPRO_PIPELINE_DEPTH")
+    os.environ["REPRO_PIPELINE_DEPTH"] = str(d)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_PIPELINE_DEPTH", None)
+        else:
+            os.environ["REPRO_PIPELINE_DEPTH"] = old
+
+
+def _prefetch_threads() -> list:
+    import threading
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("chunk-prefetch") and t.is_alive()]
+
+
+def phase_pipeline(dev=DEVICE, m: int = 100_000, n: int = 1_000) -> dict:
+    """The asynchronous pipeline at the lmds point: a cold lmDS fit at
+    pipeline depth 1 and at depth 2 in one process, each with a fresh
+    ReuseCache and a cleared closure cache — β bitwise across the depths,
+    13 gram + 13 xtv launches each, the same chunk counts, both meters
+    (`StreamLog.spans()`, `PipelineLog.as_dict()`), peak live bytes under
+    CHUNK_MEM_BUDGET, peak device memory, and a traced idle share at each
+    depth; then a chunk_io fault on the prefetch worker, which degrades to
+    the synchronous loop with the same β and no thread left. Returns the
+    launches of each depth's fit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (LineageRuntime, ReuseCache, clear_jit_cache,
+                                  costmodel, faults, input_tensor)
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.lifecycle import lmDS
+    xn, yn, want = _lmds_point(m, n)
+    buckets = -(-m // costmodel.chunk_rows(8.0 * (n + 1)))
+
+    def fit(spec=None, traced=False):
+        clear_jit_cache()
+        rt = LineageRuntime(cache=ReuseCache(), device=dev)
+        X, y = input_tensor("X", xn), input_tensor("y", yn)
+        gops.reset_launches()
+        _sync(dev)
+        if dev != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with faults.inject(spec):
+            beta = lmDS(X, y, reg=LMDS_REG, runtime=rt)
+        wall = time.perf_counter() - t0
+        out = dict(wall_s=wall,
+                   rel_err=float(np.max(np.abs(beta - want))
+                                 / np.max(np.abs(want))),
+                   launches=dict(gops.LAUNCHES),
+                   streaming=rt.stats.streaming.as_dict(),
+                   spans=rt.stats.streaming.spans(),
+                   pipeline=rt.stats.pipeline.as_dict(),
+                   faults=dict(injected=rt.stats.faults.injected,
+                               degradations=rt.stats.faults.degradations),
+                   peak_mem_mb=(torch.cuda.max_memory_allocated() / 2**20
+                                if dev != "cpu" else None))
+        return beta, out
+
+    rows = {}
+    betas = {}
+    for d in (1, 2):
+        with _depth(d):
+            betas[d], rows[d] = fit()          # the path: counts set to 0
+            _, wall, busy, by_name = device_trace(lambda: fit())
+            rows[d]["traced"] = _traced(wall, busy, by_name)
+    with _depth(2):
+        beta_f, faulted = fit("seed=2;chunk_io@1")
+    faulted["threads_left"] = _prefetch_threads()
+    budget = costmodel.CHUNK_MEM_BUDGET
+    row = dict(phase="pipeline", path="lmds", shape=[m, n], buckets=buckets,
+               chunk_mem_budget=budget, depth1=rows[1], depth2=rows[2],
+               bitwise=bool(np.array_equal(betas[1], betas[2])),
+               prefetch_fault=dict(
+                   faulted, bitwise=bool(np.array_equal(beta_f, betas[2]))))
+    emit(row)
+    ok = row["bitwise"] and row["prefetch_fault"]["bitwise"]
+    for d in (1, 2):
+        r = rows[d]
+        ok = ok and (r["launches"]["gram"] == r["launches"]["xtv"] == buckets
+                     and r["streaming"]["chunks"] == buckets
+                     and r["streaming"]["chunks_reused"] == 0
+                     and r["streaming"]["peak_live_bytes"] <= budget
+                     and r["rel_err"] <= 1e-9)
+    p2 = rows[2]["pipeline"]
+    ok = ok and (rows[1]["pipeline"]["async_segments"] == 0
+                 and p2["prefetch_hits"] == buckets
+                 and p2["async_segments"] >= buckets
+                 and faulted["faults"] == dict(injected=1, degradations=1)
+                 and faulted["streaming"]["chunks"] == buckets
+                 and faulted["launches"]["gram"] == buckets
+                 and not faulted["threads_left"])
+    if not ok:
+        raise AssertionError(f"pipeline at the lmds point failed: {row}")
+    return {f"pipeline_depth{d}": rows[d]["launches"] for d in (1, 2)}
+
+
+def phase_federated(dev=DEVICE, m: int = 100_000, n: int = 1_000,
+                    sites: int = 4, grid=(0.01, 0.1, 1.0, 10.0, 0.05, 0.5,
+                                          5.0, 50.0)) -> dict:
+    """Federated placement on the card: lmDS_federated at the lmds point
+    over 4 sites (X 800 MB, 25,000 rows a site) against numpy's float64
+    solve and the local lmDS, its exchange log against the eager oracle's
+    byte for byte, one gram and one xtv launch per site, a warm rerun off
+    the reuse cache (no launch, no exchange); steplm_federated at 20,000 x
+    32 against the local run's columns; the reference's combined fault
+    scenario (site_rpc, site_dead, chunk_io, compile) bitwise the clean
+    run; a federated λ grid under parfor, one exchange round per site per
+    fed instruction. Returns the launches per path."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import (LineageRuntime, ReuseCache, clear_jit_cache,
+                                  faults, federated_input, input_tensor)
+    from repro_torch.core.federated import FederatedTensor, federated_lmds
+    from repro_torch.data.csv_io import read_csv_chunks, write_csv
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.lifecycle import (grid_search_lm, lmDS, lmDS_federated,
+                                       steplm, steplm_federated)
+    xn, yn, want = _lmds_point(m, n)
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+    by_path = {}
+    # ---- lmDS over 4 sites ------------------------------------------------
+    oracle = FederatedTensor.partition_rows(xn, sites)
+    t0 = time.perf_counter()
+    beta_oracle = federated_lmds(oracle, yn, reg=LMDS_REG)
+    oracle_s = time.perf_counter() - t0
+    fed = FederatedTensor.partition_rows(xn, sites)
+    rt = LineageRuntime(cache=ReuseCache(), device=dev)
+    gops.reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    beta = lmDS_federated(fed, yn, reg=LMDS_REG, runtime=rt)   # the path
+    cold_s = time.perf_counter() - t0
+    cold_launches = dict(gops.LAUNCHES)
+    cold_ex = rt.stats.exchange.as_dict()
+    gops.reset_launches()
+    t0 = time.perf_counter()
+    beta_warm = lmDS_federated(fed, yn, reg=LMDS_REG, runtime=rt)
+    warm_s = time.perf_counter() - t0
+    warm_launches = dict(gops.LAUNCHES)
+    beta_local = lmDS(input_tensor("X", xn), input_tensor("y", yn),
+                      reg=LMDS_REG, runtime=LineageRuntime(device=dev))
+    _, trace_wall, busy, by_name = device_trace(
+        lambda: lmDS_federated(fed, yn, reg=LMDS_REG,
+                               runtime=LineageRuntime(device=dev)))
+    lmds_row = dict(
+        phase="federated", path="lmds", shape=[m, n], sites=sites,
+        site_rows=[b - a for a, b in fed.ranges], oracle_s=oracle_s,
+        cold_s=cold_s, warm_s=warm_s, rel_err_vs_numpy=rel(beta, want),
+        rel_err_vs_local=rel(beta, beta_local),
+        rel_err_vs_oracle=rel(beta, beta_oracle),
+        launches=cold_launches, warm_launches=warm_launches,
+        exchange=cold_ex, oracle_exchange=oracle.log.as_dict(),
+        warm_exchange=rt.stats.exchange.as_dict(),
+        warm_bitwise=bool(np.array_equal(beta, beta_warm)),
+        cache=rt.cache.stats.as_dict(),
+        resident_mb=sum(s._resident[2].numel() * 8 for s in fed.sites
+                        if s._resident is not None) / 2**20,
+        traced=_traced(trace_wall, busy, by_name))
+    emit(lmds_row)
+    if not (lmds_row["rel_err_vs_numpy"] <= 1e-9
+            and lmds_row["rel_err_vs_local"] <= 1e-9
+            and cold_ex == oracle.log.as_dict()
+            and cold_launches["gram"] == cold_launches["xtv"] == sites
+            and lmds_row["warm_exchange"] == cold_ex
+            and lmds_row["warm_bitwise"]
+            and warm_launches["gram"] == warm_launches["xtv"] == 0
+            and rt.cache.stats.hits >= 2):
+        raise AssertionError(f"federated lmDS failed: {lmds_row}")
+    by_path["federated_lmds"] = cold_launches
+    del fed, oracle
+
+    # ---- steplm over 4 sites at 20,000 x 32 ------------------------------
+    rng = np.random.default_rng(SEED)
+    xs = rng.standard_normal((20_000, 32))
+    ys = (xs[:, [3, 17, 25]] @ np.array([[2.0], [-1.0], [0.5]])
+          + 0.1 * rng.standard_normal((20_000, 1)))
+    gops.reset_launches()
+    t0 = time.perf_counter()
+    rt = LineageRuntime(cache=ReuseCache(), device=dev)
+    sbeta, sel = steplm_federated(FederatedTensor.partition_rows(xs, sites),
+                                  ys, max_features=4, runtime=rt)
+    step_s = time.perf_counter() - t0
+    step_launches = dict(gops.LAUNCHES)
+    lbeta, lsel = steplm(input_tensor("X", xs), input_tensor("y", ys),
+                         max_features=4,
+                         runtime=LineageRuntime(cache=ReuseCache(),
+                                                device=dev))
+    step_row = dict(phase="federated", path="steplm", shape=[20_000, 32],
+                    sites=sites, selected=sel, selected_local=lsel,
+                    rel_err_vs_local=rel(sbeta, lbeta), wall_s=step_s,
+                    launches=step_launches,
+                    exchange=dict(total=rt.stats.exchange.total,
+                                  rounds=rt.stats.exchange.rounds),
+                    cache=rt.cache.stats.as_dict())
+    emit(step_row)
+    if not (sel == lsel and step_row["rel_err_vs_local"] <= 1e-9
+            and step_launches["gram"] > 0 and rt.cache.stats.hits > 0):
+        raise AssertionError(f"federated steplm failed: {step_row}")
+    by_path["federated_steplm"] = step_launches
+
+    # ---- the reference's combined fault scenario -------------------------
+    frng = np.random.default_rng(SEED + 7)
+    data = np.hstack([frng.normal(size=(208, 7)), frng.normal(size=(208, 1))])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "d.csv")
+        write_csv(path, data)
+
+        def run(spec):
+            clear_jit_cache()
+            rt = LineageRuntime(device=dev)
+            with faults.inject(spec) as plan:
+                parts = [c for _, c in read_csv_chunks(
+                    path, 64, chunk_bytes=1 << 12,
+                    fault_log=rt.stats.faults)]
+                d = np.vstack(parts)
+                w = lmDS_federated(
+                    FederatedTensor.partition_rows(d[:, :-1], 4), d[:, -1:],
+                    intercept=True, runtime=rt)
+            f = rt.stats.faults
+            return w, dict(injected=f.injected, retries=f.retries,
+                           timeouts=f.timeouts,
+                           degradations=f.degradations, shed=f.shed,
+                           restarts=f.restarts), \
+                dict(plan.fired) if plan else {}
+
+        spec = ("seed=13;site_dead:site=3;site_rpc@2;"
+                "chunk_io@0,1;compile@0")
+        w0, _, _ = run(None)
+        w1, c1, fired = run(spec)
+        w2, c2, _ = run(spec)
+    fault_row = dict(phase="federated", path="combined_faults", spec=spec,
+                     counters=c1, fired=fired,
+                     bitwise_vs_clean=bool(np.array_equal(w0, w1)),
+                     rerun_bitwise=bool(np.array_equal(w1, w2)),
+                     rerun_counters_equal=c1 == c2)
+    emit(fault_row)
+    if not (fault_row["bitwise_vs_clean"] and fault_row["rerun_bitwise"]
+            and c1 == c2 == dict(injected=13, retries=10, timeouts=0,
+                                 degradations=3, shed=0, restarts=0)
+            and fired == {"chunk_io": 2, "compile": 1, "site_rpc": 1,
+                          "site_dead": 9}):
+        raise AssertionError(f"federated fault scenario failed: {fault_row}")
+
+    # ---- a federated λ grid under parfor ---------------------------------
+    def grid_run(lams, mode, cache=False):
+        fx = FederatedTensor.partition_rows(xn, sites)
+        rt = LineageRuntime(cache=ReuseCache() if cache else None,
+                            device=dev)
+        gops.reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        betas, losses = grid_search_lm(
+            federated_input("gX", fx), input_tensor("gy", yn), list(lams),
+            runtime=rt, mode=mode)
+        return (betas, losses, rt.stats.exchange.as_dict(),
+                dict(gops.LAUNCHES), time.perf_counter() - t0,
+                rt.stats.batched_segments)
+
+    bb, bl, bex, blaunch, bwall, bsegs = grid_run(grid, "vmap")  # the path
+    _, _, one_ex, _, _, _ = grid_run(grid[:1], "sequential")
+    sb, sl, sex, slaunch, swall, _ = grid_run(grid, "sequential",
+                                               cache=True)
+    grid_row = dict(phase="federated", path="grid", shape=[m, n],
+                    sites=sites, k=len(grid), vmap_wall_s=bwall,
+                    sequential_wall_s=swall, batched_segments=bsegs,
+                    rounds_per_site=bex["rounds_per_site"],
+                    one_config_rounds_per_site=one_ex["rounds_per_site"],
+                    sequential_rounds=sex["rounds"],
+                    exchange_bytes=bex["total"],
+                    sequential_exchange_bytes=sex["total"],
+                    launches=blaunch, sequential_launches=slaunch,
+                    rel_beta_vs_sequential=rel(bb, sb),
+                    rel_loss_vs_sequential=rel(np.asarray(bl),
+                                               np.asarray(sl)))
+    emit(grid_row)
+    if not (bex["rounds_per_site"] == one_ex["rounds_per_site"]
+            and sex["rounds"] > bex["rounds"]
+            and bex["total"] == sex["total"] and bsegs > 0
+            and grid_row["rel_beta_vs_sequential"] <= 1e-8
+            and grid_row["rel_loss_vs_sequential"] <= 1e-8
+            and blaunch["gram"] == blaunch["xtv"] == sites):
+        raise AssertionError(f"federated grid failed: {grid_row}")
+    by_path["federated_grid_vmap"] = blaunch
+    return by_path
 
 
 # ---------------------------------------------------------------------------
@@ -834,7 +1175,9 @@ def phase_sparse_kernels(peaks: dict, scale: int = 1) -> dict:
 
 def phase_sparse_lm(scale: int = 1) -> dict:
     """The bcoo lane end to end through lm / lmCG (`scale` divides the
-    rows, for a rehearsal). Returns the kernels' launches per path."""
+    rows, for a rehearsal); the streamed fit also at pipeline depth 1
+    (the `pipeline` row of path sparse_stream). Returns the kernels'
+    launches per path."""
     import numpy as np
     import torch
     from repro_torch.core import (LineageRuntime, ReuseCache, clear_jit_cache,
@@ -991,23 +1334,40 @@ def phase_sparse_lm(scale: int = 1) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         beta = lm(X, y, reg=reg, runtime=rt)
-        return dict(wall_s=time.perf_counter() - t0, rel_err=rel(beta, want),
-                    launches=launches(),
-                    peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
-                    streaming={k: v - s0[k] for k, v in
-                               rt.stats.streaming.as_dict().items()
-                               if k != "peak_live_bytes"},
-                    spans={k: v - t0s[k] for k, v in
-                           rt.stats.streaming.spans().items()})
+        return beta, dict(
+            wall_s=time.perf_counter() - t0, rel_err=rel(beta, want),
+            launches=launches(),
+            peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
+            streaming={k: v - s0[k] for k, v in
+                       rt.stats.streaming.as_dict().items()
+                       if k != "peak_live_bytes"},
+            spans={k: v - t0s[k] for k, v in
+                   rt.stats.streaming.spans().items()})
 
     clear_jit_cache()
     m0 = jc.misses
     rt = LineageRuntime(cache=ReuseCache(), sparse_inputs=True)
-    cold = stream(rt)                    # the path
+    beta_d2, cold = stream(rt)           # the path, at depth 2 (default)
     cold["rebuilds"] = jc.misses - m0
     bcoo_builds = sum(1 for _, sig in get_jit_cache().keys()
                       if any(a[0] == "bcoo" for a in sig))
-    warm = stream(rt)
+    cold["pipeline"] = rt.stats.pipeline.as_dict()
+    _, warm = stream(rt)
+    # the same cold fit at depth 1: the pipelined lane's bcoo buckets
+    # (sparsified on the prefetch worker) give its bits
+    with _depth(1):
+        rt1 = LineageRuntime(cache=ReuseCache(), sparse_inputs=True)
+        beta_d1, depth1 = stream(rt1)
+        depth1["pipeline"] = rt1.stats.pipeline.as_dict()
+    prow = dict(phase="pipeline", path="sparse_stream", shape=[m, n],
+                buckets=buckets, depth1=depth1, depth2=cold,
+                bitwise=bool(np.array_equal(beta_d1, beta_d2)))
+    emit(prow)
+    if not (prow["bitwise"] and depth1["launches"] == cold["launches"]
+            and depth1["streaming"]["chunks"] == buckets
+            and cold["pipeline"]["prefetch_hits"] == buckets
+            and depth1["pipeline"]["async_segments"] == 0):
+        raise AssertionError(f"sparse stream across depths failed: {prow}")
     _, trace_wall, busy, by_name = device_trace(
         lambda: stream(LineageRuntime(cache=ReuseCache(), sparse_inputs=True)))
     row = dict(phase="sparse_lm", path="sparse_stream", shape=[m, n],
@@ -1028,6 +1388,7 @@ def phase_sparse_lm(scale: int = 1) -> dict:
             and not any(warm["launches"].values())):
         raise AssertionError(f"sparse streamed lmDS failed: {row}")
     by_path["sparse_stream"] = lc
+    by_path["sparse_stream_depth1"] = depth1["launches"]
     return by_path
 
 
@@ -3233,7 +3594,11 @@ def phase_serve_plan(dev=DEVICE, m: int = 100_000, n: int = 1_000,
     max_wait_us=2000); requests one after another, then from `clients`
     threads; every score bitwise the solo score and within 1e-12 of
     numpy's x @ β; a (16, n) block request; one injected coalescer crash.
-    Returns the training's gram/xtv launches."""
+    The server runs at pipeline depth 2 (the issue/completion split); the
+    same concurrent traffic then goes through a depth-1 server (the
+    inline dispatcher) on the same closures: the same bits, with both
+    depths' p50/p99 and requests/s in a `pipeline` row. Returns the
+    training's gram/xtv launches."""
     import threading
 
     import numpy as np
@@ -3266,7 +3631,8 @@ def phase_serve_plan(dev=DEVICE, m: int = 100_000, n: int = 1_000,
     jc = get_jit_cache().stats
     pinned0 = jc.pinned
     t0 = time.perf_counter()
-    server.deploy()
+    with _depth(2):
+        server.deploy()
     deploy_s = time.perf_counter() - t0
     pinned = jc.pinned - pinned0
     rows = rng.standard_normal((2 * requests, 1, n))
@@ -3298,6 +3664,7 @@ def phase_serve_plan(dev=DEVICE, m: int = 100_000, n: int = 1_000,
         conc_s = time.perf_counter() - t0
         if any(t.is_alive() for t in threads):
             raise AssertionError("serve_plan: a client thread hung")
+        rebatches = rt.stats.pipeline.rebatches
         log = rt.stats.serving.as_dict()
         conc_log = {k: log[k] - seq_log[k] for k in
                     ("requests", "batches", "padded", "retraces")}
@@ -3342,6 +3709,49 @@ def phase_serve_plan(dev=DEVICE, m: int = 100_000, n: int = 1_000,
     apart = {b: int((torch.func.vmap(lambda x: torch.matmul(x, bt))(xs[:b])
                      != lone[:b]).sum()) for b in (2, 4, 8, 16)}
     ms = 1e3 * lat
+    # the same 16-client traffic through a depth-1 server (the inline
+    # dispatcher) on the same closures
+    rt1 = LineageRuntime(device=dev)
+    script1 = PreparedScript(scoring, [(1, n)], runtime=rt1)
+    preds1: list = [None] * requests
+    lat1 = np.zeros(requests)
+    with _depth(1):
+        with ModelServer(script1, max_batch=16, max_wait_us=2000.0) as srv1:
+            def client1(c):
+                for i in range(c, requests, clients):
+                    t = time.perf_counter()
+                    preds1[i] = srv1.score(rows[requests + i], timeout=60.0)
+                    lat1[i] = time.perf_counter() - t
+            threads = [threading.Thread(target=client1, args=(c,))
+                       for c in range(clients)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300.0)
+            conc1_s = time.perf_counter() - t0
+            pipelined1 = srv1._pipelined
+    ms1 = 1e3 * lat1
+    depth_bitwise = all(np.array_equal(a, b) for i in range(requests)
+                        for a, b in zip(preds1[i], preds[requests + i],
+                                        strict=True))
+    prow = dict(phase="pipeline", path="serve_plan", clients=clients,
+                requests=requests, rebatches=rebatches,
+                retraces=log["retraces"] + rt1.stats.serving.retraces,
+                bitwise_across_depths=depth_bitwise,
+                depth2=dict(p50_ms=float(np.percentile(ms[requests:], 50)),
+                            p99_ms=float(np.percentile(ms[requests:], 99)),
+                            requests_per_s=requests / conc_s,
+                            mean_coalesce=conc_log["mean_coalesce"]),
+                depth1=dict(p50_ms=float(np.percentile(ms1, 50)),
+                            p99_ms=float(np.percentile(ms1, 99)),
+                            requests_per_s=requests / conc1_s,
+                            mean_coalesce=rt1.stats.serving.requests
+                            / max(rt1.stats.serving.batches, 1)))
+    emit(prow)
+    if not (rebatches > 0 and depth_bitwise and prow["retraces"] == 0
+            and not pipelined1):
+        raise AssertionError(f"serve_plan across depths failed: {prow}")
     row = dict(phase="serve_plan", shape=[m, n], train_s=train_s,
                train_buckets=buckets, launches=launches, deploy_s=deploy_s, server=explain,
                warm_buckets=[2, 4, 8, 16], pinned=pinned,
@@ -3505,7 +3915,10 @@ def main() -> int:
     batched_rows = phase_batched_kernels(peaks)
     phase_quickstart()
     launches = phase_lmds()
+    pipe_launches = phase_pipeline()
     phase_steplm()
+    fed_launches = phase_federated()
+    _LMDS_POINT.clear()
     sparse_launches = phase_sparse_lm()
     algo_launches = phase_algorithms()
     phase_cleaning()
@@ -3535,7 +3948,9 @@ def main() -> int:
                 cv_vmap=cv_launches[kind],
                 lifecycle_pipeline=life_launches[kind],
                 csv_stream=csv_launches[kind],
-                serve_plan_train=plan_launches[kind]),
+                serve_plan_train=plan_launches[kind],
+                **{p: v[kind] for p, v in pipe_launches.items()},
+                **{p: v[kind] for p, v in fed_launches.items()}),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             device_ms=r["device_ms"], host_us=r["host_us"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -3570,6 +3985,7 @@ def main() -> int:
           "spmm": (100_000, 2000)}
     shapes = {"sparse_lmds": (100_000, 1000), "sparse_lmcg": (100_000, 2000),
               "sparse_stream": (32_768, 1000),
+              "sparse_stream_depth1": (32_768, 1000),
               "sparse_grid_vmap": (100_000, 1000)}
     for kind, line in (("gram_bs", 63), ("spmm", 112), ("xtv_bs", 158)):
         r = sparse_rows[(kind, *at[kind])]
@@ -3588,7 +4004,7 @@ def main() -> int:
                 r = sparse_grid["folds"]["spmm"]
                 dev = r["ms"] if r["device_ms"] is None else r["device_ms"]
                 return k * (dev - r["bound_ms"])
-            if path != "sparse_stream":
+            if path not in ("sparse_stream", "sparse_stream_depth1"):
                 return k * over(*shapes[path])
             return (k - 1) * over(*shapes[path]) + over(6784, 1000)
         kernels.append(dict(

@@ -8,6 +8,8 @@ from .batching import (BatchedPlan, BatchingError,  # noqa: F401
                        compile_batched)
 from .compiler import Plan, compile_plan  # noqa: F401
 from .dag import LTensor, batch_input, input_tensor  # noqa: F401
+from .federated import (FederatedTensor, LocalSite,  # noqa: F401
+                        federated_input)
 from .jit_cache import clear_jit_cache, get_jit_cache  # noqa: F401
 from .reuse import ReuseCache  # noqa: F401
 from .runtime import (LineageRuntime, PreparedScript, evaluate,  # noqa: F401

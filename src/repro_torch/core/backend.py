@@ -251,7 +251,8 @@ def to_numpy(x) -> np.ndarray:
 
 def synchronize(device: torch.device) -> None:
     """Wait for the device's current stream (a no-op on the CPU): the
-    synchronous lane's equivalent of the reference's block_until_ready."""
+    equivalent of the reference's block_until_ready, taken after every
+    dispatch at pipeline depth 1 and at host reads at depth >= 2."""
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
 
@@ -435,10 +436,25 @@ CHUNK_BASE_OPS: dict[str, Optional[str]] = {
     "chunk_colsums": "colSums", "chunk_sum": "sum", COMBINE_OP: None,
 }
 
+# Federated instructions (SystemDS §3.3): generated by the compiler's
+# placement pass (`repro_torch.core.compiler.lower_federated`), executed
+# by the runtime's federated executor — per-site local work runs as
+# cached closures through `federated.LocalSite.execute`, only aggregates
+# cross the exchange boundary. They have no entry in the kernel
+# registry: the master-side orchestration (site loop + exchange
+# metering) is host python.
+FED_OPS: frozenset[str] = frozenset({
+    "fed_gram", "fed_xtv", "fed_mv", "fed_vm", "fed_colsums", "fed_map",
+})
+# `collect` is the explicit, cost-modeled federation boundary: it
+# materializes a federated value at the master (full partition bytes
+# exchanged) so non-lowerable consumers can run locally.
+COLLECT_OP = "collect"
+
 # Ops the segmenter isolates and the runtime executes eagerly on the host
-# path: `quantile` (sort-based order statistics in numpy). The reference
-# also lists its federated ops here; they are not ported yet.
-NON_TRACEABLE_OPS: frozenset[str] = frozenset({"quantile"})
+# path: the federated orchestration (`fed_*`, `collect`) and `quantile`
+# (sort-based order statistics in numpy).
+NON_TRACEABLE_OPS: frozenset[str] = FED_OPS | {COLLECT_OP, "quantile"}
 
 
 # Sparse kernel variants, keyed by (op, input format tuple) and mapping

@@ -74,7 +74,7 @@ def merge_roots(roots_list: Sequence[Sequence[Node]]
         of the k draws
 
     Any other divergence (different op/attrs/shape, unstackable
-    bindings) raises `BatchingError`.
+    bindings such as `FederatedTensor` leaves) raises `BatchingError`.
 
     Returns (template_roots, batched_leaf_uids, k).
     """
@@ -373,17 +373,26 @@ def compile_serving(fn, arg_shapes: Sequence[tuple], arg_dtypes=None,
 # Cost-model arbitration: vmapped batch vs sequential-reuse loop
 # ---------------------------------------------------------------------------
 
+# fed_* instructions (and the collect boundary) with a batched
+# execution path in the runtime: batched local operands travel as one
+# stacked exchange per site instead of k round trips, and batched
+# fed_map outputs carry the stacked (k, rows_i, c) site layout that the
+# other instructions' vmapped site work consumes.
+BATCHABLE_FED_OPS = frozenset({"fed_mv", "fed_xtv", "fed_vm", "fed_map",
+                               "fed_gram", "fed_colsums", "collect"})
+
+
 def choose_mode(bplan: BatchedPlan,
                 roots_list: Sequence[Sequence[Node]],
                 reuse_active: bool,
                 sparse_inputs: bool = False) -> str:
     """Pick 'vmap' or 'sequential' for a batched plan.
 
-    Feasibility gate first: a BCOO format assigned to a config-variant
-    value has no vmap path (sparse batch axes are unsupported — the
-    invariant prefix may stay sparse). (The reference also sends a
-    config-variant federated instruction outside its batchable set
-    sequential; the port compiles no federated instruction.)
+    Feasibility gates first (no vmap path exists):
+      * a config-variant federated/host instruction outside the
+        batchable set;
+      * a BCOO format assigned to a config-variant value (sparse batch
+        axes are unsupported — the invariant prefix may stay sparse).
 
     Then the cost gate: estimated vmapped cost (launch constants paid
     once, roofline work × bucket, padding waste included) vs the
@@ -400,6 +409,11 @@ def choose_mode(bplan: BatchedPlan,
         return "sequential"  # nothing varies — plain loop, full reuse
     var_ins = [i for i in plan.instructions if i.out_id in variant]
     inv_ins = [i for i in plan.instructions if i.out_id not in variant]
+    for ins in var_ins:
+        op = ins.node.op
+        if (op.startswith("fed_") or op == "collect") \
+                and op not in BATCHABLE_FED_OPS:
+            return "sequential"
     fmts = plan.formats_for(sparse_inputs)
     if any(u in fmts for u in bplan.batched_value_uids):
         return "sequential"

@@ -1,9 +1,9 @@
 """Plan compiler: HOP DAG -> ordered runtime instructions (SystemDS §3.2).
 
-Port of `repro.core.compiler` for the local and chunked lanes: rewrites
-+ size propagation happen on the DAG, memory estimates pick an
-execution target per instruction, and the result is a topologically
-ordered instruction sequence executed by
+Port of `repro.core.compiler` for the local, federated and chunked
+lanes: rewrites + size propagation happen on the DAG, memory estimates
+pick an execution target per instruction, and the result is a
+topologically ordered instruction sequence executed by
 `repro_torch.core.runtime.LineageRuntime`. The passes, their order and
 their cost gates are the reference's, so both packages compile
 identical instruction streams (modulo node uids) and identical
@@ -17,15 +17,20 @@ Compile-time physical decisions:
   * probe-point selection (`Instruction.probe`) — only intermediates
     whose estimated cost clears the reuse cache's worth-keeping
     threshold become lineage-reuse probe points;
+  * placement assignment (`lower_federated`) — placement propagates from
+    federated input leaves; eligible patterns (gram, xtv, mv, vm,
+    colSums/colMeans, row-preserving elementwise/structural ops) lower
+    to `fed_*` instructions when the exchange-aware cost model says
+    federation beats collecting, with explicit `collect` boundaries
+    otherwise;
   * chunked placement (`lower_chunked`) — row-partitionable reductions
     over leaves exceeding `costmodel.CHUNK_MEM_BUDGET` lower to
     streaming partial aggregates (`chunk_gram`, `chunk_xtv`,
     `chunk_colsums`, `chunk_sum`) closed by an explicit `combine`
     boundary.
 
-Federated leaves and meshes with a `data` axis > 1 (the reference's
-`lower_federated` / `lower_distributed`) are refused with
-`NotImplementedError` — never silently compiled as local.
+A mesh with a `data` axis > 1 (the reference's `lower_distributed`) is
+refused with `NotImplementedError` — never silently compiled as local.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ class Instruction:
     node: Node
     out_id: int
     input_ids: tuple[int, ...]
-    target: str  # 'local' | 'distributed' | 'chunked'
+    target: str  # 'local' | 'distributed' | 'federated' | 'chunked'
     last_use_of: tuple[int, ...] = ()  # uids freed after this instruction
     probe: bool = False   # lineage-reuse probe point (cost-gated)
     est_cost_s: float = 0.0  # compile-time cost estimate behind `probe`
@@ -102,6 +107,8 @@ class Plan:
         fmts = fmts or {}
 
         def ref(uid: int, node: Optional[Node] = None) -> str:
+            if node is not None and node.placement == "federated":
+                return f"%{uid}:fed"  # value lives row-partitioned on sites
             if node is not None and node.placement == "chunked":
                 return f"%{uid}:chunk"  # streamed one row bucket at a time
             f = fmts.get(uid, "dense")
@@ -113,8 +120,12 @@ class Plan:
                  if k not in ("index", "iattrs", "sin")}
         fmt = fmts.get(ins.out_id, "dense")
         tags = f" fmt={fmt}" if fmt != "dense" else ""
+        if ins.node.placement == "federated":
+            tags += " fed"
         if ins.node.placement == "chunked":
             tags += " chunked"
+        if ins.node.op == "collect":
+            tags += " [collect-boundary]"
         if ins.node.op == "combine":
             tags += " [combine-boundary]"
         if reuse_active and ins.probe:
@@ -128,8 +139,10 @@ class Plan:
                 reuse_active: Optional[bool] = None,
                 sparse: bool = False) -> str:
         """EXPLAIN-style plan dump (SystemDS -explain) with segment
-        annotations, physical formats and reuse-probe boundaries — the
-        same text the reference prints for the same plan (modulo uids).
+        annotations, physical formats, federated placement (`[F]`
+        targets, `:fed` values, `[collect-boundary]`) and reuse-probe
+        boundaries — the same text the reference prints for the same plan
+        (modulo uids).
         `reuse_active` defaults to the flag the plan was compiled with."""
         if reuse_active is None:
             reuse_active = self.reuse_enabled
@@ -178,20 +191,202 @@ def assign_formats(plan: "Plan", sparse: bool) -> dict[int, str]:
     return fmt
 
 
-def _refuse_unported_placements(roots: list[Node], mesh) -> None:
-    """Raise for the placements whose passes are not ported yet, instead
-    of compiling their leaves as local values."""
+def _refuse_mesh(mesh) -> None:
+    """Raise for a mesh with a `data` axis: sharded placement
+    (`lower_distributed`) is not ported yet, and its leaves must not be
+    compiled as local values."""
     if mesh is not None and getattr(mesh, "data", 1) > 1:
         raise NotImplementedError(
             f"mesh with data={mesh.data}: sharded placement "
             "(lower_distributed) is not ported yet (ROADMAP Queue 1 "
             "item 12)")
-    for n in topo_order(roots):
-        if n.placement != "local":
-            raise NotImplementedError(
-                f"{n!r} has placement {n.placement!r}: federated placement "
-                "(lower_federated) is not ported yet (ROADMAP Queue 1 "
-                "item 8)")
+
+
+# ---------------------------------------------------------------------------
+# Placement assignment (SystemDS §3.3/§4.3): federated as a compiler
+# placement alongside local | distributed
+# ---------------------------------------------------------------------------
+
+# Elementwise / structural HOPs whose output keeps the row partitioning
+# of their federated operand(s): they lower to `fed_map` (per-site
+# execution, no aggregate exchange). `slice` qualifies only for full-row
+# column slices; `cbind` only along axis 1 with row-aligned operands.
+_FED_MAP_OPS = (ELEMENTWISE_BINARY | ELEMENTWISE_UNARY
+                | {"replace_nan", "where", "slice", "cbind"})
+
+
+def _site_count(n: Node, nsites: dict[int, int]) -> int:
+    return int(nsites.get(n.uid, n.attr("n_sites", 1) or 1))
+
+
+def lower_federated(roots: list[Node]) -> list[Node]:
+    """Placement-assignment pass: propagate `placement='federated'` from
+    federated input leaves over the DAG and lower eligible patterns into
+    `fed_*` instructions; insert explicit, cost-modeled `collect`
+    boundaries everywhere else.
+
+    Runs after the algebraic rewrites — so `t(X) @ X` over a federated X
+    has already been fused to `gram(X)` and lowers to `fed_gram`, the
+    paper's Example 2 (fed instructions are *generated by the
+    optimizer*, never hand-written). Each candidate lowering is gated by
+    the cost model: the federated form (per-site compute + aggregate
+    exchange) must beat collecting the operand and running locally
+    (`costmodel.fed_cost_s` vs `costmodel.collect_cost_s`), so placement
+    decisions are cost-based, not syntactic. A `collect` inserted for
+    one consumer is shared by all of them.
+    """
+    # fast path: no federated leaves anywhere -> nothing to do
+    seen: set[int] = set()
+    stack = list(roots)
+    has_fed = False
+    while stack and not has_fed:
+        n = stack.pop()
+        if n.uid in seen:
+            continue
+        seen.add(n.uid)
+        has_fed = n.placement == "federated"
+        stack.extend(n.inputs)
+    if not has_fed:
+        return roots
+
+    memo: dict[int, Node] = {}
+    nsites: dict[int, int] = {}     # uid of federated value -> site count
+    collected: dict[int, Node] = {}  # shared collect boundaries
+
+    def is_fed(x: Node) -> bool:
+        return x.placement == "federated"
+
+    def collect_of(x: Node) -> Node:
+        got = collected.get(x.uid)
+        if got is None:
+            got = make_node("collect", (x,), x.shape, x.dtype, x.sparsity,
+                            n_sites=_site_count(x, nsites))
+            collected[x.uid] = got
+        return got
+
+    def shared_sites(fed_inputs: list[Node]) -> Optional[int]:
+        counts = {_site_count(x, nsites) for x in fed_inputs}
+        return counts.pop() if len(counts) == 1 else None
+
+    def try_lower(n: Node, ins: tuple[Node, ...]
+                  ) -> Optional[tuple[Node, Node]]:
+        """Return (replacement node, fed core used for the cost gate),
+        or None when no federated lowering exists for this pattern."""
+        op = n.op
+        feds = [x for x in ins if is_fed(x)]
+        sites = shared_sites(feds)
+        if sites is None:  # partitionings disagree -> no joint lowering
+            return None
+        if op == "gram" and is_fed(ins[0]):
+            core = make_node("fed_gram", ins, n.shape, n.dtype, n.sparsity,
+                             n_sites=sites)
+            return core, core
+        if op == "xtv":
+            fed_args = tuple(i for i, x in enumerate(ins) if is_fed(x))
+            # v^T X (the vm pattern) when only the second operand is
+            # federated; X^T v (xtv) otherwise — one runtime executor,
+            # two instruction names so EXPLAIN reads like the paper's
+            fed_op = "fed_vm" if fed_args == (1,) else "fed_xtv"
+            core = make_node(fed_op, ins, n.shape, n.dtype, n.sparsity,
+                             n_sites=sites, fed_args=fed_args)
+            return core, core
+        if op == "matmul" and is_fed(ins[0]) and not is_fed(ins[1]):
+            core = make_node("fed_mv", ins, n.shape, n.dtype, n.sparsity,
+                             n_sites=sites)
+            return core, core
+        if op in ("colSums", "colMeans") and is_fed(ins[0]):
+            cs = make_node("fed_colsums", ins, (1, n.shape[-1]), n.dtype,
+                           1.0, n_sites=sites)
+            if op == "colSums":
+                return cs, cs
+            inv_m = make_node("literal", (), (), n.dtype, 1.0,
+                              value=1.0 / ins[0].shape[0])
+            return (make_node("mul", (cs, inv_m), n.shape, n.dtype, 1.0),
+                    cs)
+        if op in _FED_MAP_OPS:
+            return _lower_fed_map(n, ins, sites)
+        return None
+
+    def _lower_fed_map(n: Node, ins: tuple[Node, ...], sites: int
+                       ) -> Optional[tuple[Node, Node]]:
+        m = next(x for x in ins if is_fed(x)).shape[0]
+        if len(n.shape) != 2 or n.shape[0] != m:
+            return None  # output must keep the row partitioning
+        if n.op == "slice":
+            idx = n.attr("index")
+            if not idx or idx[0] != (0, m, 0):
+                return None  # only full-row column slices stay federated
+        if n.op == "cbind" and n.attr("axis") != 1:
+            return None
+        new_inputs: list[Node] = []
+        fed_args: list[int] = []
+        gen_args: list[tuple[int, float, int, str]] = []
+        for pos, x in enumerate(ins):
+            if is_fed(x):
+                fed_args.append(pos)
+                new_inputs.append(x)
+            elif x.op == "full" and len(x.shape) == 2 and x.shape[0] == m:
+                # row-aligned generator: produced per-site, never sent
+                # (matches the eager intercept idiom of appending a ones
+                # column at each site); dtype travels along so an f32
+                # plan is not silently promoted by an f64 default
+                gen_args.append((pos, float(x.attr("value")), x.shape[1],
+                                 str(x.dtype)))
+            elif x.shape == () or (len(x.shape) == 2
+                                   and x.shape[0] in (1, m)):
+                new_inputs.append(x)  # scalar / broadcast row / aligned
+            else:
+                return None
+        iattrs = tuple(kv for kv in n.attrs)
+        core = make_node("fed_map", tuple(new_inputs), n.shape, n.dtype,
+                         n.sparsity, placement="federated", inner=n.op,
+                         iattrs=iattrs, n_args=len(ins),
+                         n_sites=sites, fed_args=tuple(fed_args),
+                         gen_args=tuple(gen_args))
+        return core, core
+
+    def rec(n: Node) -> Node:
+        got = memo.get(n.uid)
+        if got is not None:
+            return got
+        if not n.inputs:
+            if is_fed(n):
+                nsites[n.uid] = _site_count(n, nsites)
+            memo[n.uid] = n
+            return n
+        ins = tuple(rec(i) for i in n.inputs)
+        fed_inputs = [x for x in ins if is_fed(x)]
+        if not fed_inputs:
+            if all(a is b for a, b in zip(ins, n.inputs)):
+                out = n
+            else:
+                out = Node(op=n.op, inputs=ins, attrs=n.attrs, shape=n.shape,
+                           dtype=n.dtype, sparsity=n.sparsity)
+            memo[n.uid] = out
+            return out
+        cand = try_lower(n, ins)
+        if cand is not None:
+            out, core = cand
+            # cost gate: federated execution vs collect-then-local
+            collect_s = sum(
+                0.0 if x.uid in collected else
+                costmodel.collect_cost_s(x, _site_count(x, nsites))
+                for x in fed_inputs) + costmodel.est_cost_s(n)
+            if costmodel.est_cost_s(core) <= collect_s:
+                if is_fed(out):
+                    nsites[out.uid] = _site_count(core, nsites)
+                memo[n.uid] = out
+                return out
+        # fallback: explicit collect boundary, then the op runs locally
+        loc = tuple(collect_of(x) if is_fed(x) else x for x in ins)
+        out = Node(op=n.op, inputs=loc, attrs=n.attrs, shape=n.shape,
+                   dtype=n.dtype, sparsity=n.sparsity)
+        memo[n.uid] = out
+        return out
+
+    new_roots = [rec(r) for r in roots]
+    # plan outputs must be local: materialize federated roots
+    return [collect_of(r) if is_fed(r) else r for r in new_roots]
 
 
 # ---------------------------------------------------------------------------
@@ -485,9 +680,13 @@ def compile_plan(outputs: list[LTensor], *, reuse_enabled: bool = False,
     roots = [o.node for o in outputs]
     roots = run_rewrites(roots, reuse_enabled=reuse_enabled,
                          opt_level=opt_level)
-    # where the reference runs lower_federated / lower_distributed
-    _refuse_unported_placements(roots, mesh)
-    # out-of-core streaming: its budget gate keeps it inert for
+    # placement assignment runs after the rewrites so fused patterns
+    # (t(X)@X -> gram) are visible to the federated lowering
+    roots = lower_federated(roots)
+    # where the reference runs lower_distributed
+    _refuse_mesh(mesh)
+    # out-of-core streaming runs last: it only touches leaves the
+    # federated pass left local, and its budget gate keeps it inert for
     # in-memory plans
     roots, chunk_sliced = lower_chunked(roots)
     order = topo_order(roots)
@@ -515,7 +714,9 @@ def compile_plan(outputs: list[LTensor], *, reuse_enabled: bool = False,
         if n.op == "input":
             continue
         op_bytes = n.est_bytes() + sum(i.est_bytes() for i in n.inputs)
-        if _chunk_exec(n):
+        if n.op == "collect" or n.op.startswith("fed_"):
+            target = "federated"
+        elif _chunk_exec(n):
             target = "chunked"  # streaming lane (budget-lowered)
         else:
             target = "distributed" if op_bytes > local_budget else "local"

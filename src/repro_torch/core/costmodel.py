@@ -16,20 +16,22 @@ metadata alone, *before* anything runs. Consumers:
   * serving — `coalesce_wait_s` prices the coalescer's window
     (`repro_torch.serving.ModelServer`);
   * fault policy — `max_retries` / `retry_backoff_s` bound the chunk-IO
-    retry ladder (`repro_torch.data.csv_io`).
+    and site-RPC retry ladders, `fed_timeout_s` the per-site timeout;
+  * federated placement — `fed_cost_s` / `collect_cost_s` gate each
+    `fed_*` lowering against collecting its operand
+    (`repro_torch.core.compiler.lower_federated`);
+  * the asynchronous pipeline — `pipeline_depth` (auto = 2, as in the
+    reference) and `prefetch_depth` set how far the runtime runs ahead
+    of the device.
 
 Port of `repro.core.costmodel` for the lanes this package runs (local,
-chunked, the batched parfor lane, serving and the fault policy). The
-constants, environment names and formulas are the reference's,
-unchanged, so both packages compile identical plans, choose the same
-parfor mode and hold a request for the same window; they are NOT tuned
-for the GPU. The federated and sharded sections of the reference
-(`fed_timeout_s` and `config_shard_cost_s` included) come with those
-lanes.
-
-One deliberate difference: `pipeline_depth()` resolves to 1 (the
-synchronous lane, the only one ported) and refuses an explicit
-``REPRO_PIPELINE_DEPTH >= 2``.
+chunked, federated, the batched parfor lane, serving, the pipeline and
+the fault policy). The constants, environment names and formulas are
+the reference's, unchanged, so both packages compile identical plans,
+choose the same parfor mode, resolve the same pipeline depth and hold a
+request for the same window; they are NOT tuned for the GPU. The
+sharded section of the reference (`config_shard_cost_s` included) comes
+with that lane.
 """
 from __future__ import annotations
 
@@ -55,6 +57,14 @@ LIGHT_OP_BASE_S = 1e-6
 HEAVY_OPS = frozenset({
     "matmul", "gram", "xtv", "solve", "cholesky", "inv",
 })
+
+# Federated placement calibration: effective master<->site link
+# bandwidth and per-site round-trip latency. Deliberately below local
+# memory bandwidth — moving bytes across the federation boundary is the
+# dominant cost the placement pass must weigh (§3.3 "exchange
+# constraints"), so collect decisions are cost-based, not syntactic.
+NET_BW = 1e9          # bytes/s across the exchange boundary
+FED_TRIP_S = 50e-6    # per-site round-trip launch latency
 
 # An intermediate becomes a lineage-reuse probe point when its estimated
 # cost clears the cache's own worth-keeping threshold.
@@ -125,6 +135,8 @@ def node_bytes(n: Node) -> float:
 
 def est_cost_s(n: Node) -> float:
     """Estimated wall-clock seconds to execute one HOP standalone."""
+    if n.op == "collect" or n.op.startswith("fed_"):
+        return fed_cost_s(n)
     if n.op.startswith("chunk_") or n.op == "combine":
         return chunk_cost_s(n)
     base = HEAVY_OP_BASE_S if n.op in HEAVY_OPS else LIGHT_OP_BASE_S
@@ -133,6 +145,85 @@ def est_cost_s(n: Node) -> float:
 
 def _dense_bytes(n: Node) -> float:
     return float(_numel(n.shape)) * np.dtype(n.dtype).itemsize
+
+
+# ---------------------------------------------------------------------------
+# Federated placement costs (§3.3): exchange bytes as a first-class term
+# ---------------------------------------------------------------------------
+
+def fed_exchange_bytes(n: Node) -> tuple[float, float]:
+    """(bytes master->sites, bytes sites->master) for one `fed_*` /
+    `collect` instruction — the compile-time estimate of what the
+    runtime's `ExchangeLog` will meter."""
+    sites = int(n.attr("n_sites", 1) or 1)
+    op = n.op
+    out_b = _dense_bytes(n)
+    if op == "collect":
+        return 0.0, _dense_bytes(n.inputs[0])
+    if op == "fed_gram":
+        return 0.0, sites * out_b
+    if op in ("fed_xtv", "fed_vm"):
+        fed_args = set(n.attr("fed_args", (0,)))
+        sent = sum(_dense_bytes(i) for pos, i in enumerate(n.inputs)
+                   if pos not in fed_args)  # row-aligned operands, sliced
+        return sent, sites * out_b
+    if op == "fed_mv":
+        w = n.inputs[1]
+        return sites * _dense_bytes(w), out_b  # broadcast w, rbind result
+    if op == "fed_colsums":
+        return 0.0, sites * out_b
+    if op == "fed_map":
+        # fed_args/gen_args index the *inner argument list*; n.inputs is
+        # that list with generated operands removed — walk the inner
+        # positions and advance through inputs exactly like the runtime
+        # executor does, so this estimate matches what ExchangeLog meters
+        fed_args = set(n.attr("fed_args", ()))
+        gens = {g[0] for g in n.attr("gen_args", ())}
+        sent = 0.0
+        inputs = iter(n.inputs)
+        for pos in range(int(n.attr("n_args", len(n.inputs)))):
+            if pos in gens:
+                continue  # generated on site — never sent
+            i = next(inputs)
+            if pos in fed_args or i.shape == ():
+                continue  # on-site already / scalar constant
+            b = _dense_bytes(i)
+            sent += sites * b if i.shape[0] == 1 else b  # broadcast : slice
+        return sent, 0.0  # output stays federated — nothing comes back
+    return 0.0, 0.0
+
+
+def _fed_flops(n: Node) -> float:
+    """Total across sites of the per-site local work."""
+    op = n.op
+    out = _numel(n.shape)
+    if op == "fed_gram":
+        return 2.0 * out * n.inputs[0].shape[0]
+    if op in ("fed_xtv", "fed_vm"):
+        m = max(i.shape[0] for i in n.inputs)
+        return 2.0 * out * m
+    if op == "fed_mv":
+        return 2.0 * out * n.inputs[0].shape[1]
+    if op in ("fed_colsums", "fed_map"):
+        return float(max((_numel(i.shape) for i in n.inputs), default=out))
+    return 0.0  # collect: pure data movement
+
+
+def fed_cost_s(n: Node) -> float:
+    """Estimated seconds for a federated instruction: per-site launch
+    round trips + exchange bytes over the federation link + the per-site
+    local compute (sites work in parallel)."""
+    sites = int(n.attr("n_sites", 1) or 1)
+    to_b, from_b = fed_exchange_bytes(n)
+    compute = _fed_flops(n) / sites / PEAK_FLOPS
+    return sites * FED_TRIP_S + (to_b + from_b) / NET_BW + compute
+
+
+def collect_cost_s(fed_value: Node, n_sites: int) -> float:
+    """Cost of materializing a federated value at the master — the
+    explicit boundary the placement pass inserts for non-lowerable
+    consumers, and the baseline every `fed_*` lowering must beat."""
+    return n_sites * FED_TRIP_S + _dense_bytes(fed_value) / NET_BW
 
 
 # ---------------------------------------------------------------------------
@@ -257,18 +348,86 @@ def coalesce_wait_s(invariant: list[Node], variant: list[Node],
 
 
 # ---------------------------------------------------------------------------
-# Fault policy: bounded exponential backoff for the retry ladders (chunk
-# IO here; site RPCs with the federated lane)
+# Asynchronous pipelined dispatch: how deep the runtime may run ahead of
+# the device
 # ---------------------------------------------------------------------------
+
+# Spawning/joining a prefetch worker and keeping a second bucket live
+# costs roughly one chunk dispatch of control-program overhead; below
+# that, pipelining is pure tax.
+PIPELINE_MIN_GAIN_S = CHUNK_DISPATCH_S
+
+
+def pipeline_depth() -> int:
+    """Resolved async-dispatch depth for the runtime's segment executor.
+
+    ``REPRO_PIPELINE_DEPTH`` is the deployment surface: ``1`` forces the
+    fully synchronous lane (every dispatch waits for the device),
+    ``>=2`` forces async dispatch with that much chunk-prefetch
+    lookahead. Unset/0 means auto, which resolves to 2, as in the
+    reference: deferring the device sync to plan roots costs nothing in
+    the worst case, so only an explicit operator override pins the
+    runtime to the blocking path.
+
+    Read per plan run, not at import, so one process can compare both
+    modes."""
+    env = int(os.environ.get("REPRO_PIPELINE_DEPTH", "0") or 0)
+    if env >= 1:
+        return env
+    return 2
+
+
+def pipeline_gain_s(row_bytes: float) -> float:
+    """Estimated host-prep seconds per streaming bucket that depth>=2
+    prefetch can overlap with device compute: slicing + block-checksum
+    traffic of one bucket at memory bandwidth (the prep is bandwidth-
+    bound — two passes over the slice payload)."""
+    return 2.0 * chunk_rows(row_bytes) * max(row_bytes, 1.0) / PEAK_BW
+
+
+def prefetch_depth(row_bytes: float, n_chunks: int) -> int:
+    """Chunk-prefetch lookahead for one streaming scope.
+
+    An explicit ``REPRO_PIPELINE_DEPTH`` wins (capped at the chunk
+    count). In auto mode the gate is economic: prefetch only when there
+    is more than one bucket AND the overlappable host prep per bucket
+    clears the control-program cost of running the worker at all
+    (`PIPELINE_MIN_GAIN_S`). Depth 1 is always the fallback and means
+    the exact synchronous loop."""
+    env = int(os.environ.get("REPRO_PIPELINE_DEPTH", "0") or 0)
+    if env >= 1:
+        return max(1, min(env, n_chunks))
+    if n_chunks < 2 or pipeline_gain_s(row_bytes) <= PIPELINE_MIN_GAIN_S:
+        return 1
+    return min(2, n_chunks)
+
+
+# ---------------------------------------------------------------------------
+# Fault policy: per-site timeouts + bounded exponential backoff for the
+# retry ladders (chunk IO, site RPCs)
+# ---------------------------------------------------------------------------
+
+# Per-site RPC timeout. Generous by default — a first call includes the
+# per-site closure build, and a clean run must never trip the ladder.
+# In-process sites cannot be preempted, so the timeout binds at the
+# attempt boundary: a late result is discarded, counted, and the call
+# retried.
+FED_TIMEOUT_S = 30.0
 
 # Exponential-backoff base: sleep RETRY_BASE_S * 2^(attempt-1) before
 # re-attempt k. Small — the local transport has no congestion to yield
 # to; real deployments raise it via env.
 RETRY_BASE_S = 0.01
 
-# Bounded retries per IO read (re-attempts after the first try).
-# Exhaustion hands over to the degradation ladder.
+# Bounded retries per site call / IO read (re-attempts after the first
+# try). Exhaustion hands over to the degradation ladder.
 MAX_RETRIES = 2
+
+
+def fed_timeout_s() -> float:
+    """Per-site RPC timeout (env ``REPRO_FED_TIMEOUT_S``), read per
+    call like the pipeline knobs so one process can compare policies."""
+    return float(os.environ.get("REPRO_FED_TIMEOUT_S", FED_TIMEOUT_S))
 
 
 def retry_base_s() -> float:
@@ -283,23 +442,6 @@ def retry_backoff_s(attempt: int) -> float:
     """Backoff before re-attempt `attempt` (1-based): exponential in
     the attempt number, bounded by the caller's `max_retries` loop."""
     return retry_base_s() * (2.0 ** max(attempt - 1, 0))
-
-
-def pipeline_depth() -> int:
-    """Resolved dispatch depth for the runtime's segment executor.
-
-    Only the synchronous lane (depth 1) is ported, so unset/0/1 all
-    resolve to 1 — what the reference runs at ``REPRO_PIPELINE_DEPTH=1``.
-    An explicit request for the asynchronous lane raises instead of
-    being silently ignored. Read per plan run, like the reference."""
-    env = int(os.environ.get("REPRO_PIPELINE_DEPTH", "0") or 0)
-    if env >= 2:
-        raise NotImplementedError(
-            f"REPRO_PIPELINE_DEPTH={env}: the asynchronous pipelined lane "
-            "(the streaming prefetch worker and the serving completion "
-            "worker) is not ported yet (ROADMAP Queue 1 item 10); unset "
-            "it or set it to 1")
-    return 1
 
 
 def should_chunk(n: Node) -> bool:

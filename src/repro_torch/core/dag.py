@@ -59,14 +59,16 @@ class Node:
     shape: tuple[int, ...]
     dtype: Any
     sparsity: float  # estimated nnz / numel in [0, 1]
-    # Where the *value* lives: 'local' (device memory) or 'chunked'
-    # (row-chunked on host, streamed through device memory one bucket
-    # at a time — only partial aggregates are ever resident). The
-    # reference's 'federated' and 'sharded' placements are not ported
-    # yet: the compiler refuses them. Propagated by
-    # `repro_torch.core.compiler.lower_chunked`; deliberately not part
-    # of the lineage hash — placement describes a physical location,
-    # not a value.
+    # Where the *value* lives: 'local' (device memory), 'federated'
+    # (row-partitioned across sites, never materialized at the master)
+    # or 'chunked' (row-chunked on host, streamed through device memory
+    # one bucket at a time — only partial aggregates are ever resident).
+    # Set on federated input leaves at construction and propagated by
+    # the compiler's placement passes (`lower_federated` /
+    # `lower_chunked` in `repro_torch.core.compiler`); the reference's
+    # 'sharded' placement is not ported yet (the compiler refuses a
+    # mesh). Deliberately not part of the lineage hash — placement
+    # describes a physical location, not a value.
     placement: str = "local"
     uid: int = field(default_factory=lambda: next(_counter))
 

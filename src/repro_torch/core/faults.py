@@ -3,10 +3,11 @@
 Port of `repro.core.faults` (which imports no jax): the same spec
 language, the same sha1 draws and the same meters, so one spec fires on
 the same call indices in both packages. The port's instrumented sites
-are `read_csv_chunks` (chunk_io), the closure cache's build (compile)
-and the serving coalescer (serving_dispatch); the federated site kinds
-and the prefetch worker's chunk_io arrive with those lanes (ROADMAP
-Queue 1 items 8 and 10). Specs naming them parse identically.
+are the reference's: `read_csv_chunks` and the streaming prefetch
+worker (chunk_io), the closure cache's build (compile), the serving
+coalescer (serving_dispatch) and `LocalSite.execute` (the site kinds
+site_rpc, site_slow, site_dead and site_lost, healed or degraded by the
+runtime's `_site_call` ladder).
 
 SystemDS targets federated sites, streamed out-of-core data, and a
 serving front door — exactly the places real deployments see timeouts,

@@ -16,8 +16,14 @@ reference, so the same program sequence from a cleared cache counts
 the same hits and misses in both packages. The serving lane pins the
 closures it warms at deploy (`pinning()`), and the fault policy's
 `compile` kind fails a build here (`faults.compile_entry`), as in the
-reference. CUDA-graph capture of the closures waits for a benchmark
-(ROADMAP).
+reference. A donating closure (pipeline depth >= 2,
+`segments.build_segment_fn(donate=...)`) has another calling convention
+than the plain closure of the same body: the runtime keys it apart with
+the reference's `|don:<positions>` suffix on the segment key, so a
+donating closure can never serve a call whose arguments must stay live,
+and the two are built and counted as separate entries, as the
+reference's donated executables are. CUDA-graph capture of the closures
+waits for a benchmark (ROADMAP).
 """
 from __future__ import annotations
 

@@ -39,14 +39,17 @@ def nbytes(value) -> int:
     in the reference.
 
     Tensors are counted first, by their element payload: a tensor also
-    answers to `.data`, which the BCOO branch must not misread. The
-    reference's federated branch is not carried (no federated values
-    yet).
+    answers to `.data`, which the BCOO branch must not misread. A
+    `FederatedTensor` (a federated intermediate the reuse cache holds) is
+    charged its sites' partitions, as in the reference.
     """
     if isinstance(value, torch.Tensor):
         return value.numel() * value.element_size()
     if isinstance(value, (tuple, list)):
         return sum(nbytes(v) for v in value)
+    sites = getattr(value, "sites", None)  # FederatedTensor intermediates
+    if sites is not None:
+        return sum(nbytes(getattr(s, "data", s)) for s in sites)
     data = getattr(value, "data", None)  # BCOO
     indices = getattr(value, "indices", None)
     if data is not None and indices is not None:

@@ -1,6 +1,7 @@
 """Segmentation pass: instruction stream -> maximal fusable segments.
 
-Port of `repro.core.segments` for the local and chunked lanes. The
+Port of `repro.core.segments` for the local, federated and chunked
+lanes. The
 topologically ordered instruction list produced by `compile_plan` is
 partitioned into *segments*, each of which lowers to one closure over
 the `repro_torch.core.backend` kernel registry, cached in
@@ -13,12 +14,13 @@ Segment boundaries are forced by:
     threshold end their segment so the probed value stays observable
     (except in the chunked lane, whose streaming executor probes every
     probe-flagged output itself);
-  * execution-target changes — `local`, `distributed` and `chunked`
-    instructions never share a segment (scalar generators are
+  * execution-target changes — `local`, `distributed`, `federated` and
+    `chunked` instructions never share a segment (scalar generators are
     target-neutral and join either side). A `chunked` segment is run by
     the streaming executor once per row bucket;
   * non-traceable ops — anything in `backend.NON_TRACEABLE_OPS` (the
-    host `quantile`) runs in its own segment, on the host path;
+    `fed_*` / `collect` site orchestration and the host `quantile`) runs
+    in its own segment, on the host path;
   * config-variance flips — for batched plans
     (`repro_torch.core.batching`), instructions whose value carries the
     batch axis (`variant_uids`) never share a segment with
@@ -58,7 +60,8 @@ class Segment:
                                   # (plan outputs + cross-segment uses)
     output_nodes: tuple[Node, ...]
     frees: tuple[int, ...]        # uids dead after this segment
-    target: str                   # 'local' | 'distributed' | 'chunked'
+    target: str                   # 'local' | 'distributed' | 'federated'
+                                  # | 'chunked'
     key: str                      # canonical structural hash
     variant: bool = False         # carries the config batch axis (vmapped)
     chunked: bool = False         # streaming lane: the runtime dispatches
@@ -68,6 +71,19 @@ class Segment:
     @property
     def fused(self) -> bool:
         return len(self.instructions) > 1
+
+    def donatable_positions(self) -> tuple[int, ...]:
+        """Argument positions that are donation *candidates*: inputs
+        whose uid this segment frees — i.e. it is their compile-time
+        last consumer, so after dispatch nothing in the plan can read
+        them again. The structural half of the donation decision; the
+        runtime intersects it with run-time ownership (only tensors
+        produced by segment closures this run and not referenced by the
+        reuse cache may be donated — see
+        `LineageRuntime._donation_mask`)."""
+        dead = set(self.frees)
+        return tuple(i for i, u in enumerate(self.input_uids)
+                     if u in dead)
 
     def summary(self) -> str:
         """One-line human identity of this segment, with its lanes
@@ -202,7 +218,8 @@ def segment_plan(plan: "Plan", reuse_active: bool,
 
 def build_segment_fn(seg: Segment, device: torch.device,
                      formats: Optional[dict[int, str]] = None,
-                     drop_output: Optional[int] = None):
+                     drop_output: Optional[int] = None,
+                     donate: tuple[int, ...] = ()):
     """Lower a segment to one closure over the kernel registry.
 
     The result takes the segment's external inputs positionally (order of
@@ -218,6 +235,14 @@ def build_segment_fn(seg: Segment, device: torch.device,
     hit in a multi-output segment: the given uid (served from the cache)
     is removed from the outputs and every instruction not needed for the
     remaining ones is dead-code eliminated.
+
+    `donate` builds the *donating* variant (pipeline depth >= 2, see
+    `LineageRuntime._donation_mask`): it takes ONE argument, the list of
+    inputs, and clears each donated position of that list right after
+    the step that reads it last, so with the caller's own references
+    dropped the caching allocator can hand the block to a later output
+    of the same segment. The kernels, their order and so the bits are
+    those of the plain closure.
     """
     fmts = formats or {}
     out_uids = tuple(u for u in seg.output_uids if u != drop_output)
@@ -239,14 +264,39 @@ def build_segment_fn(seg: Segment, device: torch.device,
              for ins in instructions]
     in_pos = {uid: i for i, uid in enumerate(seg.input_uids)}
 
-    def run(*args):
+    if not donate:
+        def run(*args):
+            env: dict[int, object] = {}
+            for out_id, input_ids, kern in steps:
+                env[out_id] = kern(*[env[u] if u in env
+                                     else args[in_pos[u]]
+                                     for u in input_ids])
+            return tuple(env[u] for u in out_uids)
+
+        return run
+
+    last_read = {p: -1 for p in donate}
+    for k, (_, input_ids, _) in enumerate(steps):
+        for u in input_ids:
+            p = in_pos.get(u)
+            if p in last_read:
+                last_read[p] = k
+    release: list[list[int]] = [[] for _ in range(len(steps) + 1)]
+    for p, k in last_read.items():
+        release[k + 1].append(p)  # k = -1: never read, released first
+
+    def run_donating(box: list):
+        for p in release[0]:
+            box[p] = None
         env: dict[int, object] = {}
-        for out_id, input_ids, kern in steps:
-            env[out_id] = kern(*[env[u] if u in env else args[in_pos[u]]
+        for k, (out_id, input_ids, kern) in enumerate(steps):
+            env[out_id] = kern(*[env[u] if u in env else box[in_pos[u]]
                                  for u in input_ids])
+            for p in release[k + 1]:
+                box[p] = None
         return tuple(env[u] for u in out_uids)
 
-    return run
+    return run_donating
 
 
 def build_batched_segment_fn(seg: Segment, device: torch.device,

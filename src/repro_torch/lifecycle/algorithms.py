@@ -7,8 +7,9 @@ light control flow stays in the host control program, with the
 reference's host steps (`np.linalg.eigh` for pca, `np.random.default_rng`
 for kmeans' initial centers). Every iteration of kmeans, l2svm and
 mlogreg is one or two `evaluate` calls, each binding (and uploading) X
-anew, as in the reference. (The reference's federated placement of
-these programs waits for the port's federated lane.)
+anew, as in the reference. The programs are placement-neutral: `pca`
+over a `federated_input` X compiles to fed_colsums / fed_map / fed_gram /
+fed_mv instructions, as in the reference.
 """
 from __future__ import annotations
 

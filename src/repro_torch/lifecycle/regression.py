@@ -5,8 +5,15 @@ port's runtime. `steplm` is Example 1: stepwise forward feature
 selection by AIC, whose what-if `lm` calls expose the fine-grained
 redundancy that lineage-based partial reuse eliminates
 (gram(cbind(X_sel, c)) decomposes into a cached gram(X_sel) + fringe).
-The federated wrappers (`lmDS_federated`, `steplm_federated`) wait for
-the federated lane (ROADMAP Queue 1 item 8).
+
+All builtins here are *placement-neutral* (§3.3): pass a
+`federated_input` leaf as X and the same DSL programs compile to
+federated plans — the optimizer lowers `gram`/`xtv` to `fed_gram`/
+`fed_xtv`, per-site work runs as cached closures (one gram and one xtv
+launch per site on the card), and only aggregates cross the exchange
+boundary. `lmDS_federated` / `steplm_federated` are thin wrappers that
+bind a `FederatedTensor` and call the ordinary builtins — there is no
+second federated code path.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import numpy as np
 
 from repro_torch.core import ops
 from repro_torch.core.dag import LTensor, input_tensor
+from repro_torch.core.federated import FederatedTensor, federated_input
 from repro_torch.core.runtime import LineageRuntime, get_runtime
 
 
@@ -74,6 +82,44 @@ def lm(X: LTensor, y: LTensor, reg: float = 1e-7, intercept: bool = False,
     if X.shape[1] <= 1024:
         return lmDS(X, y, reg=reg, intercept=intercept, runtime=runtime)
     return lmCG(X, y, reg=reg, runtime=runtime)
+
+
+def lmDS_federated(fx: FederatedTensor, y, reg: float = 1e-7,
+                   intercept: bool = False,
+                   runtime: Optional[LineageRuntime] = None) -> np.ndarray:
+    """Federated lmDS *through the compiler* (§4.3 Example 2).
+
+    Expressed in the DSL — the identical `lmDS` program over a
+    federated leaf. The placement pass emits `fed_gram`/`fed_xtv`
+    (intercept: the ones column is generated per site by the lowered
+    `fed_map` cbind, exactly like the eager oracle), so exchange bytes
+    match `repro_torch.core.federated.federated_lmds` while per-site
+    work runs on the runtime's kernels and federated intermediates take
+    part in lineage reuse. Exchange is metered in
+    `runtime.stats.exchange`.
+    """
+    X = federated_input("fedX", fx)
+    yt = y if isinstance(y, LTensor) else input_tensor("fedy", np.asarray(y))
+    return lmDS(X, yt, reg=reg, intercept=intercept, runtime=runtime)
+
+
+def steplm_federated(fx: FederatedTensor, y, reg: float = 1e-7,
+                     max_features: Optional[int] = None,
+                     intercept: bool = True,
+                     runtime: Optional[LineageRuntime] = None
+                     ) -> tuple[np.ndarray, list[int]]:
+    """Federated stepwise regression (Example 1 over Example 2's data).
+
+    The ordinary `steplm` DSL program over a federated leaf: candidate
+    columns stay on their sites (`fed_map` slice/cbind), every
+    candidate gram/xtv lowers to `fed_gram`/`fed_xtv`, and with a reuse
+    cache attached the compensation-plan rewrite caches `fed_gram` of
+    the selected block across candidates — federated partial reuse.
+    """
+    X = federated_input("fedX", fx)
+    yt = y if isinstance(y, LTensor) else input_tensor("fedy", np.asarray(y))
+    return steplm(X, yt, reg=reg, max_features=max_features,
+                  intercept=intercept, runtime=runtime)
 
 
 def _aic(n: int, rss: float, k: int) -> float:

@@ -1,11 +1,9 @@
 """ModelServer: adaptive request coalescing onto bucketed vmapped
 closures.
 
-Port of `repro.serving.server` (its single-dispatcher loop; the
-pipelined server, which splits the coalescer into an issue thread and a
-completion thread at pipeline depth >= 2, comes with the async
-pipeline, ROADMAP Queue 1 item 10 — `costmodel.pipeline_depth()`
-refuses that depth).
+Port of `repro.serving.server`: the single-dispatcher loop at pipeline
+depth 1 and, at depth >= 2 (the default, `costmodel.pipeline_depth`),
+the issue/completion split below.
 
 Architecture (one `ModelServer` per deployed `PreparedScript`):
 
@@ -42,13 +40,29 @@ Architecture (one `ModelServer` per deployed `PreparedScript`):
              `RuntimeStats.serving.retraces` — the deploy contract is
              that this stays 0.
 
+Continuous rebatching (pipeline depth >= 2): the coalescer splits into
+an ISSUE stage (the coalescer thread itself — pops a batch, stacks its
+bindings) and a COMPLETION worker (a second thread that replays the
+batch and delivers futures), joined by a 1-deep handoff queue. While the
+worker waits on the device for batch N, the coalescer is already
+admitting arrivals into batch N+1 and stacking it, so a sustained
+open-loop stream never serializes queue-drain behind device compute.
+Batches coalesced while another was in flight are counted in
+`RuntimeStats.pipeline.rebatches`. All runtime execution stays on the
+single completion worker — it enters the device and CUDA stream that
+were current at `deploy` (a new thread would start on the default
+stream), so every kernel and every read-back of a batch runs in that
+stream's order; the coalescer touches only its own queue and
+pure-numpy stacking. At depth 1 the dispatcher replays inline.
+
 A coalesced score is bitwise the same request scored alone
-(`script(x)`): the one-row product `x @ beta` is summed in a fixed order
-whatever the bucket (`core.backend._row_product`).
+(`script(x)`), at either depth: the one-row product `x @ beta` is summed
+in a fixed order whatever the bucket (`core.backend._row_product`).
 """
 from __future__ import annotations
 
 import contextlib
+import queue as _queue
 import threading
 import time
 from collections import deque
@@ -174,6 +188,13 @@ class ModelServer:
         self._deployed = False
         self._warm_misses = 0       # jit-cache miss watermark at deploy
         self._stream = None         # CUDA stream current at deploy
+        # continuous rebatching (pipeline depth >= 2): issue/completion
+        # split — the coalescer hands stacked batches to a single
+        # completion worker through a 1-deep queue and keeps admitting
+        self._pipelined = False
+        self._inflight = 0          # batches issued, not yet delivered
+        self._pending: Optional[_queue.Queue] = None
+        self._worker: Optional[threading.Thread] = None
         # fault policy: the batch popped but not yet handed off/
         # dispatched — the supervisor fails exactly these futures when
         # the coalescer crashes in that window, then restarts in-thread
@@ -187,7 +208,6 @@ class ModelServer:
         after `deploy` returns, the hot path is lookup-only."""
         if self._deployed:
             return self
-        costmodel.pipeline_depth()  # refuses the pipelined server
         self._bplan = self.script.prepare_batched()
         plan = self._bplan.plan
         variant = self._bplan.variant_uids
@@ -214,6 +234,13 @@ class ModelServer:
         dev = self.runtime.device
         if dev.type == "cuda":
             self._stream = torch.cuda.current_stream(dev)
+        self._pipelined = costmodel.pipeline_depth() >= 2
+        if self._pipelined:
+            self._pending = _queue.Queue(maxsize=1)
+            self._worker = threading.Thread(
+                target=self._complete_loop,
+                name="repro-serving-completer", daemon=True)
+            self._worker.start()
         self._thread = threading.Thread(
             target=self._run_dispatcher, name="repro-serving-coalescer",
             daemon=True)
@@ -233,6 +260,14 @@ class ModelServer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._worker is not None:
+            # the coalescer has drained and exited; a sentinel past any
+            # still-queued batch stops the completion worker after it
+            # delivers everything in flight — no dropped batches
+            self._pending.put(None)
+            self._worker.join()
+            self._worker = None
+            self._pending = None
         # a clean coalescer exit drains the queue first, so leftovers
         # exist only when the dispatcher died unrecoverably (policy
         # off) — deliver a terminal error rather than leaving waiters
@@ -324,16 +359,21 @@ class ModelServer:
             self._force = True
             self._cv.notify_all()
             self._cv.wait_for(
-                lambda: (not self._queue and not self._busy)
+                lambda: (not self._queue and not self._busy
+                         and not self._inflight)
                 or (self._stop and self._thread is None))
 
     # -- coalescer -----------------------------------------------------
     def _dispatcher_alive(self) -> bool:
         """True while the dispatch machinery can still deliver queued
         requests (`ScoreFuture.result` polls this instead of hanging
-        on a dead dispatcher)."""
+        on a dead dispatcher): the coalescer thread, plus the
+        completion worker when pipelined."""
         t = self._thread
-        return t is not None and t.is_alive()
+        if t is None or not t.is_alive():
+            return False
+        w = self._worker
+        return w is None or w.is_alive()
 
     def _run_dispatcher(self) -> None:
         """Dispatcher thread target: `_coalesce_loop` under a
@@ -359,7 +399,10 @@ class ModelServer:
                     if batch:
                         # undo the pop-time state so flush()/shutdown
                         # cannot wedge on a batch that will never run
-                        self._busy = False
+                        if self._pipelined:
+                            self._inflight -= 1
+                        else:
+                            self._busy = False
                     self._cv.notify_all()
                 for req in batch or []:
                     if not req.done.is_set():
@@ -374,7 +417,8 @@ class ModelServer:
                 flog.restarts += 1
 
     def _on_device(self):
-        """The dispatcher thread's device and CUDA stream: those current
+        """The replaying thread's device and CUDA stream (the dispatcher
+        at depth 1, the completion worker at depth >= 2): those current
         when `deploy` ran (a new thread would start on the default
         stream of the current device)."""
         if self._stream is None:
@@ -428,28 +472,67 @@ class ModelServer:
                                             self.max_batch))]
                 if not self._queue:
                     self._force = False
-                self._busy = True
+                if self._pipelined:
+                    if self._inflight:
+                        # coalesced while the completion worker still
+                        # had a batch on the device: the continuous-
+                        # rebatching overlap actually happened
+                        self.runtime.stats.pipeline.rebatches += 1
+                    self._inflight += 1
+                else:
+                    self._busy = True
                 # the supervisor's responsibility window opens here:
                 # these futures are off the queue but not yet owned by
                 # a dispatch (which delivers errors itself)
                 self._popped = batch if batch else None
             if batch:
                 faults.dispatch_entry()  # injected coalescer crash
-            try:
-                self._dispatch(batch)
-            finally:
+            if self._pipelined:
+                # issue stage: stack batch N+1's bindings while the
+                # worker replays batch N (the put blocks only when a
+                # stacked batch is already waiting — at most one batch
+                # is ever staged ahead of the device)
+                stacked = stack_requests(
+                    [r.arrays for r in batch],
+                    len(self.script._arg_shapes))
+                self._pending.put((batch, stacked))
                 with self._cv:
-                    self._popped = None
-                    self._busy = False
-                    self._cv.notify_all()
+                    self._popped = None  # the worker owns delivery now
+            else:
+                try:
+                    self._dispatch(batch)
+                finally:
+                    with self._cv:
+                        self._popped = None
+                        self._busy = False
+                        self._cv.notify_all()
 
-    def _dispatch(self, batch: list[ScoreFuture]) -> None:
+    def _complete_loop(self) -> None:
+        """Completion worker (pipeline depth >= 2): replay staged
+        batches and deliver their futures. The ONLY thread that touches
+        the runtime — execution stays single-threaded under
+        rebatching — on the deploy-time device and stream."""
+        with self._on_device():
+            while True:
+                item = self._pending.get()
+                if item is None:
+                    return
+                batch, stacked = item
+                try:
+                    self._dispatch(batch, stacked)
+                finally:
+                    with self._cv:
+                        self._inflight -= 1
+                        self._cv.notify_all()
+
+    def _dispatch(self, batch: list[ScoreFuture],
+                  stacked: Optional[list[np.ndarray]] = None) -> None:
         if batch and faults.policy_enabled():
             # deadline shedding — at dispatch ENTRY only: an expired
             # request is answered DeadlineExceededError instead of
             # burning a padded lane on a result nobody waits for; once
-            # the batch proceeds to the device every survivor delivers,
-            # late or not
+            # the (possibly pre-stacked) batch proceeds to the device
+            # every survivor delivers, late or not
             flog = self.runtime.stats.faults
             now = time.monotonic()
             live = [r for r in batch
@@ -464,6 +547,7 @@ class ModelServer:
                         r.error = err
                         r.done.set()
                 batch = live
+                stacked = None  # pre-stacked bindings no longer match
         k = len(batch)
         if k == 0:
             return
@@ -471,8 +555,9 @@ class ModelServer:
         log = self.runtime.stats.serving
         t0 = time.monotonic()
         try:
-            stacked = stack_requests([r.arrays for r in batch],
-                                     len(self.script._arg_shapes))
+            if stacked is None:
+                stacked = stack_requests([r.arrays for r in batch],
+                                         len(self.script._arg_shapes))
             miss0 = jcache.stats.misses
             results = self.runtime.replay_batch(self._bplan, stacked, k)
             # the hot-path hygiene counter: any closure build after

@@ -1,17 +1,23 @@
 """Fault policy: the port's `repro_torch.core.faults` (seeded injection,
 the retry/backoff/degradation ladders, the serving supervisor) against
-the reference's `repro.core.faults`. Mirrors tests/test_faults.py where
-the port has the call site: spec parsing and plans, the compile fallback,
-the CSV chunk-IO retries, the serving faults, thread hygiene and the
-StepMonitor bounds. The federated and prefetch classes wait for those
-lanes (ROADMAP Queue 1 items 8 and 10).
+the reference's `repro.core.faults`. Mirrors tests/test_faults.py: spec
+parsing and plans, the federated site ladder (retries, timeouts,
+degradation to a recompute on the master, the lost data plane, the
+combined acceptance scenario), the compile fallback, the CSV chunk-IO
+retries, the prefetch worker's degradation to the synchronous loop, the
+serving faults, thread hygiene and the StepMonitor bounds.
 
 Determinism contract, as in the reference: an injected fault is a pure
 function of (kind, call index, seed), so the same spec fires on the same
 calls in both packages, a faulted run equals the clean run (1e-12, bitwise
 in practice) and the counters equal the reference's exactly. `stragglers`
 (wall-clock through the median+MAD monitor) is left out of exact
-assertions. The reference runs at pipeline depth 1 (the port's lane).
+assertions. Both packages run at pipeline depth 1 unless a case says
+otherwise (the prefetch cases run at depth 2). The slow-site case runs
+both packages on a stand-in clock whose `sleep` advances it, so the
+injected delay is exactly what the timeout sees, whatever the machine's
+load (the reference's own case, 10 ms against 50 ms of real sleep, has
+flaked under six xdist workers).
 """
 import threading
 import time
@@ -21,11 +27,16 @@ import pytest
 
 import repro.core as R
 import repro_torch.core as T
+from repro.core import costmodel as rcm
 from repro.core import faults as rfaults
+from repro.core import runtime as rruntime
+from repro.core.federated import FederatedTensor as RFed
 from repro.data import csv_io as rcsv
 from repro.lifecycle import regression as rreg
 from repro_torch.core import costmodel, faults, ops
+from repro_torch.core import runtime as truntime
 from repro_torch.core.dag import input_tensor
+from repro_torch.core.federated import FederatedTensor
 from repro_torch.core.faults import (DeadlineExceededError, InjectedFault,
                                      ServerClosedError, SiteFailedError,
                                      parse_spec)
@@ -35,7 +46,7 @@ from repro_torch.core.runtime import LineageRuntime, PreparedScript
 from repro_torch.data.csv_io import read_csv_chunks, write_csv
 from repro_torch.distributed.fault import (HeartbeatTracker, StepMonitor,
                                            simulate_failures)
-from repro_torch.lifecycle.regression import lmDS
+from repro_torch.lifecycle.regression import lmDS, lmDS_federated
 from repro_torch.serving import ModelServer, ScoreFuture
 
 D = 16
@@ -56,6 +67,43 @@ def _counters(rt):
 
 def _rt(**kw):
     return LineageRuntime(device="cpu", **kw)
+
+
+PKGS = {"port": (T, faults, FederatedTensor, lmDS_federated),
+        "ref": (R, rfaults, RFed, rreg.lmDS_federated)}
+
+
+def _fed_run(x, y, spec=None, intercept=True, sites=4, key="port"):
+    pk, fmod, fed_cls, fit = PKGS[key]
+    rt = _rt() if key == "port" else pk.LineageRuntime()
+    fed = fed_cls.partition_rows(x, sites)
+    with fmod.inject(spec) as plan:
+        w = fit(fed, y, intercept=intercept, runtime=rt)
+    return np.asarray(w), rt, plan
+
+
+@pytest.fixture
+def fed_data(rng):
+    return rng.normal(size=(200, 6)), rng.normal(size=(200, 1))
+
+
+class _Clock:
+    """`time` for a runtime/faults module under test: `sleep` advances a
+    private offset instead of sleeping, and `perf_counter` includes it,
+    so an injected site delay is seen in full by the timeout check and
+    costs no wall time."""
+
+    def __init__(self):
+        self.offset = 0.0
+
+    def perf_counter(self):
+        return time.perf_counter() + self.offset
+
+    def sleep(self, seconds):
+        self.offset += seconds
+
+    def __getattr__(self, name):
+        return getattr(time, name)
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +178,17 @@ class TestSpecAndPlan:
             assert faults.active_plan() is p
         assert faults.active_plan() is env_plan
 
+    def test_policy_kill_switch(self, monkeypatch, fed_data):
+        monkeypatch.setenv("REPRO_FAULT_POLICY", "off")
+        assert not faults.policy_enabled()
+        x, y = fed_data
+        w0, rt0, _ = _fed_run(x, y)
+        # injection entries are no-ops with the policy off
+        w1, rt1, plan = _fed_run(x, y, "seed=1;site_rpc@0,1")
+        assert not plan.fired
+        assert np.abs(w1 - w0).max() == 0.0
+        assert rt1.stats.faults.injected == 0
+
     def test_policy_kill_switch_csv(self, monkeypatch, rng, tmp_path):
         monkeypatch.setenv("REPRO_FAULT_POLICY", "off")
         assert not faults.policy_enabled()
@@ -153,6 +212,168 @@ class TestSpecAndPlan:
                 got, = srv.score(x, timeout=5.0)
         assert not plan.fired and rt.stats.faults.restarts == 0
         assert (got == script(x)[0]).all()
+
+
+# ---------------------------------------------------------------------------
+# Federated: retry, timeout, degradation ladders
+# ---------------------------------------------------------------------------
+
+class TestFederatedRecovery:
+    def _both(self, x, y, spec, **kw):
+        """The port's and the reference's faulted run of one spec: the
+        same firings, the same counters, betas within rel 1e-10."""
+        w, rt, plan = _fed_run(x, y, spec, **kw)
+        rw, rrt, rplan = _fed_run(x, y, spec, key="ref", **kw)
+        assert np.abs(w - rw).max() <= 1e-10 * np.abs(rw).max()
+        assert _counters(rt) == _counters(rrt)
+        assert dict(plan.fired if plan else {}) == \
+            dict(rplan.fired if rplan else {})
+        assert rt.stats.exchange.as_dict() == rrt.stats.exchange.as_dict()
+        return w, rt, plan
+
+    def test_transient_rpc_faults_heal_by_retry(self, fed_data):
+        x, y = fed_data
+        w0, _, _ = _fed_run(x, y)
+        w1, rt, plan = self._both(x, y, "seed=3;site_rpc@0,1")
+        assert np.abs(w1 - w0).max() < 1e-12
+        assert np.array_equal(w1, w0)
+        assert _counters(rt) == dict(injected=2, retries=2, timeouts=0,
+                                     degradations=0, shed=0, restarts=0)
+        assert plan.fired == {"site_rpc": 2}
+        assert rt.stats.faults.backoff_s > 0.0
+
+    def test_dead_site_degrades_to_recompute(self, fed_data):
+        # 1 dead site of 4 plus 2 transient RPC failures: every fed
+        # instruction exhausts retries against site 2, then collects its
+        # partition and recomputes locally through the SAME cached
+        # closure -> bitwise parity with the clean run
+        x, y = fed_data
+        w0, _, _ = _fed_run(x, y)
+        spec = "seed=11;site_dead:site=2;site_rpc@0,9"
+        w1, rt, plan = self._both(x, y, spec)
+        assert np.array_equal(w1, w0)
+        # 3 fed instructions (fed_map, fed_gram, fed_xtv): dead site
+        # burns 3 attempts each (9 injected minus one call where the
+        # positional site_rpc rule fired first), transient rules add 2
+        assert _counters(rt) == dict(injected=10, retries=7, timeouts=0,
+                                     degradations=3, shed=0, restarts=0)
+        assert plan.fired == {"site_rpc": 2, "site_dead": 8}
+
+    def test_faulted_run_is_deterministic(self, fed_data):
+        x, y = fed_data
+        spec = "seed=11;site_dead:site=2;site_rpc@0,9"
+        w1, rt1, p1 = _fed_run(x, y, spec)
+        w2, rt2, p2 = _fed_run(x, y, spec)
+        assert np.abs(w1 - w2).max() == 0.0
+        assert _counters(rt1) == _counters(rt2)
+        assert dict(p1.fired) == dict(p2.fired)
+
+    def test_slow_site_times_out_then_degrades(self, monkeypatch,
+                                               fed_data):
+        # every call to site 1 is 5 s late on the stand-in clock against
+        # a 1 s timeout (a clean site call takes well under a
+        # millisecond here): the attempt-boundary timeout discards the
+        # late result, retries, then degrades. site_slow never raises ->
+        # injected stays 0.
+        clock = _Clock()
+        for mod in (truntime, faults, rruntime, rfaults):
+            monkeypatch.setattr(mod, "time", clock)
+        monkeypatch.setenv("REPRO_FED_TIMEOUT_S", "1.0")
+        x, y = fed_data
+        w0, _, _ = _fed_run(x, y, intercept=False)
+        w1, rt, plan = self._both(
+            x, y, "site_slow:p=1:site=1:delay=5.0", intercept=False)
+        assert np.array_equal(w1, w0)
+        assert _counters(rt) == dict(injected=0, retries=4, timeouts=6,
+                                     degradations=2, shed=0, restarts=0)
+        assert plan.fired == {"site_slow": 6}
+
+    def test_lost_data_plane_is_fatal(self, fed_data):
+        # site_lost means the partition itself is gone: no degradation
+        # rung remains and the failure surfaces with site + instruction
+        x, y = fed_data
+        for key in PKGS:
+            with pytest.raises((SiteFailedError,
+                                rfaults.SiteFailedError)) as ei:
+                _fed_run(x, y, "seed=1;site_lost:site=1", key=key)
+            assert ei.value.site == 1
+            assert "site 1" in str(ei.value)
+            assert ei.value.instruction     # names the fed instruction
+
+    def test_control_plane_surfaces_in_stats(self, fed_data):
+        x, y = fed_data
+        _, rt, _ = _fed_run(x, y, "seed=11;site_dead:site=2")
+        d = rt.stats.as_dict()["faults"]
+        assert d["degradations"] == 3
+        assert d["incidents"] >= d["injected"] + d["degradations"]
+        assert "site_p50_us" in d and "site_p99_us" in d
+        # heartbeats: the 3 surviving sites beat on every successful
+        # RPC; the dead site never does
+        assert d["sites_seen"] == 3
+        assert d["dead_sites"] == []    # dead-man switch is 60s
+
+    def test_combined_faults_acceptance(self, rng, tmp_path):
+        # the acceptance scenario: site failures + chunk IO errors + one
+        # compile failure in ONE seeded run — 1e-12 parity with the
+        # clean run, identical counters on every rerun and in both
+        # packages. The closure cache is cleared per run so build-call
+        # indices (and hence the compile@0 firing) are reproducible.
+        xh = rng.normal(size=(208, 7))
+        yh = rng.normal(size=(208, 1))
+        path = str(tmp_path / "d.csv")
+        write_csv(path, np.hstack([xh, yh]))
+
+        def run(spec, key="port"):
+            pk, fmod, fed_cls, fit = PKGS[key]
+            pk.clear_jit_cache()
+            rt = _rt() if key == "port" else pk.LineageRuntime()
+            read = read_csv_chunks if key == "port" \
+                else rcsv.read_csv_chunks
+            with fmod.inject(spec) as plan:
+                parts = [c for _, c in read(
+                    path, 64, chunk_bytes=1 << 12,
+                    fault_log=rt.stats.faults)]
+                data = np.vstack(parts)
+                fed = fed_cls.partition_rows(data[:, :-1], 4)
+                w = fit(fed, data[:, -1:], intercept=True, runtime=rt)
+            return (np.asarray(w), rt,
+                    dict(plan.fired) if plan else {})
+
+        spec = ("seed=13;site_dead:site=3;site_rpc@2;"
+                "chunk_io@0,1;compile@0")
+        w0, _, _ = run(None)
+        w1, rt1, fired1 = run(spec)
+        w2, rt2, fired2 = run(spec)
+        rw, rrt, rfired = run(spec, key="ref")
+        assert np.array_equal(w1, w0)
+        assert np.abs(w1 - w2).max() == 0.0
+        assert np.abs(w1 - rw).max() <= 1e-10 * np.abs(rw).max()
+        assert _counters(rt1) == _counters(rt2) == _counters(rrt) == dict(
+            injected=13, retries=10, timeouts=0, degradations=3,
+            shed=0, restarts=0)
+        assert fired1 == fired2 == rfired == {
+            "chunk_io": 2, "compile": 1, "site_rpc": 1, "site_dead": 9}
+        assert rt1.stats.exchange.as_dict() == rrt.stats.exchange.as_dict()
+
+    def test_clean_run_has_no_fault_section(self, fed_data):
+        x, y = fed_data
+        rt = _rt()
+        fed = FederatedTensor.partition_rows(x, 4)
+        with faults.inject(None):
+            lmDS_federated(fed, y, intercept=True, runtime=rt)
+        assert _counters(rt) == dict(injected=0, retries=0, timeouts=0,
+                                     degradations=0, shed=0, restarts=0)
+        assert "faults" not in rt.stats.as_dict()
+
+    @pytest.mark.parametrize("depth", ["1", "2"])
+    def test_dead_site_bitwise_at_both_depths(self, fed_data, monkeypatch,
+                                              depth):
+        monkeypatch.setenv("REPRO_PIPELINE_DEPTH", depth)
+        x, y = fed_data
+        w0, _, _ = _fed_run(x, y)
+        w1, rt, _ = _fed_run(x, y, "seed=11;site_dead:site=2")
+        assert np.array_equal(w1, w0)
+        assert rt.stats.faults.degradations == 3
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +549,49 @@ def test_counters_equal_the_reference(rng, tmp_path):
     assert out["port"][3] == out["ref"][3]
 
 
+class TestPrefetchRecovery:
+    def test_prefetch_worker_death_degrades_to_sync(self, rng,
+                                                    monkeypatch):
+        # kill the chunk-prefetch worker mid-stream: the consumer drains
+        # in-flight work and finishes the tail synchronously
+        # (injection-free), same chunks, bitwise result — in both
+        # packages, with the same counters
+        monkeypatch.setattr(costmodel, "CHUNK_MEM_BUDGET", BUDGET)
+        monkeypatch.setattr(rcm, "CHUNK_MEM_BUDGET", BUDGET)
+        monkeypatch.setenv("REPRO_PIPELINE_DEPTH", "2")
+        xh = rng.normal(size=(4096, 8))
+        yh = rng.normal(size=(4096, 1))
+
+        def run(spec, key="port"):
+            if key == "port":
+                rt = _rt(cache=ReuseCache(), fuse=True)
+                fit, fmod, pk = lmDS, faults, T
+            else:
+                rt = R.LineageRuntime(cache=R.ReuseCache(), fuse=True)
+                fit, fmod, pk = rreg.lmDS, rfaults, R
+            with fmod.inject(spec):
+                w = fit(pk.input_tensor("X", xh), pk.input_tensor("y", yh),
+                        reg=1e-3, runtime=rt)
+            return np.asarray(w), rt
+
+        w0, rt0 = run(None)
+        w1, rt1 = run("seed=2;chunk_io@1")
+        assert np.array_equal(w1, w0)
+        assert rt1.stats.streaming.chunks == rt0.stats.streaming.chunks
+        f = rt1.stats.faults
+        assert f.injected == 1 and f.degradations == 1
+        rw, rrt = run("seed=2;chunk_io@1", key="ref")
+        assert np.abs(w1 - rw).max() <= 1e-10 * np.abs(rw).max()
+        assert _counters(rt1) == _counters(rrt)
+        assert rt1.stats.streaming.as_dict() == rrt.stats.streaming.as_dict()
+        # (prefetch_cancelled is left out: whether the worker took the
+        # next prep before the consumer cancelled it is a race, in the
+        # reference as here)
+        p, rp = rt1.stats.pipeline, rrt.stats.pipeline
+        assert (p.prefetch_issued, p.prefetch_hits) \
+            == (rp.prefetch_issued, rp.prefetch_hits)
+
+
 # ---------------------------------------------------------------------------
 # Serving: deadlines, supervisor, terminal errors
 # ---------------------------------------------------------------------------
@@ -443,6 +707,47 @@ class TestThreadHygiene:
                     got, = srv.score(x, timeout=5.0)
                     assert got.shape == (1, 1)
         assert rt.stats.faults.restarts == 4
+        assert set(threading.enumerate()) == before
+
+    def test_streaming_crash_cycles_leak_no_threads(self, rng,
+                                                    monkeypatch):
+        monkeypatch.setattr(costmodel, "CHUNK_MEM_BUDGET", BUDGET)
+        monkeypatch.setenv("REPRO_PIPELINE_DEPTH", "2")
+        xh = rng.normal(size=(4096, 8))
+        yh = rng.normal(size=(4096, 1))
+        before = set(threading.enumerate())
+        ws = []
+        for i in range(3):
+            rt = _rt(cache=ReuseCache(), fuse=True)
+            with faults.inject(f"seed={i};chunk_io@1"):
+                ws.append(np.asarray(
+                    lmDS(input_tensor("X", xh), input_tensor("y", yh),
+                         reg=1e-3, runtime=rt)))
+            assert rt.stats.faults.degradations == 1
+        assert np.abs(ws[0] - ws[1]).max() == 0.0
+        assert np.abs(ws[0] - ws[2]).max() == 0.0
+        assert set(threading.enumerate()) == before
+
+    def test_pipelined_serving_crash_cycles_leak_no_threads(
+            self, rng, monkeypatch):
+        # the depth-2 server: a coalescer crash fails only its batch, and
+        # shutdown joins the coalescer and the completion worker
+        monkeypatch.setenv("REPRO_PIPELINE_DEPTH", "2")
+        rt = _rt()
+        script = _script(rng, rt)
+        x = rng.normal(size=(1, D))
+        before = set(threading.enumerate())
+        with ModelServer(script, runtime=rt, max_batch=8,
+                         max_wait_us=500.0) as srv:
+            assert srv._pipelined
+            for i in range(3):
+                with faults.inject(f"seed={i};serving_dispatch@0"):
+                    with pytest.raises(InjectedFault):
+                        srv.score(x, timeout=5.0)
+                with faults.inject(None):
+                    got, = srv.score(x, timeout=5.0)
+                    assert (got == script(x)[0]).all()
+        assert rt.stats.faults.restarts == 3
         assert set(threading.enumerate()) == before
 
 

@@ -430,6 +430,40 @@ def test_lmds_three_way_parity_sparse(rng, monkeypatch):
         assert np.abs(p[4] - r[4]).max() < 1e-10
 
 
+def test_lmds_sparse_stream_depth2(rng, monkeypatch):
+    """The bcoo stream in the pipelined lane: at pipeline depth 2 each
+    bucket is sparsified by the prefetch worker; beta is bitwise the
+    port's depth-1 beta, and both packages at depth 2 count the same
+    streaming and pipeline meters and reuse probes."""
+    m, n = 8192, 32
+    xn = rng.normal(size=(m, n)) * (rng.random((m, n)) < 0.1)
+    yn = rng.normal(size=(m,))
+    ref = np.linalg.solve(xn.T @ xn + 1e-3 * np.eye(n), xn.T @ yn)
+    monkeypatch.setattr(tcm, "CHUNK_MEM_BUDGET", 1 << 16)
+    monkeypatch.setattr(rcm, "CHUNK_MEM_BUDGET", 1 << 16)
+    out = {}
+    for depth in ("1", "2"):
+        monkeypatch.setenv("REPRO_PIPELINE_DEPTH", depth)
+        for key, pk in PKGS.items():
+            lmDS = (treg if key == "port" else rreg).lmDS
+            rt = _rt(key, cache=pk.ReuseCache(), sparse_inputs=True)
+            beta = np.asarray(lmDS(pk.input_tensor("X", xn),
+                                   pk.input_tensor("y", yn), reg=1e-3,
+                                   runtime=rt)).ravel()
+            assert np.abs(beta - ref).max() < 1e-10
+            p = rt.stats.pipeline.as_dict()
+            out[(key, depth)] = (
+                beta, rt.stats.streaming.as_dict(),
+                {k: v for k, v in p.items()
+                 if not k.endswith("_s") and k != "overlap_ratio"},
+                rt.cache.stats.as_dict()["probes"])
+    port, ref2 = out[("port", "2")], out[("ref", "2")]
+    assert port[1]["chunks"] > 1 and port[2]["prefetch_issued"] > 1
+    assert np.array_equal(port[0], out[("port", "1")][0])
+    assert port[1:] == ref2[1:]
+    assert np.abs(port[0] - ref2[0]).max() < 1e-10
+
+
 def test_lm_sends_a_wide_sparse_x_to_lmcg(rng):
     m, n = 1500, 1040  # n > 1024: lm takes lmCG
     xn = _sparse_mat(rng, m, n, 0.03)

@@ -1,7 +1,8 @@
 """Lifecycle builtins: the port's lmDS / lmCG / lm / steplm against the
-reference on the same data (reference at pipeline depth 1, the port on
-the CPU). Coefficients agree to rel 1e-10; steplm selects the same
-columns in the same order, with identical reuse-cache counters."""
+reference on the same data (both at pipeline depth 1, and again both at
+depth 2; the port on the CPU). Coefficients agree to rel 1e-10; steplm
+selects the same columns in the same order, with identical reuse-cache
+counters; the port's depth-2 results are bitwise its depth-1 results."""
 import numpy as np
 import pytest
 
@@ -77,3 +78,26 @@ def test_steplm_selects_identically(max_features):
     assert psel == rsel and {1, 4, 6} <= set(psel)
     assert _rel(pb, rb) <= RTOL
     assert out["port"][1] == out["ref"][1]
+
+
+@pytest.mark.parametrize("name,m,n,seed,kw", [
+    ("lmDS", 400, 12, 0, dict(reg=1e-6, intercept=True)),
+    ("lmCG", 300, 10, 1, dict(reg=1e-6, tol=1e-12, max_iter=50)),
+    ("lm", 200, 8, 2, {}),
+    ("steplm", 300, 7, 3, dict(max_features=3))])
+def test_builtins_at_depth2(monkeypatch, name, m, n, seed, kw):
+    """Each builtin at pipeline depth 2 in both packages: the reference's
+    coefficients (rel 1e-10) and reuse counters, and bitwise the port's
+    depth-1 result."""
+    xn, yn = _data(m, n, seed)
+    d1 = _both(name, xn, yn, **kw)
+    monkeypatch.setenv("REPRO_PIPELINE_DEPTH", "2")
+    d2 = _both(name, xn, yn, **kw)
+    res = {k: v[0][0] if name == "steplm" else v[0] for k, v in d2.items()}
+    assert _rel(res["port"], res["ref"]) <= RTOL
+    assert d2["port"][1] == d2["ref"][1] == d1["port"][1]
+    if name == "steplm":
+        assert d2["port"][0][1] == d1["port"][0][1] == d2["ref"][0][1]
+        assert np.array_equal(d2["port"][0][0], d1["port"][0][0])
+    else:
+        assert np.array_equal(d2["port"][0], d1["port"][0])

@@ -79,8 +79,8 @@ def run_pipeline(pkg: str, csv_path: str, ckpt_dir: str, **rt_kw) -> dict:
 
 @pytest.fixture(scope="module")
 def runs(csv_path, tmp_path_factory):
-    """Both packages' runs, the reference at pipeline depth 1 (the
-    port's lane); module-scoped, so the environment is set by hand."""
+    """Both packages' runs, both at pipeline depth 1; module-scoped, so
+    the environment is set by hand."""
     d = tmp_path_factory.mktemp("ckpt")
     old = os.environ.get("REPRO_PIPELINE_DEPTH")
     os.environ["REPRO_PIPELINE_DEPTH"] = "1"

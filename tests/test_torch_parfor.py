@@ -8,8 +8,10 @@ pipeline depth 1): grid and CV betas within rtol 1e-8 / atol 1e-10 across
 the vmap, sequential and `fuse=False` modes and across the packages, the
 same variant/invariant segment splits and `explain()` text (modulo
 uids), the same `choose_mode` decisions, and batched segments wherever
-the reference runs them. The federated grids (ROADMAP Queue 1 item 8)
-and the benchmark aggregation are not mirrored."""
+the reference runs them. The federated grids touch each site once per
+federated instruction whatever the grid size, with the reference's
+exchange bytes and rounds. The benchmark aggregation is not
+mirrored."""
 import re
 
 import numpy as np
@@ -19,12 +21,14 @@ import torch
 import repro.core as R
 import repro_torch.core as T
 from repro.core import batching as rbat
+from repro.core.federated import FederatedTensor as RFed
 from repro.core import costmodel as rcm
 from repro.lifecycle import validation as rval
 from repro_torch.core import batching as tbat
 from repro_torch.core import costmodel as tcm
 from repro_torch.core.dag import LEAVES as TLEAVES
 from repro_torch.core.dag import batch_input, is_batched_leaf
+from repro_torch.core.federated import FederatedTensor
 from repro_torch.lifecycle import validation as tval
 
 LAMBDAS = [0.01, 0.1, 1.0, 10.0]
@@ -661,3 +665,100 @@ def test_variant_streamed_segment_is_refused(rng, monkeypatch):
     for (p,), (r,), lam in zip(seq["port"], seq["ref"], lams):
         _close(p, r)
         _close(p, xn.T @ (yn * lam))
+
+
+class TestFederatedGrid:
+    """tests/test_parfor.py::TestFederatedGrid, in both packages."""
+
+    FEDS = {"ref": RFed, "port": FederatedTensor}
+
+    def _run(self, key, xn, yn, lams, mode, cache=False):
+        pk, _, val = PKGS[key]
+        fed = self.FEDS[key].partition_rows(xn, 3)
+        rt = _rt(key, cache=pk.ReuseCache() if cache else None)
+        X = pk.federated_input("tfX", fed)
+        y = pk.input_tensor("tfy", yn)
+        betas, losses = val.grid_search_lm(X, y, lams, runtime=rt,
+                                           mode=mode)
+        return np.asarray(betas), np.asarray(losses), rt.stats.exchange
+
+    def test_one_round_per_site_independent_of_k(self, rng):
+        xn = rng.normal(size=(300, 12))
+        yn = rng.normal(size=(300, 1))
+        lams = [0.1, 0.5, 1.0, 5.0]           # k=4 == bucket: exact
+        out = {}
+        for key in PKGS:
+            b_bat, l_bat, ex_bat = self._run(key, xn, yn, lams, "vmap")
+            _, _, ex_one = self._run(key, xn, yn, lams[:1], "sequential")
+            b_seq, l_seq, ex_seq = self._run(key, xn, yn, lams,
+                                             "sequential", cache=True)
+            _close(b_bat, b_seq)
+            np.testing.assert_allclose(l_bat, l_seq, rtol=1e-8)
+            # rounds: same as a single-config run, k-independent
+            assert ex_bat.rounds_per_site == ex_one.rounds_per_site
+            assert ex_seq.rounds > ex_bat.rounds
+            # payload: one batched exchange == k sequential exchanges'
+            # bytes (gram/xtv exchanged once on both paths)
+            assert ex_bat.total == ex_seq.total
+            out[key] = (b_bat, l_bat, ex_bat.as_dict(), ex_seq.as_dict())
+        _close(out["port"][0], out["ref"][0])
+        np.testing.assert_allclose(out["port"][1], out["ref"][1],
+                                   rtol=1e-8)
+        assert out["port"][2:] == out["ref"][2:]
+
+    def test_non_pow2_k_exchanges_true_k_payload(self, rng):
+        """k=3 pads to a bucket of 4 for closure shapes, but only the
+        TRUE 3 configs ever cross the federation boundary."""
+        xn = rng.normal(size=(200, 8))
+        yn = rng.normal(size=(200, 1))
+        lams = [0.1, 1.0, 10.0]
+        out = {}
+        for key in PKGS:
+            b_bat, l_bat, ex_bat = self._run(key, xn, yn, lams, "vmap")
+            b_seq, l_seq, ex_seq = self._run(key, xn, yn, lams,
+                                             "sequential", cache=True)
+            _close(b_bat, b_seq)
+            np.testing.assert_allclose(l_bat, l_seq, rtol=1e-8)
+            assert ex_bat.total == ex_seq.total
+            assert ex_seq.rounds > ex_bat.rounds
+            out[key] = ex_bat.as_dict()
+        assert out["port"] == out["ref"]
+
+    def test_fed_exchange_bytes_scale_with_k_not_rounds(self, rng):
+        xn = rng.normal(size=(200, 8))
+        yn = rng.normal(size=(200, 1))
+        _, _, ex4 = self._run("port", xn, yn, [0.1, 0.5, 1.0, 5.0], "vmap")
+        _, _, ex8 = self._run(
+            "port", xn, yn, [0.1, 0.2, 0.5, 1.0, 2.0, 5.0, 10.0, 20.0],
+            "vmap")
+        assert ex8.rounds == ex4.rounds
+        assert ex8.total > ex4.total   # payload grows, trips do not
+
+    @pytest.mark.parametrize("depth", ["1", "2"])
+    def test_batched_fed_map_grid_matches_reference(self, rng, monkeypatch,
+                                                    depth):
+        """A grid whose variant operand meets a fed_map (X * λ, then
+        colSums): the batched site layout (k, rows_i, c) and its
+        exchange, against the sequential loop and the reference."""
+        monkeypatch.setenv("REPRO_PIPELINE_DEPTH", depth)
+        xn = rng.normal(size=(90, 5))
+        lams = [0.5, 2.0, 3.0]
+        out = {}
+        for key in PKGS:
+            pk, _, val = PKGS[key]
+            X = pk.federated_input(
+                "fmX", self.FEDS[key].partition_rows(xn, 3))
+
+            def model(lam, pk=pk, X=X):
+                return pk.ops.colSums(X * float(lam))
+            rt = _rt(key)
+            bat = val.parfor(lams, model, runtime=rt, mode="vmap")
+            assert rt.stats.batched_segments > 0
+            seq = val.parfor(lams, model, runtime=_rt(key),
+                             mode="sequential")
+            for (b,), (q,) in zip(bat, seq):
+                _close(b, q)
+            out[key] = (bat, rt.stats.exchange.as_dict())
+        for (p,), (r,) in zip(out["port"][0], out["ref"][0]):
+            _close(p, r)
+        assert out["port"][1] == out["ref"][1]

@@ -1,8 +1,8 @@
 """Runtime parity: the port's LineageRuntime against the reference's.
 
-Same programs on the same numpy data through `repro` (jax, CPU, at
-pipeline depth 1 — the synchronous lane the port implements) and
-`repro_torch` (`device="cpu"`). Results agree to rel 1e-10, and every
+Same programs on the same numpy data through `repro` (jax, CPU) and
+`repro_torch` (`device="cpu"`), both at pipeline depth 1 unless a case
+says otherwise (the depth-2 streaming case runs both at depth 2). Results agree to rel 1e-10, and every
 counter that is not a timing must be identical: reuse-cache probes, hits,
 misses and bytes, RuntimeStats instruction/segment/reuse counts, jit-cache
 hits and misses from a cleared cache, and the streaming meter. Within the
@@ -234,8 +234,55 @@ def test_lineage_trace_matches_reference():
     assert traces["port"] == traces["ref"]
 
 
-def test_unported_lanes_are_refused(monkeypatch):
-    monkeypatch.setenv("REPRO_PIPELINE_DEPTH", "2")
-    rt = T.LineageRuntime(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        rt.evaluate([T.ops.sum_(T.input_tensor("x", np.ones((3, 3))))])
+def _untimed(d):
+    """A stats dict without its timings, at any depth."""
+    if isinstance(d, dict):
+        return {k: _untimed(v) for k, v in d.items()
+                if not k.endswith("_s") and k != "overlap_ratio"}
+    return d
+
+
+@pytest.mark.parametrize("m,n,budget", [(4096, 8, 1 << 16),
+                                        (1024, 512, 1 << 19)])
+def test_streaming_lane_depth2_matches_reference(monkeypatch, m, n, budget):
+    """The streaming parity case at pipeline depth 2 (the default), both
+    packages at depth 2: cold fit, two warm refits and a fit on appended
+    rows give the same streaming and pipeline meters, reuse counters and
+    jit-cache hits/misses per fit as the reference; each fit is bitwise
+    the port's depth-1 fit."""
+    monkeypatch.setattr(rcm, "CHUNK_MEM_BUDGET", budget)
+    monkeypatch.setattr(tcm, "CHUNK_MEM_BUDGET", budget)
+    rng = np.random.default_rng(3)
+    xn, yn = rng.normal(size=(m, n)), rng.normal(size=(m, 1))
+    x2 = np.vstack([xn, rng.normal(size=(700, n))])
+    y2 = np.vstack([yn, rng.normal(size=(700, 1))])
+    out = {}
+    for depth in ("2", "1"):
+        monkeypatch.setenv("REPRO_PIPELINE_DEPTH", depth)
+        for key, pk in PKGS.items():
+            if depth == "1" and key == "ref":
+                continue
+            lmDS = import_module(f"{pk.__name__.split('.')[0]}.lifecycle"
+                                 ".regression").lmDS
+            rt = _rt(key, cache=pk.ReuseCache())
+            fits, meters, jits = [], [], []
+            for xa, ya in ((xn, yn), (xn, yn), (xn, yn), (x2, y2)):
+                mark = _jit_mark(pk) if not fits else _jit_now(pk)
+                fits.append(lmDS(pk.input_tensor("X", xa),
+                                 pk.input_tensor("y", ya), reg=1e-3,
+                                 runtime=rt))
+                meters.append(_untimed(rt.stats.as_dict()))
+                jits.append(_jit_delta(pk, mark))
+            out[(key, depth)] = (fits, meters, jits,
+                                 rt.cache.stats.as_dict())
+    port, ref = out[("port", "2")], out[("ref", "2")]
+    for a, b in zip(port[0], ref[0]):
+        assert _rel(a, b) <= RTOL
+    for a, b in zip(port[0], out[("port", "1")][0]):
+        assert np.array_equal(a, b)
+    for d in port[1]:
+        d.pop("jit_cache")
+    for d in ref[1]:
+        d.pop("jit_cache")
+    assert port[1][0]["pipeline"]["prefetch_issued"] > 0
+    assert port[1:] == ref[1:]

@@ -2,7 +2,8 @@
 warm and pinned buckets, the adaptive coalescer) and the bind-time
 validation and closure-cache pinning it stands on, against the
 reference's `repro.serving` (at pipeline depth 1, the single-dispatcher
-loop the port runs). Mirrors tests/test_serving.py's
+loop, unless a case runs the depth-2 issue/completion split, whose own
+cases are in tests/test_torch_pipeline.py). Mirrors tests/test_serving.py's
 TestPreparedScriptValidation, TestJitCachePinning and TestCoalescer
 (TestMeshDegradation waits for sharded placement, ROADMAP Queue 1 item
 12); the port's server scores within 1e-12 of the reference's, warms
@@ -389,12 +390,26 @@ class TestCoalescer:
         assert jc.stats.pinned == pinned0
         assert "pinned=0" in srv.explain()
 
-    def test_pipelined_server_refused(self, weights, monkeypatch):
+    @pytest.mark.parametrize("k", [1, 3, 8])
+    def test_pipelined_concurrent_bitwise_parity(self, rng, weights, k,
+                                                 monkeypatch):
+        """The depth-2 server (the issue/completion split): every
+        coalesced score is bitwise the solo score, 0 retraces."""
         monkeypatch.setenv("REPRO_PIPELINE_DEPTH", "2")
         rt = _rt()
         script = PreparedScript(_scoring(T, weights), [(1, D)], runtime=rt)
-        with pytest.raises(NotImplementedError, match="completion worker"):
-            ModelServer(script, runtime=rt).deploy()
+        xs = [rng.normal(size=(1, D)) for _ in range(k)]
+        with _serve(script, rt) as srv:
+            assert srv._pipelined and srv._worker is not None
+            outs = _concurrent(srv.score, xs)
+            log = rt.stats.serving
+            assert log.requests == k and log.retraces == 0
+        for i in range(k):
+            ref = script(xs[i])
+            for a, b in zip(outs[i], ref):
+                assert a.shape == b.shape and (a == b).all()
+        assert not [t for t in threading.enumerate()
+                    if t.name.startswith("repro-serving") and t.is_alive()]
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +431,31 @@ def _deploy_both(wn, max_batch=8, shape=(1, D), reuse=False):
         out[key] = (srv, script, rt, pk.get_jit_cache().stats.pinned
                     - pinned0)
     return out
+
+
+@pytest.mark.parametrize("reuse", [False, True])
+def test_pipelined_scores_match_the_reference(rng, reuse, monkeypatch):
+    """Both servers at pipeline depth 2: the same scores (1e-12), 0
+    retraces, and the port's scores bitwise its own depth-1 scores."""
+    wn = rng.normal(size=(D, 1))
+    xs = [rng.normal(size=(1, D)) for _ in range(11)]
+    got = {}
+    for depth in ("2", "1"):
+        monkeypatch.setenv("REPRO_PIPELINE_DEPTH", depth)
+        both = _deploy_both(wn, reuse=reuse)
+        try:
+            for key, (srv, script, rt, _) in both.items():
+                assert srv._pipelined == (depth == "2")
+                got[(key, depth)] = [srv.score(x) for x in xs]
+                assert rt.stats.serving.retraces == 0
+        finally:
+            for srv, *_ in both.values():
+                srv.shutdown()
+    for a, b, c in zip(got[("port", "2")], got[("ref", "2")],
+                       got[("port", "1")]):
+        for u, v, w in zip(a, b, c, strict=True):
+            np.testing.assert_allclose(u, v, rtol=1e-12, atol=1e-12)
+            assert (u == w).all()
 
 
 @pytest.mark.parametrize("reuse", [False, True])
