@@ -11,7 +11,9 @@ card. One JSON line per phase:
   2. build         — compile `src/repro_torch/csrc/*.cu` (gram, spmm,
                      flash, wkv6, ssd; gram and spmm share
                      gram_mainloop.cuh) for sm_90a, one `nvcc` per source,
-                     all started together; the bf16 flash instantiations,
+                     all started together; the bf16 flash instantiations
+                     (hd 32, 64, 128 and MLA's q/k 192 with v 128) and
+                     MLA's float32 one,
                      gram's float64 and bf16 partial kernels, every WKV6
                      state and output kernel, every selective-scan kernel
                      and every kernel of spmm.cu (gram_bs, xtv_bs, spmm
@@ -31,11 +33,15 @@ card. One JSON line per phase:
                      the dense layout and over the populated blocks, the
                      plans and (xtv_bs, spmm) the wrapper's host time
   5. flash_kernel  — the flash-attention kernel against its plain version
-                     computed in float32 from the same inputs, each entry
-                     within a bound of its own envelope, at the
-                     serving path's shapes (qwen3-0.6b, llama3.2-1b and
-                     jamba-v0.1-52b heads, ragged prompts, non-causal,
-                     float32), bitwise
+                     computed in float32 from the same inputs (over batch
+                     slices), each entry within a bound of its own
+                     envelope, at the serving paths' shapes (qwen3-0.6b,
+                     llama3.2-1b and jamba-v0.1-52b heads, ragged prompts,
+                     non-causal, float32; deepseek-v2-236b's MLA heads of
+                     q/k 192 and v 128 in bf16 and float32 and ragged,
+                     llama-3.2-vision-90b's cross-attention over 1,024
+                     image tokens, musicgen-large's and deepseek-moe-16b's
+                     heads), bitwise
                      repeatable, with kernel, plain, library (one
                      scaled_dot_product_attention, a yardstick the port
                      never calls) and bound times
@@ -187,11 +193,36 @@ card. One JSON line per phase:
                      compile) bitwise the clean run with its counters; an
                      8-λ federated grid under parfor with one exchange
                      round per site per fed instruction
- 26. kernels       — the summary line of every ported kernel (the
+ 26. moe_serve     — the moe family served at deepseek-moe-16b's full width
+                     and depth (28 layers: one dense, 27 MoE of 64 experts
+                     top-6 and 2 shared; bf16, seeded weights), lm_serve's
+                     traffic: 28 flash launches in prefill, none in decode;
+                     teacher-forced decode, the kernel route against the
+                     plain attention (over batch slices) and two planted
+                     faults, each with the kernel route's MoE routing
+                     replayed and the flips counted; experts touched per
+                     decode step; tokens/s, peak memory, a traced idle
+                     share
+ 27. mla_serve     — MLA served at deepseek-v2-236b's full width, its depth
+                     cut to the dense first layer and 4 MoE layers (160
+                     experts top-6), moe_serve's checks: 5 launches of the
+                     (192, 128) flash instantiation in prefill, absorbed
+                     decode over the latent cache, and the first layer's
+                     absorbed decode against its expanded prefill
+ 28. vlm_serve     — llama-3.2-vision-90b at full width, one period (4
+                     self-attention layers, 1 cross-attention layer over
+                     an (8, 1,024, 8,192) image; the gate drawn nonzero
+                     from the seed), the same checks: 4 causal and 1
+                     non-causal flash launches in prefill
+ 29. audio_serve   — musicgen-large at full width and depth (48 layers) on
+                     (8, 2,048, 4) EnCodec prompts: 32 steps of 4 codebook
+                     tokens, 48 flash launches in prefill, the same checks
+ 30. kernels       — the summary line of every ported kernel (the
                      block-sparse ones at the shape of most of their
                      launches, with launches x (device ms - bound ms) by
                      path; gram and xtv also batched, with their
-                     launches on the CV path)
+                     launches on the CV path; flash with its launches
+                     on every serving path and MLA's instantiation)
 
 then the card line of `nvidia-smi` and, last, the contract line
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -337,22 +368,39 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+# the kernel of `torch.cuda._sleep`, which opens every trace
+SENTINEL = "spin_kernel"
+# traces taken, and those whose sentinel record the profiler lost
+PROFILER = {"traces": 0, "sentinels_lost": 0}
+
+
 def device_trace(fn, counts: dict | None = None):
     """Run `fn` once under `torch.profiler` (card activity only) and
     return (result, wall s, device-busy s or None, {kernel/copy name:
     device s}). Busy time is the union of the card's kernel and copy
     intervals; None when the profiler saw no device events. `counts`, if
-    given, is filled with {kernel/copy name: number of events}."""
+    given, is filled with {kernel/copy name: number of events}.
+
+    A sentinel kernel opens the trace and is left out of the result: on
+    an H100 the profiler has been seen to lose the first kernel record
+    of every trace of one case, eight traces in a row (the first WKV6
+    state pass each time), and the sentinel takes that place. PROFILER
+    counts the sentinels lost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    PROFILER["traces"] += 1
+    PROFILER["sentinels_lost"] += not any(SENTINEL in e.name for e in events)
+    events = [e for e in events if SENTINEL not in e.name]
     by_name: dict[str, float] = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) \
@@ -1396,53 +1444,97 @@ def phase_sparse_lm(scale: int = 1) -> dict:
 # the dense LM family: flash attention and serving
 # ---------------------------------------------------------------------------
 
-# (name, B, Sq, Sk, Hq, Hkv, hd, causal, dtype); the first is the path's
+# (name, B, Sq, Sk, Hq, Hkv, hd (q/k), dv, causal, dtype); the first is
+# the path's. deepseek-v2-236b's are MLA's (192, 128) instantiation,
+# llama-3.2-vision-90b's its cross-attention over 1,024 image tokens
 FLASH_CASES = [
-    ("qwen3-0.6b", 8, 2048, 2048, 16, 8, 128, True, "bfloat16"),
-    ("llama3.2-1b", 8, 2048, 2048, 32, 8, 64, True, "bfloat16"),
-    ("jamba-v0.1-52b", 8, 2048, 2048, 32, 8, 128, True, "bfloat16"),
-    ("ragged-1000", 8, 1000, 1000, 16, 8, 128, True, "bfloat16"),
-    ("ragged-17", 8, 17, 17, 16, 8, 128, True, "bfloat16"),
-    ("non-causal", 8, 2048, 1024, 16, 8, 128, False, "bfloat16"),
-    ("qwen3-0.6b-f32", 8, 2048, 2048, 16, 8, 128, True, "float32"),
+    ("qwen3-0.6b", 8, 2048, 2048, 16, 8, 128, 128, True, "bfloat16"),
+    ("llama3.2-1b", 8, 2048, 2048, 32, 8, 64, 64, True, "bfloat16"),
+    ("jamba-v0.1-52b", 8, 2048, 2048, 32, 8, 128, 128, True, "bfloat16"),
+    ("ragged-1000", 8, 1000, 1000, 16, 8, 128, 128, True, "bfloat16"),
+    ("ragged-17", 8, 17, 17, 16, 8, 128, 128, True, "bfloat16"),
+    ("non-causal", 8, 2048, 1024, 16, 8, 128, 128, False, "bfloat16"),
+    ("qwen3-0.6b-f32", 8, 2048, 2048, 16, 8, 128, 128, True, "float32"),
+    ("deepseek-v2-236b", 8, 2048, 2048, 128, 128, 192, 128, True,
+     "bfloat16"),
+    ("deepseek-v2-236b-f32", 8, 2048, 2048, 128, 128, 192, 128, True,
+     "float32"),
+    ("mla-ragged-1000", 8, 1000, 1000, 128, 128, 192, 128, True,
+     "bfloat16"),
+    ("mla-ragged-17", 8, 17, 17, 128, 128, 192, 128, True, "bfloat16"),
+    ("llama-3.2-vision-90b-xattn", 8, 2048, 1024, 64, 8, 128, 128, False,
+     "bfloat16"),
+    ("musicgen-large", 8, 2048, 2048, 32, 32, 64, 64, True, "bfloat16"),
+    ("deepseek-moe-16b", 8, 2048, 2048, 16, 16, 128, 128, True, "bfloat16"),
 ]
+# the MLA case whose row the kernels line carries beside the path's
+FLASH_MLA_CASE = "deepseek-v2-236b"
+# float32 scores of one plain-version call in a slice of the batch: at
+# MLA's 128 heads and S 2,048 the whole batch's would take 17.2 GB
+PLAIN_SCORE_BYTES = 2e9
 
 
 def flash_bound(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
-                causal: bool, dtype: str, peaks: dict) -> tuple[float, str]:
+                dv: int, causal: bool, dtype: str, peaks: dict
+                ) -> tuple[float, str]:
     """Least time for one attention call: the visible (q, k) pairs each
-    take 2·hd operations for QKᵀ and 2·hd for PV; q, k, v read once and
+    take 2·hd operations for QKᵀ and 2·dv for PV; q, k, v read once and
     the output written once."""
     size = {"float32": 4, "bfloat16": 2}[dtype]
     pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
-    ops = 4.0 * hd * pairs * B * Hq
-    nbytes = (2 * B * Sq * Hq * hd + 2 * B * Sk * Hkv * hd) * size
+    ops = 2.0 * (hd + dv) * pairs * B * Hq
+    nbytes = (B * Sq * Hq * (hd + dv) + B * Sk * Hkv * (hd + dv)) * size
     t_ops, t_bytes = ops / peaks[dtype], nbytes / peaks["bw"]
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _batch_slices(q, k):
+    """Slices of the batch whose float32 scores take at most
+    PLAIN_SCORE_BYTES (one sequence at least)."""
+    per = q.shape[1] * q.shape[2] * k.shape[1] * 4
+    step = max(1, int(PLAIN_SCORE_BYTES // per))
+    return [slice(i, i + step) for i in range(0, q.shape[0], step)]
+
+
+def _sliced(fn):
+    """`fn(q, k, v, causal)` computed over slices of the batch (the plain
+    attention's float32 scores stay near PLAIN_SCORE_BYTES)."""
+    import torch
+
+    def attend(q, k, v, causal=True):
+        return torch.cat([fn(q[b], k[b], v[b], causal)
+                          for b in _batch_slices(q, k)])
+    return attend
+
+
 def phase_flash_kernels(peaks: dict, cases=FLASH_CASES) -> dict:
-    """The flash kernel against its plain version at the serving path's
-    shapes; returns the path's row (the first case)."""
+    """The flash kernel against its plain version at the serving paths'
+    shapes; returns {case name: row} (the first case is the path's). The
+    plain version runs over slices of the batch."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    main = None
-    for name, B, Sq, Sk, Hq, Hkv, hd, causal, dtype in cases:
+    rows = {}
+    plain = _sliced(lambda q, k, v, c: ref.attention(q, k, v, causal=c))
+    for name, B, Sq, Sk, Hq, Hkv, hd, dv, causal, dtype in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=DEVICE
                                ).to(dt[dtype])
                    for shape in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd),
-                                 (B, Sk, Hkv, hd)))
+                                 (B, Sk, Hkv, dv)))
         saved = dict(ops.LAUNCHES)  # these launches are not the path's
         got = ops.flash_attention_cuda(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        want = ref.attention(q.float(), k.float(), v.float(), causal=causal)
-        err = (got.float() - want).abs().max().item()
-        scaled = ref.scaled_err(got, want, q, k, v, causal=causal)
-        del want
+        err, scaled = 0.0, 0.0
+        for b in _batch_slices(q, k):
+            want = ref.attention(q[b].float(), k[b].float(), v[b].float(),
+                                 causal=causal)
+            err = max(err, (got[b].float() - want).abs().max().item())
+            scaled = max(scaled, ref.scaled_err(got[b], want, q[b], k[b],
+                                                v[b], causal=causal))
+            del want
         checks = dict(
             tol=scaled <= FLASH_TOL[dtype],
             finite=bool(torch.isfinite(got).all().item()),
@@ -1452,30 +1544,30 @@ def phase_flash_kernels(peaks: dict, cases=FLASH_CASES) -> dict:
         ms = cuda_ms(kern)
         _, _, dev_s, _ = device_trace(lambda: [kern() for _ in range(10)])
         ops.LAUNCHES.update(saved)
-        plain_ms = cuda_ms(lambda: ref.attention(q, k, v, causal=causal),
-                           iters=5)
-        # the yardstick: one library call on (B, H, S, hd) copies
+        plain_ms = cuda_ms(lambda: plain(q, k, v, causal), iters=5)
+        # the yardstick: one library call on (B, H, S, ·) copies, v at its
+        # own width
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
         del qt, kt, vt
-        bms, by = flash_bound(B, Sq, Sk, Hq, Hkv, hd, causal, dtype, peaks)
+        bms, by = flash_bound(B, Sq, Sk, Hq, Hkv, hd, dv, causal, dtype,
+                              peaks)
         row = dict(phase="flash_kernel", case=name, B=B, Sq=Sq, Sk=Sk, Hq=Hq,
-                   Hkv=Hkv, hd=hd, causal=causal, dtype=dtype,
+                   Hkv=Hkv, hd=hd, dv=dv, causal=causal, dtype=dtype,
                    max_abs_err=err, scaled_err=scaled,
                    tol=FLASH_TOL[dtype], checks=checks,
                    ok=all(checks.values()), ms=ms,
                    device_ms=None if dev_s is None else 100 * dev_s,
-                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
-                   bound_by=by)
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bms, bound_by=by)
         emit(row)
         if not row["ok"]:
             raise AssertionError(f"flash {name} failed its checks: {row}")
-        if main is None:
-            main = row
+        rows[name] = row
         del q, k, v, got
         torch.cuda.empty_cache()
-    return main
+    return rows
 
 
 @contextlib.contextmanager
@@ -1515,7 +1607,8 @@ def _probed_steps(*counters):
         serve.make_prefill_step, serve.make_decode_step = makers
 
 
-def _warm_prefill_ms(model, tokens, max_len: int) -> float:
+def _warm_prefill_ms(model, tokens, max_len: int, image_embeds=None
+                     ) -> float:
     """The main path's prefill is the first at its size and pays the
     caching allocator's first-use costs: the same prefill once more, warm,
     in CUDA-event milliseconds."""
@@ -1523,7 +1616,7 @@ def _warm_prefill_ms(model, tokens, max_len: int) -> float:
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
-    model.prefill(tokens, max_len=max_len)
+    model.prefill(tokens, max_len=max_len, image_embeds=image_embeds)
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1)
@@ -1531,31 +1624,43 @@ def _warm_prefill_ms(model, tokens, max_len: int) -> float:
 
 @contextlib.contextmanager
 def _prefill_attention(fn):
-    """Prefill attention computed by `fn(q, k, v)` inside the block: the
-    plain route and the planted faults the kernel route is held against
-    (the port has no option for this; decode is untouched)."""
+    """Prefill attention computed by `fn(q, k, v, causal)` inside the
+    block: the plain route and the planted faults the kernel route is held
+    against (the port has no option for this; decode is untouched). Every
+    caller of `attention_core` sees it: GQA, MLA and the cross-attention
+    layers (which import the module, not the name)."""
     from repro_torch.models import attention as attn_mod
     core = attn_mod.attention_core
-    attn_mod.attention_core = lambda q, k, v, **_: fn(q, k, v)
+    attn_mod.attention_core = lambda q, k, v, *, causal, **_: fn(
+        q, k, v, causal)
     try:
         yield
     finally:
         attn_mod.attention_core = core
 
 
+def _plain_attention(q, k, v, causal=True):
+    from repro_torch.models.attention import ref_attention
+    return ref_attention(q, k, v, causal=causal)
+
+
 def _masked_attention(mask_of):
     """Plain attention (the reference's formula) under the (Sq, Sk) mask
-    `mask_of(S, device)` in place of the causal one."""
+    `mask_of(S, device)` in place of the causal one; non-causal calls (the
+    cross-attention) are left plain."""
     import torch
 
-    def attend(q, k, v):
+    def attend(q, k, v, causal=True):
+        if not causal:
+            return _plain_attention(q, k, v, causal=False)
         B, S, Hq, hd = q.shape
         Hkv = k.shape[2]
         qg = q.reshape(B, S, Hkv, Hq // Hkv, hd) * float(hd ** -0.5)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
         s = torch.where(mask_of(S, q.device), s, -1e30)
         p = torch.softmax(s, dim=-1).to(q.dtype)
-        return torch.einsum("bhgqk,bkhd->bqhgd", p, v).reshape(B, S, Hq, hd)
+        return torch.einsum("bhgqk,bkhd->bqhgd", p, v).reshape(
+            B, S, Hq, v.shape[-1])
     return attend
 
 
@@ -1587,7 +1692,6 @@ def phase_lm_serve(peaks: dict, cfg=None, batch: int = 8, prompt: int = 2048,
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
-    from repro_torch.models.attention import ref_attention
     cfg = cfg or get_config("qwen3-0.6b")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(DEVICE)
@@ -1651,7 +1755,7 @@ def phase_lm_serve(peaks: dict, cfg=None, batch: int = 8, prompt: int = 2048,
             hidden_rel_err=row_err.max().item(),
             argmax_agree=float((logits.argmax(-1) == full.argmax(-1))
                                .float().mean().item()))
-    plain = route(lambda q, k, v: ref_attention(q, k, v, causal=True))
+    plain = route(_plain_attention)
     controls = {name: route(_masked_attention(mask)) for name, mask in
                 (("mask_shifted", _shifted_mask),
                  ("late_block_dropped", _late_block_dropped))}
@@ -1812,6 +1916,7 @@ def phase_wkv6_kernels(peaks: dict, cases=WKV6_CASES) -> dict:
         # them; once one record in each of three traces in a row) and
         # the trace is taken again, up to eight times; a run in which two
         # cases need more than one retake fails
+        lost = PROFILER["sentinels_lost"]
         for retries in range(8):
             counts: dict = {}
             _, _, dev_s, _ = device_trace(
@@ -1832,6 +1937,7 @@ def phase_wkv6_kernels(peaks: dict, cases=WKV6_CASES) -> dict:
         row = dict(phase="wkv6_kernel", case=name, B=B, S=S, H=H, dh=dh,
                    chunk=ops.chunk_rows(S, chunk), passes=passes,
                    pass_events=events, trace_retries=retries,
+                   sentinels_lost=PROFILER["sentinels_lost"] - lost,
                    dtype=dtype, decay=decay,
                    state_scale=s0, max_abs_err=err, scaled_err=scaled,
                    tol=WKV6_TOL[dtype], checks=checks,
@@ -2419,6 +2525,7 @@ def phase_hybrid_serve(peaks: dict, cfg=None, batch: int = 8,
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd.ref import ssm_scan
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
     cfg = cfg or get_config("jamba-v0.1-52b").with_(n_layers=8)
@@ -2473,8 +2580,10 @@ def phase_hybrid_serve(peaks: dict, cfg=None, batch: int = 8,
     fops.reset_launches()
 
     layers = _hybrid_layers(model, tokens)
-    tf = _hybrid_teacher_forced(model, tokens)
-    routes = _hybrid_routes(model, tokens)
+    tf = _teacher_forced(model, tokens)
+    routes = _routes(model, tokens, _prefill_scan, ssm_scan, {
+        "state_zeroed_near_end": _scan_state_zeroed_near_end,
+        "skip_dropped": _scan_skip_dropped})
     sops.reset_launches()
     fops.reset_launches()
 
@@ -2582,55 +2691,70 @@ def _read(model, h, base, rows=None) -> dict:
                            .float().mean().item()))
 
 
-def _hybrid_routes(model, tokens) -> dict:
-    """The kernel route (its routing recorded) against the plain
-    ref.ssm_scan route and two planted faults, each with the kernel
+def _routes(model, tokens, swap, plain, faults: dict,
+            image_embeds=None) -> dict:
+    """The kernel route (its MoE routing recorded) against the plain route
+    (`swap(plain)`: `_prefill_scan` or `_prefill_attention`) and the
+    planted faults (`swap(fn)` for each of `faults`), each with the kernel
     route's routing replayed (`routing_flips`: the tokens of each MoE call
-    that it would have routed otherwise); and the plain route with its own
-    routing (`free`), read over every position and over the positions
-    that routed alike in every MoE layer (`alike_rows`)."""
+    that it would have routed otherwise); and, where the model has MoE
+    layers, the plain route with its own routing (`free`), read over every
+    position and over the positions that routed alike in every MoE layer
+    (`alike_rows`)."""
     import torch
-    from repro_torch.kernels.ssd.ref import ssm_scan
     log = []
     with _moe_routing(_recorded(log)):
-        base = model(tokens)[0]
+        base = model(tokens, image_embeds=image_embeds)[0]
 
-    def pinned(scan):
+    def pinned(fn):
         flips = []
-        with _prefill_scan(scan), \
-                _moe_routing(_replayed(lambda c: log[c], flips)):
-            h = model(tokens)[0]
+        with swap(fn), _moe_routing(_replayed(lambda c: log[c], flips)):
+            h = model(tokens, image_embeds=image_embeds)[0]
         return dict(_read(model, h, base), routing_flips=flips)
     out = dict(finite=bool(torch.isfinite(base).all().item()),
-               kernel_vs_plain=pinned(ssm_scan),
-               planted_faults={
-                   name: pinned(fn) for name, fn in (
-                       ("state_zeroed_near_end", _scan_state_zeroed_near_end),
-                       ("skip_dropped", _scan_skip_dropped))})
+               kernel_vs_plain=pinned(plain),
+               planted_faults={name: pinned(fn)
+                               for name, fn in faults.items()})
+    if not log:
+        return out
     own = []
-    with _prefill_scan(ssm_scan), _moe_routing(_recorded(own)):
-        h = model(tokens)[0]
-    flipped = [_flipped(a, b).reshape(tokens.shape) for a, b in zip(own, log)]
+    with swap(plain), _moe_routing(_recorded(own)):
+        h = model(tokens, image_embeds=image_embeds)[0]
+    flipped = [_flipped(a, b).reshape(tokens.shape[:2])
+               for a, b in zip(own, log)]
     alike = ~torch.stack(flipped).any(0)
     out["free"] = dict(_read(model, h, base),
                        routing_flips=[f.sum().item() for f in flipped],
                        alike_rows=_read(model, h, base, alike)[
                            "hidden_rel_err"],
-                       tokens=tokens.numel())
+                       tokens=tokens.shape[0] * tokens.shape[1])
     return out
 
 
-def _hybrid_teacher_forced(model, tokens, n_new: int = 16) -> dict:
-    """Prefill all but the last `n_new` tokens (the scan kernel), decode
-    those one by one (the plain selective_scan from the kernel's final
-    state), against a full prefill's last logits over max|logit|: with the
-    full prefill's routing replayed (`pinned`) and with the router's own
-    (`free`)."""
-    B, S = tokens.shape
+def _teacher_forced(model, tokens, n_new: int = 16,
+                    image_embeds=None) -> dict:
+    """Prefill all but the last `n_new` positions (the kernel), decode
+    those one by one (the plain decode paths over the caches), against a
+    full prefill's last logits over max|logit|: with the full prefill's
+    MoE routing replayed (`pinned`) and with the router's own (`free`;
+    the same run where the model has no MoE layer)."""
+    B, S = tokens.shape[:2]
     n0 = S - n_new
     log = []
     with _moe_routing(_recorded(log)):
-        full, _ = model.prefill(tokens, max_len=S)
+        full, _ = model.prefill(tokens, max_len=S, image_embeds=image_embeds)
+
+    def run():
+        logits, cache = model.prefill(tokens[:, :n0], max_len=S,
+                                      image_embeds=image_embeds)
+        for t in range(n0, S):
+            logits, cache = model.decode_step(tokens[:, t:t + 1], cache, t)
+        return (logits.float() - full.float()).abs().max().item() \
+            / full.float().abs().max().item()
+    if not log:
+        err = run()
+        return dict(pinned=dict(logits_rel_err=err, routing_flips=0),
+                    free=dict(logits_rel_err=err), decoded=n_new)
     n_moe, k = len(log), log[0].shape[-1]
     rows = [t.reshape(B, S, k) for t in log]
 
@@ -2639,18 +2763,333 @@ def _hybrid_teacher_forced(model, tokens, n_new: int = 16) -> dict:
         if step == 0:
             return rows[layer][:, :n0].reshape(B * n0, k)
         return rows[layer][:, n0 + step - 1]
-
-    def run():
-        logits, cache = model.prefill(tokens[:, :n0], max_len=S)
-        for t in range(n0, S):
-            logits, cache = model.decode_step(tokens[:, t:t + 1], cache, t)
-        return (logits.float() - full.float()).abs().max().item() \
-            / full.float().abs().max().item()
     flips = []
     with _moe_routing(_replayed(choices, flips)):
         pinned = run()
     return dict(pinned=dict(logits_rel_err=pinned, routing_flips=sum(flips)),
                 free=dict(logits_rel_err=run()), decoded=n_new)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the served model zoo: moe (DeepSeekMoE; MLA), vlm, audio
+# ---------------------------------------------------------------------------
+
+# the served families along two sound routes (the flash kernel vs the
+# plain attention over batch slices; the prefill's kernel vs decode's
+# plain paths over the caches), MoE routing replayed from the kernel
+# route, as lm_serve's and hybrid_serve's: last-position logits over
+# max|logit| and every position's final hidden row over its own max. A
+# route passes when both readings are within their limits; a planted
+# fault is caught when its route does not, i.e. when either reading is
+# beyond its limit. On an H100 the sound routes read <= 3.1 % (logits)
+# and 5.5 % (hidden rows), the faults >= 19.8 % on the hidden rows
+# (dropped block) and >= 115 % (shifted mask); the shifted mask leaves
+# the last query's own attention as it was (it has no next key), so at
+# 5 layers (mla_serve, vlm_serve) it moves the last logits by only
+# 3.3-4.5 %, under FAMILY_SERVE_TOL, while every other row moves by more
+# than its own size
+FAMILY_SERVE_TOL = 5e-2
+FAMILY_HIDDEN_TOL = 1e-1
+# MLA's absorbed decode against its expanded prefill, one layer, the last
+# position, over its max; the two faults `_mla_absorbed` plants must read
+# beyond it. On an H100 at mla_serve's inputs the sound decode reads
+# 0.0068 (bf16 rounding), the dropped RoPE score 0.375 and the scale
+# 1/sqrt(dn) 0.320: the limit leaves the first 3x and the faults 16x
+MLA_ABSORBED_TOL = 2e-2
+
+
+def _attn_layers(cfg) -> list:
+    """Every layer's kind, the first dense layers' included."""
+    return (["attn+mlp_first"] * cfg.first_dense_layers
+            + cfg.layer_kinds() * cfg.n_periods())
+
+
+def _family_bounds(model, cfg, batch: int, prompt: int, max_len: int,
+                   touched: float, peaks: dict) -> tuple[float, float]:
+    """(prefill, decode) least times. Prefill at the bf16 peak: each
+    weight a token uses once per token (an xattn layer's wk, wv once per
+    image token), the visible attention pairs at 2·(d_qk + d_v) each, the
+    head at the last position. Decode: every weight but the embedding and
+    the experts no token chose, read once a step, and the caches."""
+    D, V, K = cfg.d_model, cfg.vocab_size, cfg.n_codebooks or 1
+    counts = cfg.param_counts()
+    kinds = _attn_layers(cfg)
+    dqk = cfg.head_dim + (cfg.rope_head_dim if cfg.attn_type == "mla"
+                          else 0)
+    pair_ops = 2.0 * (dqk + cfg.vdim) * cfg.n_heads * batch
+    attn_ops = sum(pair_ops * (prompt * cfg.n_image_tokens if k == "xattn"
+                               else prompt * (prompt + 1) / 2)
+                   for k in kinds if k.startswith("attn") or k == "xattn")
+    n_x = kinds.count("xattn")
+    kv_w = 2 * D * cfg.kv_heads * cfg.head_dim
+    per_token = cfg.active_params() - counts["embed"] - counts["head"]
+    products = 2.0 * batch * (per_token * prompt
+                              + n_x * kv_w * (cfg.n_image_tokens - prompt))
+    prefill_ms = 1e3 * (products + attn_ops + 2.0 * D * V * K * batch) \
+        / peaks["bfloat16"]
+    embed = sum(p.numel() * p.element_size()
+                for p in model.embed.parameters())
+    weights = sum(p.numel() * p.element_size()
+                  for p in model.parameters()) - embed
+    caches = sum(t.numel() * t.element_size()
+                 for t in _leaves(model.init_cache(batch, max_len)))
+    n_moe = sum(k.endswith("+moe") for k in kinds)
+    untouched = n_moe * (cfg.n_experts - touched) * 3 * D \
+        * (cfg.d_expert or cfg.d_ff) * 2
+    return prefill_ms, 1e3 * (weights + caches - untouched) / peaks["bw"]
+
+
+@contextlib.contextmanager
+def _mla_queries(fault):
+    """MLA's queries (q_nope, q_rope) passed through `fault` inside the
+    block (the port has no option for this)."""
+    from repro_torch.models import mla
+    queries = mla._queries
+    mla._queries = lambda *a: fault(*queries(*a))
+    try:
+        yield
+    finally:
+        mla._queries = queries
+
+
+def _mla_absorbed(model, tokens) -> dict:
+    """The first MLA layer on its served inputs (the first dense layer's
+    norm1 of the embedded prompt): absorbed decode of the last position
+    over the latent cache of the others against the expanded prefill's
+    (the flash kernel's) output there, over its max (the reference's
+    test_mla_decode_matches_expanded, at full width in bf16); and the same
+    with two faults planted in decode alone: the RoPE score term dropped
+    (q_rope zeroed) and the scores scaled by 1/sqrt(dn) in place of
+    1/sqrt(dn + dr) (both query parts times sqrt((dn + dr)/dn))."""
+    import math
+    import torch
+    from repro_torch.models import mla
+    cfg = model.cfg
+    blk = model.prefix[0]
+    x = blk.norm1(model.embed(tokens))
+    B, S = x.shape[:2]
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(
+        B, S)
+    full, (ckv, kr) = mla.mla_forward(blk.attn, cfg, x, pos)
+    want = full[:, -1].float()
+
+    def rel_err(fault) -> float:
+        cache = (ckv.clone(), kr.clone())
+        for t in cache:  # the last position is decode's to write
+            t[:, S - 1:] = 0
+        with _mla_queries(fault):
+            step, _ = mla.mla_decode(blk.attn, cfg, x[:, S - 1:], cache,
+                                     S - 1)
+        return ((step[:, 0].float() - want).abs().max().item()
+                / want.abs().max().item())
+
+    c = math.sqrt((cfg.head_dim + cfg.rope_head_dim) / cfg.head_dim)
+    return dict(rel_err=rel_err(lambda qn, qr: (qn, qr)), positions=S,
+                planted_faults=dict(
+                    rope_score_dropped=rel_err(
+                        lambda qn, qr: (qn, torch.zeros_like(qr))),
+                    scale_sqrt_dn=rel_err(lambda qn, qr: (qn * c, qr * c))))
+
+
+def _serve_family(peaks: dict, phase: str, cfg, cut: dict, batch: int,
+                  prompt: int, new: int) -> dict:
+    """One served family at `cfg` (the cuts listed in `cut`), lm_serve's
+    traffic: `generate` for `batch` prompts of `prompt` tokens (MusicGen:
+    `encodec_tokens`' 4 codebooks with the delay pattern; the vision
+    model: `vision_embeddings`' image, uploaded once in bf16) and `new`
+    greedy tokens; its own steps read for flash launches (one per
+    attention layer in prefill, none in decode) and times; the same
+    prefill once more, warm; teacher-forced decode against the prefill;
+    the kernel route against the plain attention and two planted faults,
+    MoE routing replayed; tokens/s, peak memory, a traced idle share.
+    Returns the flash launches of the main path, by step."""
+    import numpy as np
+    import torch
+    from repro_torch.data.frontends import encodec_tokens, vision_embeddings
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import cdtype
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    model = build_model(cfg, device=DEVICE).init(gen)
+    gates = []
+    for period in model.periods:  # open the image layers (init shuts them)
+        for key, blk in period.items():
+            if key.endswith(":xattn"):
+                blk.xattn.gate.uniform_(0.5, 1.5, generator=gen)
+                gates.append(blk.xattn.gate.item())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if cfg.n_codebooks:
+        prompts = encodec_tokens(batch, prompt, cfg.vocab_size,
+                                 cfg.n_codebooks, seed=SEED)
+    else:
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    img = None
+    if cfg.family == "vlm":
+        img = torch.from_numpy(vision_embeddings(
+            batch, cfg.n_image_tokens, cfg.d_model, seed=SEED)).to(
+                dev, cdtype(cfg))
+    max_len = prompt + new
+    generate(model, prompts[:, :64], max_new=2, max_len=66,
+             image_embeds=img)  # warm cuBLAS
+
+    # the main path: counts set to 0 just before, read just after; its own
+    # steps note their launches and times, and the router's choices are
+    # kept (a list append: no launch, no sync) to count the experts decode
+    # reads
+    routing = []
+    with _probed_steps() as steps, _moe_routing(_recorded(routing)):
+        fops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model, prompts, max_new=new, max_len=max_len,
+                        image_embeds=img)
+        wall = time.perf_counter() - t0
+        launches = fops.LAUNCHES["flash"]
+    peak_bytes = torch.cuda.max_memory_allocated()
+    tokens = torch.from_numpy(prompts).to(dev)
+    prefill_warm_ms = _warm_prefill_ms(model, tokens, max_len, img)
+    prefills = [st for st in steps if st[0] == "prefill"]
+    decodes = [st for st in steps if st[0] == "decode"]
+    by_step = {kind: sum(st[1]["flash"] for st in sts)
+               for kind, sts in (("prefill", prefills), ("decode", decodes))}
+    prefill_ms = prefills[0][2].elapsed_time(prefills[0][3])
+    decode_ms = decodes[0][2].elapsed_time(decodes[-1][3]) / len(decodes)
+    kinds = _attn_layers(cfg)
+    n_moe = sum(k.endswith("+moe") for k in kinds)
+    touched = float(np.mean([len(torch.unique(idx))
+                             for idx in routing[n_moe:]])) if n_moe else 0.0
+    del routing
+
+    # the card's busy and idle share over the main path once more, traced
+    _, trace_wall, busy, by_name = device_trace(
+        lambda: generate(model, prompts, max_new=new, max_len=max_len,
+                         image_embeds=img))
+    fops.reset_launches()
+
+    tf = _teacher_forced(model, tokens, image_embeds=img)
+    routes = _routes(model, tokens, _prefill_attention,
+                     _sliced(_plain_attention), {
+                         "mask_shifted": _sliced(_masked_attention(
+                             _shifted_mask)),
+                         "late_block_dropped": _sliced(_masked_attention(
+                             _late_block_dropped))},
+                     image_embeds=img)
+    absorbed = _mla_absorbed(model, tokens) if cfg.attn_type == "mla" \
+        else None
+    fops.reset_launches()
+    prefill_bound_ms, decode_bound_ms = _family_bounds(
+        model, cfg, batch, prompt, max_len, touched, peaks)
+    n_params = model.n_params()
+    del model
+    torch.cuda.empty_cache()
+
+    n_attn = sum(k.startswith("attn") or k == "xattn" for k in kinds)
+    shape = (batch, new) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    row = dict(phase=phase, arch=cfg.name, n_layers=cfg.n_layers,
+               kinds=kinds if len(kinds) <= 8 else None, cut=cut,
+               n_params=n_params, dtype=cfg.dtype, batch=batch,
+               prompt=prompt, new_tokens=new, max_len=max_len,
+               image_tokens=None if img is None else cfg.n_image_tokens,
+               xattn_gates=gates or None, init_s=init_s,
+               generate_wall_s=wall, tokens_per_s=batch * new / wall,
+               flash_launches=dict(generate=launches, **by_step),
+               steps=dict(prefill=len(prefills), decode=len(decodes)),
+               prefill_ms=prefill_ms, prefill_warm_ms=prefill_warm_ms,
+               prefill_bound_ms=prefill_bound_ms,
+               decode_ms_per_token=decode_ms, decode_bound_ms=decode_bound_ms,
+               decode_experts_touched_per_layer=touched if n_moe else None,
+               decode_host_syncs_per_step=n_moe,
+               peak_memory_gb=peak_bytes / 1e9,
+               tokens_in_vocab=bool(0 <= toks.min()
+                                    and toks.max() < cfg.vocab_size),
+               token_shape=list(toks.shape), teacher_forced=tf,
+               routes=routes, mla_absorbed_vs_expanded=absorbed,
+               tol=FAMILY_SERVE_TOL, hidden_tol=FAMILY_HIDDEN_TOL,
+               absorbed_tol=MLA_ABSORBED_TOL,
+               traced=_traced(trace_wall, busy, by_name))
+    emit(row)
+    faults = routes["planted_faults"]
+    plain = routes["kernel_vs_plain"]
+    caught = all(f["logits_rel_err"] > FAMILY_SERVE_TOL
+                 or f["hidden_rel_err"] > FAMILY_HIDDEN_TOL
+                 for f in faults.values())
+    if not (launches == by_step["prefill"] == n_attn
+            and by_step["decode"] == 0
+            and len(prefills) == 1 and len(decodes) == new - 1
+            and routes["finite"] and row["tokens_in_vocab"]
+            and toks.shape == shape
+            and tf["pinned"]["logits_rel_err"] <= FAMILY_SERVE_TOL
+            and plain["logits_rel_err"] <= FAMILY_SERVE_TOL
+            and plain["hidden_rel_err"] <= FAMILY_HIDDEN_TOL and caught
+            and (absorbed is None
+                 or (absorbed["rel_err"] <= MLA_ABSORBED_TOL
+                     and all(e > MLA_ABSORBED_TOL for e in
+                             absorbed["planted_faults"].values())))
+            and (cfg.family != "vlm" or min(gates) > 0)):
+        raise AssertionError(f"{phase} failed: {row}")
+    return row["flash_launches"]
+
+
+def phase_moe_serve(peaks: dict, cfg=None, batch: int = 8,
+                    prompt: int = 2048, new: int = 32) -> dict:
+    """The moe family served at deepseek-moe-16b's full width and depth
+    (28 layers: one dense, d_ff 10,944; 27 MoE of 64 experts top-6 and 2
+    shared; 16 heads of 128; `cfg` and the sizes may be cut for a
+    rehearsal): 28 flash launches a prefill."""
+    from repro_torch.configs import get_config
+    cfg = cfg or get_config("deepseek-moe-16b")
+    return _serve_family(peaks, "moe_serve", cfg, {}, batch, prompt, new)
+
+
+def phase_mla_serve(peaks: dict, cfg=None, batch: int = 8,
+                    prompt: int = 2048, new: int = 32) -> dict:
+    """MLA served at deepseek-v2-236b's full width, its depth cut to the
+    dense first layer and 4 MoE layers (160 experts top-6, 2 shared;
+    latent 512, q rank 1,536, 128 heads of q/k 192 and v 128): 5 launches
+    of the (192, 128) flash instantiation a prefill, absorbed decode over
+    the (B, max_len, 512 + 64) latent cache."""
+    from repro_torch.configs import get_config
+    full = get_config("deepseek-v2-236b")
+    cfg = cfg or full.with_(n_layers=5)
+    return _serve_family(peaks, "mla_serve", cfg,
+                         dict(n_layers=[full.n_layers, cfg.n_layers]),
+                         batch, prompt, new)
+
+
+def phase_vlm_serve(peaks: dict, cfg=None, batch: int = 8,
+                    prompt: int = 2048, new: int = 32) -> dict:
+    """Cross-attention served at llama-3.2-vision-90b's full width, its
+    depth cut to one period (4 self-attention layers and 1 xattn layer,
+    64/8 heads of 128, d_ff 28,672) over `vision_embeddings`' (8, 1,024,
+    8,192) image; the xattn gate drawn nonzero from the seed (the
+    reference initialises it to 0, which would hide the image from every
+    check): 4 causal and 1 non-causal flash launches a prefill."""
+    from repro_torch.configs import get_config
+    full = get_config("llama-3.2-vision-90b")
+    cfg = cfg or full.with_(n_layers=full.cross_attn_period)
+    return _serve_family(peaks, "vlm_serve", cfg,
+                         dict(n_layers=[full.n_layers, cfg.n_layers],
+                              xattn_gate="U(0.5, 1.5) from the seed, not 0"),
+                         batch, prompt, new)
+
+
+def phase_audio_serve(peaks: dict, cfg=None, batch: int = 8,
+                      prompt: int = 2048, new: int = 32) -> dict:
+    """The audio family served at musicgen-large's full width and depth
+    (48 layers, 32 heads of 64) on `encodec_tokens`' (8, 2,048, 4)
+    prompts: 32 steps of 4 codebook tokens, 48 flash launches a
+    prefill."""
+    from repro_torch.configs import get_config
+    cfg = cfg or get_config("musicgen-large")
+    return _serve_family(peaks, "audio_serve", cfg, {}, batch, prompt, new)
 
 
 # ---------------------------------------------------------------------------
@@ -3799,10 +4238,10 @@ def ptxas_spills(log: str, entry: str) -> dict:
     return spills
 
 
-def flash_bf16_spills(log: str) -> dict:
-    """Spill bytes of each bfloat16 flash instantiation, by head dim."""
-    return {int(hd): v for hd, v in
-            ptxas_spills(log, r"flash_bf16_kernelILi(\d+)E").items()}
+def flash_spills(log: str, dtype: str) -> dict:
+    """Spill bytes of each flash instantiation of `dtype` ("bf16" or
+    "f32"), keyed "{q/k head dim}:{v head dim}"."""
+    return ptxas_spills(log, rf"flash_{dtype}_kernelILi(\d+)ELi(\d+)E")
 
 
 def gram_spills(log: str) -> dict:
@@ -3866,7 +4305,8 @@ def main() -> int:
     sources = ("gram", "spmm", "flash", "wkv6", "ssd")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         built = dict(zip(sources, pool.map(build.build, sources)))
-    spills = flash_bf16_spills(build.build_log("flash"))
+    spills = flash_spills(build.build_log("flash"), "bf16")
+    fspills = flash_spills(build.build_log("flash"), "f32")
     gspills = gram_spills(build.build_log("gram"))
     wspills = wkv6_spills(build.build_log("wkv6"))
     sspills = ssd_spills(build.build_log("ssd"))
@@ -3877,11 +4317,18 @@ def main() -> int:
                            build.build_log(src).splitlines()
                            if "registers" in ln or "spill" in ln]
                      for src in sources},
-              flash_bf16_spill_bytes=spills, gram_spill_bytes=gspills,
+              flash_bf16_spill_bytes=spills, flash_f32_spill_bytes=fspills,
+              gram_spill_bytes=gspills,
               wkv6_spill_bytes=wspills, ssd_spill_bytes=sspills,
               spmm_spill_bytes=mspills))
-    if sorted(spills) != [32, 64, 128] or any(spills.values()):
-        raise AssertionError(f"bf16 flash instantiations spill: {spills}")
+    pairs = ["128:128", "192:128", "32:32", "64:64"]
+    if sorted(spills) != pairs or any(spills.values()):
+        raise AssertionError(f"bf16 flash instantiations spill (or are not "
+                             f"all built): {spills}")
+    # MLA's float32 instantiation (a new shape of the FMA kernel)
+    if sorted(fspills) != pairs or fspills["192:128"]:
+        raise AssertionError(f"the float32 (192, 128) flash instantiation "
+                             f"spills (or is not built): {fspills}")
     # 2 tile widths x 2 copy widths of each
     if len(gspills) != 8 or any(gspills.values()):
         raise AssertionError(f"gram f64/bf16 partial kernels spill: "
@@ -3906,32 +4353,49 @@ def main() -> int:
     # the WKV6 phase counts each call's kernels in profiler traces: it
     # runs first, since after a hundred earlier traces in one process the
     # profiler was seen to drop one record of every trace of a case (on
-    # an H100, two runs in a row; the phase alone never did)
-    wkv6_row = phase_wkv6_kernels(peaks)
-    main_rows = phase_kernels(peaks)
-    sparse_rows = phase_sparse_kernels(peaks)
-    flash_row = phase_flash_kernels(peaks)
-    ssm_row = phase_ssm_kernels(peaks)
-    batched_rows = phase_batched_kernels(peaks)
-    phase_quickstart()
-    launches = phase_lmds()
-    pipe_launches = phase_pipeline()
-    phase_steplm()
-    fed_launches = phase_federated()
+    # an H100, two runs in a row); run first, it once lost the first
+    # record of every trace of its last case, which device_trace's
+    # sentinel now absorbs
+    seconds: dict = {}  # wall seconds of each phase
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__.removeprefix("phase_")] = \
+            time.perf_counter() - t
+        return out
+
+    wkv6_row = timed(phase_wkv6_kernels, peaks)
+    main_rows = timed(phase_kernels, peaks)
+    sparse_rows = timed(phase_sparse_kernels, peaks)
+    flash_rows = timed(phase_flash_kernels, peaks)
+    ssm_row = timed(phase_ssm_kernels, peaks)
+    batched_rows = timed(phase_batched_kernels, peaks)
+    timed(phase_quickstart)
+    launches = timed(phase_lmds)
+    pipe_launches = timed(phase_pipeline)
+    timed(phase_steplm)
+    fed_launches = timed(phase_federated)
     _LMDS_POINT.clear()
-    sparse_launches = phase_sparse_lm()
-    algo_launches = phase_algorithms()
-    phase_cleaning()
-    phase_rand()
-    grid_launches = phase_grid_search()
-    sparse_grid = phase_sparse_grid(peaks)
-    cv_launches = phase_cv()
-    life_launches = phase_lifecycle_pipeline()
-    csv_launches = phase_csv_stream()
-    plan_launches = phase_serve_plan()
-    serve_launches = phase_lm_serve(peaks)
-    rwkv_launches = phase_rwkv_serve(peaks)
-    hybrid_launches = phase_hybrid_serve(peaks)
+    sparse_launches = timed(phase_sparse_lm)
+    algo_launches = timed(phase_algorithms)
+    timed(phase_cleaning)
+    timed(phase_rand)
+    grid_launches = timed(phase_grid_search)
+    sparse_grid = timed(phase_sparse_grid, peaks)
+    cv_launches = timed(phase_cv)
+    life_launches = timed(phase_lifecycle_pipeline)
+    csv_launches = timed(phase_csv_stream)
+    plan_launches = timed(phase_serve_plan)
+    serve_launches = timed(phase_lm_serve, peaks)
+    rwkv_launches = timed(phase_rwkv_serve, peaks)
+    hybrid_launches = timed(phase_hybrid_serve, peaks)
+    family_launches = dict(moe_serve=timed(phase_moe_serve, peaks),
+                           mla_serve=timed(phase_mla_serve, peaks),
+                           vlm_serve=timed(phase_vlm_serve, peaks),
+                           audio_serve=timed(phase_audio_serve, peaks))
+    emit(dict(phase="timing", seconds=seconds,
+              total_s=time.perf_counter() - t0, profiler=PROFILER))
 
     kernels = []
     for kind, line in (("gram", 49), ("xtv", 83)):
@@ -4019,12 +4483,17 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             bound_dense_ms=r["bound_dense_ms"], library_ms=r["library_ms"],
             excess_ms_by_path={p: excess(p, k) for p, k in by_path.items()}))
-    r = flash_row
+    r = flash_rows[FLASH_CASES[0][0]]
     flash_by_path = dict(
         lm_serve_prefill=serve_launches["prefill"],
         lm_serve_decode=serve_launches["decode"],
         hybrid_serve_prefill=hybrid_launches["prefill"]["flash"],
         hybrid_serve_decode=hybrid_launches["decode"]["flash"])
+    for path, fl in family_launches.items():
+        flash_by_path[f"{path}_prefill"] = fl["prefill"]
+        flash_by_path[f"{path}_decode"] = fl["decode"]
+    # MLA's (192, 128) instantiation at deepseek-v2-236b's prefill shape
+    m = flash_rows[FLASH_MLA_CASE]
     kernels.append(dict(
         name="flash", route="cuda", source="src/repro_torch/csrc/flash.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:83",
@@ -4032,7 +4501,13 @@ def main() -> int:
         launches_by_path=flash_by_path,
         max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-        bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        instantiations={"192:128": dict(
+            case=m["case"], launches=family_launches["mla_serve"]["prefill"],
+            max_abs_err=m["max_abs_err"], ms=m["ms"],
+            device_ms=m["device_ms"], plain_ms=m["plain_ms"],
+            bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+            library_ms=m["library_ms"])}))
     r = wkv6_row
     kernels.append(dict(
         name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",

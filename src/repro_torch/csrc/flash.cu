@@ -4,10 +4,14 @@
 // Replaces the Pallas TPU kernel of
 // src/repro/kernels/flash_attention/kernel.py: flash_pallas (_flash_kernel).
 // It computes what that kernel computes, not block for block:
-//   * q is (B, Sq, Hq, hd), k and v are (B, Sk, Hkv, hd), read and written
-//     through their (B, S, H) strides (the head dim contiguous), so the
-//     reference's transpose to (B*H, S, hd) is never made; kv head =
-//     q head / G with G = Hq / Hkv;
+//   * q is (B, Sq, Hq, dqk), k (B, Sk, Hkv, dqk) and v (B, Sk, Hkv, dv),
+//     read and written through their (B, S, H) strides (the head dim
+//     contiguous), so the reference's transpose to (B*H, S, hd) is never
+//     made; kv head = q head / G with G = Hq / Hkv. dv is dqk, except for
+//     MLA (DeepSeek-V2), whose heads are dqk 192 (128 + a 64-wide RoPE part)
+//     and dv 128: the reference pads v to 192 and slices the output back,
+//     this kernel reads v at its own width (a third less PV work, and the
+//     output registers of dv 128);
 //   * the online-softmax state m, l and the accumulator stay in float32;
 //     the scale multiplies the float32 scores; masked scores are
 //     NEG_INF = -1e30 (not -inf); p is cast to v's dtype before the PV
@@ -46,8 +50,11 @@
 // 65,536 / 384) and holds the consumers' code to that cap even where
 // setmaxnreg.inc asks for 240; at hd 128, with kv tiles of 128 rows, the
 // consumer needs more (two 64 x 128 float32 accumulators and P) and
-// spills. So no setmaxnreg is issued, and BN is 64 at hd 128 (128 at hd 32
-// and 64, which fit).
+// spills. So no setmaxnreg is issued, and BN is 64 at dv 128 (128 at hd 32
+// and 64, which fit). The (192, 128) instantiation holds what (128, 128)
+// holds in registers: S's k-loop takes 12 steps over three 64-column
+// panels of Q and K in place of 8 over two, and the tiles (Q 48 KB, two
+// stages of K 24 KB and V 16 KB) take 129 KB of shared memory.
 //
 // The float32 instantiation (a check of the algorithm at full precision;
 // TF32 would round the inputs) runs on the FMA pipes: four threads per q
@@ -104,22 +111,27 @@ constexpr int STAGES = 2;  // K/V ring depth
 constexpr int CONSUMERS = 128 * NWG;  // threads of the consumer warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 
-// Shared-memory tiles for head dim HD. TMA writes each tile as panels of
-// PW columns (the swizzle span: 128 bytes, or 64 at hd 32), each panel
-// rows x PW, 1024-byte aligned, in the hardware's swizzled order; the
-// wgmma descriptors read the same layout.
-template <int HD>
+// Shared-memory tiles for q/k head dim DQK and v head dim DV. TMA writes
+// each tile as panels of PW columns (the swizzle span: 128 bytes, or 64 at
+// hd 32), each panel rows x PW, 1024-byte aligned, in the hardware's
+// swizzled order; the wgmma descriptors read the same layout. A ring stage
+// holds one K tile and then one V tile.
+template <int DQK, int DV>
 struct Tile {
-  // kv rows per tile: 128, but 64 at hd 128, where a 64 x 128 float32 S
+  // kv rows per tile: 128, but 64 at dv 128, where a 64 x 128 float32 S
   // beside the 64 x 128 accumulator spills (ptxas holds this kernel to
   // 168 registers a thread)
-  static constexpr int BN = HD == 128 ? 64 : 128;
-  static constexpr int PW = HD < 64 ? HD : 64;  // columns per panel
+  static constexpr int BN = DV == 128 ? 64 : 128;
+  static constexpr int PW = DQK < 64 ? DQK : 64;  // columns per panel
+  static_assert((DV < 64 ? DV : 64) == PW && DQK % PW == 0 && DV % PW == 0,
+                "q/k and v tiles share one panel width");
   static constexpr int SW = PW * 2;  // swizzle span and row pitch, bytes
   static constexpr int LAYOUT = SW == 128 ? 1 : 2;  // descriptor: 128B / 64B
-  static constexpr uint32_t Q_BYTES = BM * HD * 2;
-  static constexpr uint32_t KV_BYTES = BN * HD * 2;  // one K or one V tile
-  static constexpr uint32_t SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+  static constexpr uint32_t Q_BYTES = BM * DQK * 2;
+  static constexpr uint32_t K_BYTES = BN * DQK * 2;  // one K tile
+  static constexpr uint32_t V_BYTES = BN * DV * 2;   // one V tile
+  static constexpr uint32_t STAGE_BYTES = K_BYTES + V_BYTES;
+  static constexpr uint32_t SMEM = Q_BYTES + STAGES * STAGE_BYTES + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -311,28 +323,29 @@ __device__ __forceinline__ void wgmma_qk(float* s, uint64_t da, uint64_t db,
   else wgmma_ss_n64(s, da, db, a_off, b_off, acc);
 }
 
-template <int HD>
+template <int DV>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t a[4], uint64_t db,
                                          uint32_t b_off) {
-  if constexpr (HD == 128) wgmma_rs_n128(o, a, db, b_off);
-  else if constexpr (HD == 64) wgmma_rs_n64(o, a, db, b_off);
+  if constexpr (DV == 128) wgmma_rs_n128(o, a, db, b_off);
+  else if constexpr (DV == 64) wgmma_rs_n64(o, a, db, b_off);
   else wgmma_rs_n32(o, a, db, b_off);
 }
 
 // Issue (and commit, not wait for) S = Q K^T of kv tile j: this
 // warpgroup's 64 q rows (Q's descriptor base q_desc) against the BN keys of
 // the tile's ring stage, once the tile has landed.
-template <int HD>
-__device__ __forceinline__ void issue_qk(float (&s)[Tile<HD>::BN / 2], uint64_t q_desc,
-                                         uint8_t* kvs, uint64_t* full_k, int j) {
-  using T = Tile<HD>;
+template <int DQK, int DV>
+__device__ __forceinline__ void issue_qk(float (&s)[Tile<DQK, DV>::BN / 2],
+                                         uint64_t q_desc, uint8_t* kvs,
+                                         uint64_t* full_k, int j) {
+  using T = Tile<DQK, DV>;
   const int st = j % STAGES;
   mbar_wait(&full_k[st], (j / STAGES) & 1);
-  const uint64_t k_desc = desc(smem_u32(kvs + 2 * st * T::KV_BYTES), 16,
+  const uint64_t k_desc = desc(smem_u32(kvs + st * T::STAGE_BYTES), 16,
                                8 * T::SW, T::LAYOUT);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < DQK / 16; ++kk) {
     const uint32_t col = (kk * 16 % T::PW) * 2, panel = kk * 16 / T::PW;
     wgmma_qk<T::BN>(s, q_desc, k_desc, (panel * BM * T::SW + col) >> 4,
                     (panel * T::BN * T::SW + col) >> 4, kk > 0);
@@ -357,12 +370,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Accumulator layout of wgmma m64nN (w = warp in the warpgroup,
 // g = lane / 4, t = lane % 4): d[4j + e] is row 16w + g + 8 (e >= 2),
 // column 8j + 2t + (e & 1).
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const Params p) {
-  using T = Tile<HD>;
+  using T = Tile<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
   uint64_t* full_q = bars;
@@ -371,7 +384,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* empty = bars + 1 + 2 * STAGES;
   uint8_t* qs = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* kvs = qs + T::Q_BYTES;  // stage s: K at 2s, V at 2s + 1 tiles
+  uint8_t* kvs = qs + T::Q_BYTES;  // stage s: K, then V, at s * STAGE_BYTES
 
   const int m0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest sweeps first
   const int hq = blockIdx.y, b = blockIdx.z, hk = hq / p.G;
@@ -395,20 +408,20 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == CONSUMERS) {
       mbar_expect_tx(full_q, T::Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < HD; c += T::PW)
+      for (int c = 0; c < DQK; c += T::PW)
         tma_load(smem_u32(qs) + c / T::PW * BM * T::SW, &tq, c, hq, m0, b, full_q);
       for (int j = 0; j < n_kv; ++j) {
         const int st = j % STAGES;
         mbar_wait(&empty[st], ((j / STAGES) & 1) ^ 1);  // round 0 passes
-        const uint32_t kdst = smem_u32(kvs + (2 * st) * T::KV_BYTES);
-        const uint32_t vdst = kdst + T::KV_BYTES;
-        mbar_expect_tx(&full_k[st], T::KV_BYTES);
+        const uint32_t kdst = smem_u32(kvs + st * T::STAGE_BYTES);
+        const uint32_t vdst = kdst + T::K_BYTES;
+        mbar_expect_tx(&full_k[st], T::K_BYTES);
 #pragma unroll
-        for (int c = 0; c < HD; c += T::PW)
+        for (int c = 0; c < DQK; c += T::PW)
           tma_load(kdst + c / T::PW * T::BN * T::SW, &tk, c, hk, j * T::BN, b, &full_k[st]);
-        mbar_expect_tx(&full_v[st], T::KV_BYTES);
+        mbar_expect_tx(&full_v[st], T::V_BYTES);
 #pragma unroll
-        for (int c = 0; c < HD; c += T::PW)
+        for (int c = 0; c < DV; c += T::PW)
           tma_load(vdst + c / T::PW * T::BN * T::SW, &tv, c, hk, j * T::BN, b, &full_v[st]);
       }
     }
@@ -423,11 +436,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const uint64_t q_desc = desc(smem_u32(qs) + wg * 64 * T::SW, 16, 8 * T::SW, T::LAYOUT);
     constexpr int NT = T::BN / 8;  // 8-column tiles of S
 
-    float s[T::BN / 2], o[HD / 2];
+    float s[T::BN / 2], o[DV / 2];
 #pragma unroll
     for (int i = 0; i < T::BN / 2; ++i) s[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
     uint32_t pf[T::BN / 16][4];
 
@@ -435,7 +448,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     // score takes one exp2 (MUFU ex2) in place of expf's longer sequence
     const float sc = p.scale * 1.4426950408889634f;
     mbar_wait(full_q, 0);
-    issue_qk<HD>(s, q_desc, kvs, full_k, 0);
+    issue_qk<DQK, DV>(s, q_desc, kvs, full_k, 0);
     wgmma_wait<0>();
     reg_fence(s);
     for (int j = 0; j < n_kv; ++j) {
@@ -481,7 +494,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         l_run[h] = l_run[h] * alpha[h] + sum[h];
       }
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       // P (bf16) as A fragments: k-step kk is S's 8-column tiles 2kk, 2kk+1
 #pragma unroll
       for (int kk = 0; kk < T::BN / 16; ++kk) {
@@ -493,17 +506,17 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 
       // O += P V: V's rows are the k dimension, its columns (N) contiguous
       mbar_wait(&full_v[st], (j / STAGES) & 1);
-      const uint64_t v_desc = desc(smem_u32(kvs + (2 * st + 1) * T::KV_BYTES),
+      const uint64_t v_desc = desc(smem_u32(kvs + st * T::STAGE_BYTES + T::K_BYTES),
                                    T::BN * T::SW, 8 * T::SW, T::LAYOUT);
       reg_fence(o);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < T::BN / 16; ++kk)
-        wgmma_pv<HD>(o, pf[kk], v_desc, kk * 16 * T::SW >> 4);
+        wgmma_pv<DV>(o, pf[kk], v_desc, kk * 16 * T::SW >> 4);
       wgmma_commit();
       // the next tile's scores run on the tensor cores right behind it
       if (j + 1 < n_kv) {
-        issue_qk<HD>(s, q_desc, kvs, full_k, j + 1);
+        issue_qk<DQK, DV>(s, q_desc, kvs, full_k, j + 1);
         wgmma_wait<1>();
       } else {
         wgmma_wait<0>();
@@ -518,7 +531,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + b * p.osb + hq * p.osh;
     const float d0 = fmaxf(l_run[0], 1e-30f), d1 = fmaxf(l_run[1], 1e-30f);
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       const int col = i * 8 + 2 * t;
       if (r0 < p.Sq)
         *reinterpret_cast<uint32_t*>(out + r0 * p.oss + col) =
@@ -536,12 +549,13 @@ constexpr int F_BM = 64;       // q rows per CTA
 constexpr int F_BN = 32;       // kv rows per block
 constexpr int F_THREADS = 256; // four per q row
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(F_THREADS)
 flash_f32_kernel(const Params p) {
-  constexpr int V4 = HD / 16;  // float4s per thread per row: a quarter of hd
-  constexpr int RV = HD / 4;   // float4s per row
-  __shared__ __align__(16) float4 ks[F_BN * RV];
+  // float4s per thread per row (a quarter of the head dim) and per row, of
+  // q/k and of v
+  constexpr int QV4 = DQK / 16, OV4 = DV / 16, RK = DQK / 4, RV = DV / 4;
+  __shared__ __align__(16) float4 ks[F_BN * RK];
   __shared__ __align__(16) float4 vs[F_BN * RV];
 
   const int m0 = (gridDim.x - 1 - blockIdx.x) * F_BM;
@@ -553,29 +567,31 @@ flash_f32_kernel(const Params p) {
   const float* v = static_cast<const float*>(p.v) + b * p.vsb + hk * p.vsh;
 
   // this thread's float4s of q: part, part + 4, ... (conflict-free reads)
-  float4 qv[V4], acc[V4];
+  float4 qv[QV4], acc[OV4];
 #pragma unroll
-  for (int i = 0; i < V4; ++i) {
+  for (int i = 0; i < QV4; ++i)
     qv[i] = row < p.Sq
         ? reinterpret_cast<const float4*>(q + row * p.qss)[part + 4 * i]
         : make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+#pragma unroll
+  for (int i = 0; i < OV4; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   float m_run = NEG_INF, l_run = 0.f;
 
   const int n_kv = visible_blocks(p, m0, F_BM, F_BN);
   for (int j = 0; j < n_kv; ++j) {
     const int n0 = j * F_BN;
     __syncthreads();
+    for (int c = tid; c < F_BN * RK; c += F_THREADS) {
+      const int r = c / RK, cc = c % RK;
+      ks[c] = n0 + r < p.Sk
+          ? reinterpret_cast<const float4*>(k + (n0 + r) * p.kss)[cc]
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
     for (int c = tid; c < F_BN * RV; c += F_THREADS) {
       const int r = c / RV, cc = c % RV;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (n0 + r < p.Sk) {
-        kx = reinterpret_cast<const float4*>(k + (n0 + r) * p.kss)[cc];
-        vx = reinterpret_cast<const float4*>(v + (n0 + r) * p.vss)[cc];
-      }
-      ks[c] = kx;
-      vs[c] = vx;
+      vs[c] = n0 + r < p.Sk
+          ? reinterpret_cast<const float4*>(v + (n0 + r) * p.vss)[cc]
+          : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     __syncthreads();
 
@@ -585,8 +601,8 @@ flash_f32_kernel(const Params p) {
     for (int n = 0; n < F_BN; ++n) {
       float d = 0.f;
 #pragma unroll
-      for (int i = 0; i < V4; ++i) {
-        const float4 kx = ks[n * RV + part + 4 * i];
+      for (int i = 0; i < QV4; ++i) {
+        const float4 kx = ks[n * RK + part + 4 * i];
         d = fmaf(qv[i].x, kx.x, d);
         d = fmaf(qv[i].y, kx.y, d);
         d = fmaf(qv[i].z, kx.z, d);
@@ -611,13 +627,13 @@ flash_f32_kernel(const Params p) {
     }
     l_run = l_run * alpha + sum;
 #pragma unroll
-    for (int i = 0; i < V4; ++i) {
+    for (int i = 0; i < OV4; ++i) {
       acc[i].x *= alpha; acc[i].y *= alpha; acc[i].z *= alpha; acc[i].w *= alpha;
     }
 #pragma unroll
     for (int n = 0; n < F_BN; ++n) {
 #pragma unroll
-      for (int i = 0; i < V4; ++i) {
+      for (int i = 0; i < OV4; ++i) {
         const float4 vx = vs[n * RV + part + 4 * i];
         acc[i].x = fmaf(s[n], vx.x, acc[i].x);
         acc[i].y = fmaf(s[n], vx.y, acc[i].y);
@@ -632,7 +648,7 @@ flash_f32_kernel(const Params p) {
                                             hq * p.osh + row * p.oss);
     const float d = fmaxf(l_run, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < V4; ++i)
+    for (int i = 0; i < OV4; ++i)
       out[part + 4 * i] = make_float4(acc[i].x / d, acc[i].y / d, acc[i].z / d, acc[i].w / d);
   }
 }
@@ -666,32 +682,33 @@ EncodeTiled encoder() {
 }
 
 // A 4-D (hd, H, S, B) bf16 tensor map over the tensor's own strides
-// (elements), whose box is one swizzle panel of `rows` sequence rows of
-// one head of one batch.
-template <int HD>
-int encode(CUtensorMap* map, const void* base, int H, int S, int B,
+// (elements), whose box is one swizzle panel (T::PW columns) of `rows`
+// sequence rows of one head of one batch.
+template <class T>
+int encode(CUtensorMap* map, const void* base, int hd, int H, int S, int B,
            int64_t sh, int64_t ss, int64_t sb, int rows) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)S,
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)Tile<HD>::PW, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)T::PW, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                   const_cast<void*>(base), dims, strides, box, unit,
                   CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  Tile<HD>::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                      : CU_TENSOR_MAP_SWIZZLE_64B,
+                  T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : CU_TENSOR_MAP_SWIZZLE_64B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // zeros past the edge
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int HD>
+template <int DQK, int DV>
 int launch_bf16(const Params& p, int B, int Hq, int Hkv, cudaStream_t st) {
-  auto kernel = flash_bf16_kernel<HD>;
+  using T = Tile<DQK, DV>;
+  auto kernel = flash_bf16_kernel<DQK, DV>;
   // once per device: the dynamic shared memory beyond 48 KB
   static bool ready[64];
   int dev = 0;
@@ -699,25 +716,25 @@ int launch_bf16(const Params& p, int B, int Hq, int Hkv, cudaStream_t st) {
     return (int)cudaErrorInvalidDevice;
   if (!ready[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<HD>::SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return (int)e;
     ready[dev] = true;
   }
   CUtensorMap tq, tk, tv;
-  int rc = encode<HD>(&tq, p.q, Hq, p.Sq, B, p.qsh, p.qss, p.qsb, BM);
-  if (rc == 0) rc = encode<HD>(&tk, p.k, Hkv, p.Sk, B, p.ksh, p.kss, p.ksb, Tile<HD>::BN);
-  if (rc == 0) rc = encode<HD>(&tv, p.v, Hkv, p.Sk, B, p.vsh, p.vss, p.vsb, Tile<HD>::BN);
+  int rc = encode<T>(&tq, p.q, DQK, Hq, p.Sq, B, p.qsh, p.qss, p.qsb, BM);
+  if (rc == 0) rc = encode<T>(&tk, p.k, DQK, Hkv, p.Sk, B, p.ksh, p.kss, p.ksb, T::BN);
+  if (rc == 0) rc = encode<T>(&tv, p.v, DV, Hkv, p.Sk, B, p.vsh, p.vss, p.vsb, T::BN);
   if (rc != 0) return rc;
   dim3 grid((p.Sq + BM - 1) / BM, Hq, B);
-  flash_bf16_kernel<HD><<<grid, THREADS, Tile<HD>::SMEM, st>>>(tq, tk, tv, p);
+  flash_bf16_kernel<DQK, DV><<<grid, THREADS, T::SMEM, st>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int DQK, int DV>
 int launch(int dtype, const Params& p, int B, int Hq, int Hkv, cudaStream_t st) {
-  if (dtype == kBF16) return launch_bf16<HD>(p, B, Hq, Hkv, st);
+  if (dtype == kBF16) return launch_bf16<DQK, DV>(p, B, Hq, Hkv, st);
   dim3 grid((p.Sq + F_BM - 1) / F_BM, Hq, B);
-  flash_f32_kernel<HD><<<grid, F_THREADS, 0, st>>>(p);
+  flash_f32_kernel<DQK, DV><<<grid, F_THREADS, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -725,11 +742,12 @@ int launch(int dtype, const Params& p, int B, int Hq, int Hkv, cudaStream_t st) 
 
 extern "C" {
 
-// q (B, Sq, Hq, hd), k/v (B, Sk, Hkv, hd), o like q; strides in elements
-// (batch, sequence, head; the head dim is contiguous). Returns a CUDA error
-// code (0 on a successful launch).
+// q (B, Sq, Hq, hd), k (B, Sk, Hkv, hd), v (B, Sk, Hkv, dv), o (B, Sq, Hq,
+// dv); strides in elements (batch, sequence, head; the head dim is
+// contiguous). (hd, dv) is one of (32, 32), (64, 64), (128, 128) and
+// (192, 128). Returns a CUDA error code (0 on a successful launch).
 int repro_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
-                    int B, int Sq, int Sk, int Hq, int Hkv, int hd,
+                    int B, int Sq, int Sk, int Hq, int Hkv, int hd, int dv,
                     int64_t qsb, int64_t qss, int64_t qsh,
                     int64_t ksb, int64_t kss, int64_t ksh,
                     int64_t vsb, int64_t vss, int64_t vsh,
@@ -742,10 +760,12 @@ int repro_flash_fwd(int dtype, const void* q, const void* k, const void* v, void
   Params p{q, k, v, o, Sq, Sk, Hq / Hkv, causal,
            qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 192 && dv == 128) return launch<192, 128>(dtype, p, B, Hq, Hkv, st);
+  if (hd != dv) return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 32: return launch<32>(dtype, p, B, Hq, Hkv, st);
-    case 64: return launch<64>(dtype, p, B, Hq, Hkv, st);
-    case 128: return launch<128>(dtype, p, B, Hq, Hkv, st);
+    case 32: return launch<32, 32>(dtype, p, B, Hq, Hkv, st);
+    case 64: return launch<64, 64>(dtype, p, B, Hq, Hkv, st);
+    case 128: return launch<128, 128>(dtype, p, B, Hq, Hkv, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -45,12 +45,16 @@ def params_from_reference(params: Mapping[str, Any], cfg,
     """The state dict of `repro_torch.models.Model(cfg)` holding the
     values of the reference's `Model.init` pytree `params` (nested dicts
     of numpy arrays, `periods` stacked on axis 0 under keys "{i}:{kind}",
-    weights laid out (d_in, d_out), which the port keeps; nested leaves
-    such as rwkv6's `ln_x.scale` become dotted names). The float32 values
-    are copied exactly; `load_state_dict` casts each to its parameter's
-    dtype, the reference's `astype(cfg.dtype)`, and keeps the leaves the
-    port holds in float32 (rwkv6's `w0`, `u`, `ln_x`; mamba's `dt_bias`,
-    `A_log`, `D_skip`) in float32."""
+    `prefix` a list of the first dense layers' dicts, weights laid out
+    (d_in, d_out), which the port keeps; nested leaves such as rwkv6's
+    `ln_x.scale` or MLA's `q_norm.scale` become dotted names, list items
+    their index: `prefix.0.attn.wkv_b_k`; the multi-codebook `embed.books`
+    (K, V, D) and `head.w` (K, D, V) keep their shapes). The float32
+    values are copied exactly; `load_state_dict` casts each to its
+    parameter's dtype, the reference's `astype(cfg.dtype)`, and keeps the
+    leaves the port holds in float32 (rwkv6's `w0`, `u`, `ln_x`; mamba's
+    `dt_bias`, `A_log`, `D_skip`; the xattn `gate`; the codebooks' tables)
+    in float32."""
     flat = dict(_flatten({k: v for k, v in params.items()
                           if k != "periods"}))
     n = cfg.n_periods()
@@ -66,10 +70,11 @@ def params_from_reference(params: Mapping[str, Any], cfg,
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
-    """(dotted path, leaf) pairs of a nested dict."""
-    for key, sub in tree.items():
-        path = f"{prefix}.{key}" if prefix else key
-        if isinstance(sub, Mapping):
+    """(dotted path, leaf) pairs of nested dicts and lists."""
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
+    for key, sub in items:
+        path = f"{prefix}.{key}" if prefix else str(key)
+        if isinstance(sub, (Mapping, list, tuple)):
             yield from _flatten(sub, path)
         else:
             yield path, np.asarray(sub)

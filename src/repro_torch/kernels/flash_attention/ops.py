@@ -1,7 +1,8 @@
 """Dispatching wrapper for flash attention.
 
 `flash_attention(q, k, v)` takes model-layout tensors (B, S, H, hd) with
-GQA kv heads and picks the path from the tensors' device:
+GQA kv heads, v's head dim `dv` either q's or, for MLA (q/k 192 = 128 +
+a 64-wide RoPE part), 128, and picks the path from the tensors' device:
   * CUDA — the hand-written sm_90a kernel of `repro_torch/csrc/flash.cu`
            (bfloat16 on tensor cores, float32 on FMA pipes), or an
            exception; there is no fallback to the plain version
@@ -26,9 +27,10 @@ from . import ref
 # One count per kernel launch; reset with `reset_launches()`.
 LAUNCHES = {"flash": 0}
 
-# the instantiations of flash.cu; float16 has none and is refused on the card
+# the instantiations of flash.cu, as (q/k head dim, v head dim); float16
+# has none and is refused on the card
 _DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
 _lib = None
 
 
@@ -44,7 +46,7 @@ def _library():
         lib = library("flash")
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_flash_fwd.argtypes = (
-            [i32, p, p, p, p, i32, i32, i32, i32, i32, i32]
+            [i32, p, p, p, p, i32, i32, i32, i32, i32, i32, i32]
             + [i64] * 12 + [i32, ctypes.c_float, p])
         lib.repro_flash_fwd.restype = ctypes.c_int
         _lib = lib
@@ -75,11 +77,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("flash_attention: q, k, v must share dtype and "
                         "device")
     B, Sq, Hq, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"flash_attention: shapes differ, q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in "
+    if (hd, v.shape[3]) not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} with v head dim "
+                         f"{v.shape[3]} is not one of the (q/k, v) pairs "
                          f"{_HEAD_DIMS}")
     if Hq % k.shape[2]:
         raise ValueError(f"flash_attention: {Hq} q heads do not group over "
@@ -91,11 +94,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
-    """softmax(QKᵀ/√hd + mask) V on the card (replaces `flash_pallas`)."""
+    """softmax(QKᵀ/√hd + mask) V on the card (replaces `flash_pallas`);
+    hd is q's head dim, the output takes v's."""
     _check(q, k, v, causal)
     B, Sq, Hq, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((B, Sq, Hq, dv), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0 or Hq == 0:
         return out
     if Sk == 0:
@@ -105,7 +109,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.repro_flash_fwd(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
+            out.data_ptr(), B, Sq, Sk, Hq, Hkv, hd, dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], int(causal),
             float(1.0 / math.sqrt(hd)), stream)
@@ -118,7 +122,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, Hq, hd); k/v: (B, Sk, Hkv, hd) -> (B, Sq, Hq, hd)."""
+    """q: (B, Sq, Hq, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, dv) ->
+    (B, Sq, Hq, dv)."""
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal)
     return flash_attention_cuda(q, k, v, causal=causal)

@@ -18,7 +18,8 @@ NEG_INF = -1e30
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, Hq, hd); k/v: (B, Sk, Hkv, hd); Hq % Hkv == 0."""
+    """q: (B, Sq, Hq, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, dv);
+    Hq % Hkv == 0. The scale is 1/√hd, q's width, whatever v's."""
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv

@@ -13,8 +13,9 @@ from repro_torch.models.model import Model
 
 
 def make_prefill_step(model: Model, *, max_len: int) -> Callable:
-    def prefill_step(tokens):
-        return model.prefill(tokens, max_len=max_len)
+    def prefill_step(tokens, image_embeds=None):
+        return model.prefill(tokens, max_len=max_len,
+                             image_embeds=image_embeds)
 
     return prefill_step
 

@@ -1,7 +1,8 @@
 """GQA attention with memory-safe chunked softmax + KV-cache decode.
 
-Port of `repro.models.attention` (the self-attention half). Execution
-paths for the core attention:
+Port of `repro.models.attention`: GQA self-attention and the
+cross-attention layer of the vision model. Execution paths for the core
+attention:
   * "flash"   — `kernels.flash_attention.ops`: on CUDA the hand-written
     Hopper kernel (`csrc/flash.cu`), on the CPU its plain version; the
     counterpart of the reference's "pallas"
@@ -11,7 +12,8 @@ paths for the core attention:
 On CUDA, prefill runs "flash" unless the caller names another path. On
 the CPU the reference's own choice stands: "flash" (its plain version)
 when `cfg.use_pallas`, else "chunked" for S > cfg.attn_chunk and "ref"
-otherwise, so the CPU parity tests compare like with like.
+otherwise, so the CPU parity tests compare like with like. Every path
+takes a v whose head dim differs from q's (MLA) and returns v's.
 
 Decode attends over the padded KV cache with position masking in plain
 torch (no Pallas kernel backs it in the reference). The cache is
@@ -211,4 +213,71 @@ def gqa_decode(p: GQA, cfg, x, cache: tuple, cur_len: int):
 def gqa_cache_spec(cfg, batch: int, max_len: int):
     """((shape, dtype), (shape, dtype)) of one layer's K and V cache."""
     shape = (batch, max_len, cfg.kv_heads, cfg.head_dim)
+    return ((shape, cdtype(cfg)), (shape, cdtype(cfg)))
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention layer (llama-3.2-vision image layers)
+# ---------------------------------------------------------------------------
+
+def xattn_init(gen: torch.Generator, cfg) -> dict:
+    """The reference's values: `gate` starts at 0 (tanh(0) = 0 keeps a
+    fresh model's image layers closed)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    return {"wq": dense_init(gen, d, cfg.n_heads * hd),
+            "wk": dense_init(gen, d, cfg.kv_heads * hd),
+            "wv": dense_init(gen, d, cfg.kv_heads * hd),
+            "wo": dense_init(gen, cfg.n_heads * hd, d),
+            "gate": torch.zeros((1,), dtype=torch.float32,
+                                device=gen.device)}
+
+
+class XAttn(nn.Module):
+    """Parameters of one cross-attention layer: wq/wk/wv/wo in the compute
+    dtype and the tanh `gate` (1,), which the reference uses in float32."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d, hd, dt = cfg.d_model, cfg.head_dim, cdtype(cfg)
+        for name, shape in (("wq", (d, cfg.n_heads * hd)),
+                            ("wk", (d, cfg.kv_heads * hd)),
+                            ("wv", (d, cfg.kv_heads * hd)),
+                            ("wo", (cfg.n_heads * hd, d))):
+            setattr(self, name, frozen(torch.zeros(shape, dtype=dt,
+                                                   device=device)))
+        self.gate = frozen(torch.zeros(1, dtype=torch.float32, device=device))
+
+    def reset_parameters(self, gen: torch.Generator, cfg) -> None:
+        load_(self, xattn_init(gen, cfg))
+
+
+def xattn_forward(p: XAttn, cfg, x, image_embeds, impl: Optional[str] = None):
+    """Cross-attend text states (B, S, D) to the image embeddings (B,
+    n_img, D), non-causal; returns (tanh(gate) · out, (k, v)), the image's
+    K/V (B, n_img, Hkv, hd) for the cache."""
+    B, S, _ = x.shape
+    kv_shape = (B, image_embeds.shape[1], cfg.kv_heads, cfg.head_dim)
+    q = (x @ p.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = (image_embeds @ p.wk).reshape(kv_shape)
+    v = (image_embeds @ p.wv).reshape(kv_shape)
+    out = attention_core(q, k, v, causal=False, cfg=cfg, impl=impl)
+    out = out.reshape(B, S, -1) @ p.wo
+    return torch.tanh(p.gate).to(x.dtype) * out, (k, v)
+
+
+def xattn_decode(p: XAttn, cfg, x, cache: tuple):
+    """x: (B, 1, D) against the cached image K/V through the plain
+    attention (as the reference's decode); returns tanh(gate) · out."""
+    B = x.shape[0]
+    k_img, v_img = cache
+    q = (x @ p.wq).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    out = ref_attention(q, k_img.to(x.dtype), v_img.to(x.dtype),
+                        causal=False)
+    return torch.tanh(p.gate).to(x.dtype) * (out.reshape(B, 1, -1) @ p.wo)
+
+
+def xattn_cache_spec(cfg, batch: int):
+    """((shape, dtype), (shape, dtype)) of one layer's image K and V (no
+    sequence axis: allocated at `cfg.n_image_tokens`)."""
+    shape = (batch, cfg.n_image_tokens, cfg.kv_heads, cfg.head_dim)
     return ((shape, cdtype(cfg)), (shape, cdtype(cfg)))

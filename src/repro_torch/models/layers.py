@@ -58,16 +58,18 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int) -> dict:
 
 
 def embedding_init(gen: torch.Generator, cfg) -> dict:
-    if cfg.n_codebooks:
-        raise NotImplementedError("multi-codebook embeddings (audio) wait "
-                                  "for their slice (ROADMAP Queue 1 item 14)")
+    if cfg.n_codebooks:  # musicgen: one table per codebook, summed
+        return {"books": torch.stack([
+            embed_init(gen, cfg.vocab_size, cfg.d_model)
+            for _ in range(cfg.n_codebooks)])}
     return {"tok": embed_init(gen, cfg.vocab_size, cfg.d_model)}
 
 
 def head_init(gen: torch.Generator, cfg) -> dict:
     if cfg.n_codebooks:
-        raise NotImplementedError("multi-codebook heads (audio) wait for "
-                                  "their slice (ROADMAP Queue 1 item 14)")
+        return {"w": torch.stack([
+            dense_init(gen, cfg.d_model, cfg.vocab_size, scale=0.02)
+            for _ in range(cfg.n_codebooks)])}
     return {"w": dense_init(gen, cfg.d_model, cfg.vocab_size, scale=0.02)}
 
 
@@ -154,10 +156,22 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 # -- Embedding + last-position head ----------------------------------------------
 
 class Embedding(nn.Module):
+    """`tok` (V, D) in the compute dtype, or for multi-codebook audio
+    `books` (K, V, D) in float32: the reference sums the K rows in float32
+    and casts once, and rows rounded before the sum would give other
+    bits."""
+
     def __init__(self, cfg, device=None):
         super().__init__()
-        self.tok = frozen(torch.zeros(cfg.vocab_size, cfg.d_model,
-                                      dtype=cdtype(cfg), device=device))
+        V, D = cfg.vocab_size, cfg.d_model
+        self.dtype = cdtype(cfg)
+        if cfg.n_codebooks:
+            self.books = frozen(torch.zeros(cfg.n_codebooks, V, D,
+                                            dtype=torch.float32,
+                                            device=device))
+        else:
+            self.tok = frozen(torch.zeros(V, D, dtype=self.dtype,
+                                          device=device))
 
     def reset_parameters(self, gen: torch.Generator, cfg) -> None:
         load_(self, embedding_init(gen, cfg))
@@ -167,16 +181,28 @@ class Embedding(nn.Module):
 
 
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) int. The reference gathers the float32 table and
-    casts; gathering the table held in the compute dtype is the same."""
-    return p.tok[tokens.long()]
+    """tokens: (B, S) int, or (B, S, K) for K codebooks. The reference
+    gathers the float32 table and casts; gathering the table held in the
+    compute dtype is the same. Codebooks: book k's row for k = 0, ..., K-1
+    summed in float32, then cast."""
+    tokens = tokens.long()
+    if hasattr(p, "books"):
+        out = p.books[0][tokens[..., 0]]
+        for k in range(1, p.books.shape[0]):
+            out = out + p.books[k][tokens[..., k]]
+        return out.to(p.dtype)
+    return p.tok[tokens]
 
 
 class Head(nn.Module):
+    """`w` (D, V), or (K, D, V) for K codebooks, in the compute dtype."""
+
     def __init__(self, cfg, device=None):
         super().__init__()
-        self.w = frozen(torch.zeros(cfg.d_model, cfg.vocab_size,
-                                    dtype=cdtype(cfg), device=device))
+        shape = (cfg.d_model, cfg.vocab_size)
+        if cfg.n_codebooks:
+            shape = (cfg.n_codebooks,) + shape
+        self.w = frozen(torch.zeros(shape, dtype=cdtype(cfg), device=device))
 
     def reset_parameters(self, gen: torch.Generator, cfg) -> None:
         load_(self, head_init(gen, cfg))
@@ -186,5 +212,8 @@ class Head(nn.Module):
 
 
 def logits_last(p, h_last: torch.Tensor) -> torch.Tensor:
-    """h_last: (B, D) -> logits (B, V) in the compute dtype."""
+    """h_last: (B, D) -> logits (B, V), or (B, K, V) for K codebooks, in
+    the compute dtype."""
+    if p.w.ndim == 3:
+        return torch.einsum("bd,kdv->bkv", h_last, p.w)
     return h_last @ p.w

@@ -1,29 +1,42 @@
-"""Model: init / prefill / decode for the dense, ssm and hybrid families.
+"""Model: init / prefill / decode for every family of the model zoo.
 
-Port of `repro.models.model` as an `nn.Module`. The layers are grouped
-into periods as in the reference (one "attn" layer per period for the
-dense family, one "rwkv6" layer for the ssm family, jamba's eight for the
-hybrid family: "mamba" and "mamba+moe" around one "attn"); `periods` is an
-`nn.ModuleList` of `nn.ModuleDict`s keyed "{i}:{kind}", so the module
-state mirrors the reference's pytree, with the stacked leading axis
-unrolled into the list. Caches keep the reference's structure and its
-stacked layout of `scan_layers`: {"prefix": [], "periods": {key: spec}}
-with each kind's cache spec a pytree of tensors carrying a leading
-(n_periods,) axis, e.g. "0:attn": (k, v) of shape (n_periods, B,
-max_len, Hkv, hd), "0:rwkv6": {"wkv": (n_periods, B, H, dh, dh) float32,
-"shift_tm", "shift_cm": (n_periods, B, 1, D)}, "1:mamba+moe": {"h":
-(n_periods, B, di, ds) float32, "conv": (n_periods, B, di, ck - 1)}.
+Port of `repro.models.model` as an `nn.Module`. The `first_dense_layers`
+(the deepseek models' leading "attn+mlp_first" layers) run first, one by
+one, as `prefix`; the other layers are grouped into periods as in the
+reference (one "attn" layer per period for the dense and audio families,
+one "attn+moe" for the moe family, one "rwkv6" for the ssm family,
+jamba's eight for the hybrid family: "mamba" and "mamba+moe" around one
+"attn"; the vision model's five: four "attn" and one "xattn"); `periods`
+is an `nn.ModuleList` of `nn.ModuleDict`s keyed "{i}:{kind}", so the
+module state mirrors the reference's pytree, with the stacked leading
+axis unrolled into the list. Caches keep the reference's structure and
+its stacked layout of `scan_layers`: {"prefix": [one cache per prefix
+layer], "periods": {key: spec}} with each kind's cache spec a pytree of
+tensors carrying a leading (n_periods,) axis, e.g. "0:attn": (k, v) of
+shape (n_periods, B, max_len, Hkv, hd) (under MLA (c_kv, k_rope) of
+(n_periods, B, max_len, kv_lora_rank) and (..., rope_head_dim)),
+"4:xattn": the image's (k, v) of (n_periods, B, n_image_tokens, Hkv, hd),
+"0:rwkv6": {"wkv": (n_periods, B, H, dh, dh) float32, "shift_tm",
+"shift_cm": (n_periods, B, 1, D)}, "1:mamba+moe": {"h": (n_periods, B,
+di, ds) float32, "conv": (n_periods, B, di, ck - 1)}.
 Prefill writes each layer's cache into the leading slots of every axis
 of caches allocated at `max_len` (the values the reference's
 `_pad_seq_caches` gives: leaves with a sequence axis are padded, state
 leaves are written whole); decode updates them in place.
 
+Tokens are (B, S), or (B, S, K) for the K codebooks of the audio family
+(decode: (B, 1, K)), whose logits are (B, K, V). The vision model takes
+`image_embeds` (B, n_image_tokens, D) at prefill; the port casts them to
+the compute dtype once, at entry. The reference in bf16 takes the image
+in bf16 only: a float32 image promotes its xattn output, and so the
+scanned residual, to float32, which its layer scan refuses. The cast
+gives the port that same bf16 image whatever dtype it is handed.
+
 The MoE layers' aux losses are summed over the layers, as in the
 reference (serving reads none of them).
 
 Entry points compute on CUDA unless the caller passes `device="cpu"`
-(`build_model`); the other families (moe, audio, vlm) raise
-`NotImplementedError`.
+(`build_model`).
 """
 from __future__ import annotations
 
@@ -37,7 +50,7 @@ from . import blocks
 from .config import ModelConfig
 from .layers import Embedding, Head, RMSNorm
 
-_PORTED = ("dense", "ssm", "hybrid")
+_PREFIX = "attn+mlp_first"  # the kind of the first dense layers
 
 
 def _is_spec(x) -> bool:
@@ -60,16 +73,13 @@ def _tree_map(fn, tree, *rest):
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family not in _PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
-                "port serves the dense, ssm and hybrid families (ROADMAP "
-                "Queue 1 item 14)")
         self.cfg = cfg
         self.kinds = cfg.layer_kinds()
         self.embed = Embedding(cfg, device)
         self.head = Head(cfg, device)
         self.final_norm = RMSNorm(cfg.d_model, device)
+        self.prefix = nn.ModuleList(blocks.Block(cfg, _PREFIX, device)
+                                    for _ in range(cfg.first_dense_layers))
         self.periods = nn.ModuleList(
             nn.ModuleDict({f"{i}:{kind}": blocks.Block(cfg, kind, device)
                            for i, kind in enumerate(self.kinds)})
@@ -77,7 +87,7 @@ class Model(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.tok.device
+        return self.final_norm.scale.device
 
     # ------------------------------------------------------------------
     # parameters
@@ -94,6 +104,8 @@ class Model(nn.Module):
         self.embed.reset_parameters(gen, cfg)
         self.head.reset_parameters(gen, cfg)
         self.final_norm.reset_parameters(gen)
+        for blk in self.prefix:
+            blk.reset_parameters(gen, cfg)
         for period in self.periods:
             for blk in period.values():
                 blk.reset_parameters(gen, cfg)
@@ -108,49 +120,70 @@ class Model(nn.Module):
     # prefill forward
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, *, collect_cache: bool = False,
-                max_len: Optional[int] = None):
+    def forward(self, tokens: torch.Tensor, *, image_embeds=None,
+                collect_cache: bool = False, max_len: Optional[int] = None):
         """Returns (h_final (B, S, D), aux_loss, caches-or-None). With
         `collect_cache`, caches are allocated at `max_len` (default S) and
         hold the prompt's K/V in their first S slots (and each recurrent
-        layer's final state)."""
+        layer's final state, each xattn layer's image K/V)."""
         cfg = self.cfg
         x = self.embed(tokens)
         B, S = x.shape[0], x.shape[1]
+        if image_embeds is not None:
+            image_embeds = torch.as_tensor(image_embeds).to(x.device, x.dtype)
+            if image_embeds.shape[1] != cfg.n_image_tokens:
+                raise ValueError(f"{cfg.name}: {image_embeds.shape[1]} image "
+                                 f"tokens, the config caches "
+                                 f"{cfg.n_image_tokens}")
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = self.init_cache(B, max_len or S) if collect_cache else None
+
+        def write(bufs, cache):  # the leading slots of each axis
+            _tree_map(lambda buf, t: buf[
+                tuple(slice(0, n) for n in t.shape)].copy_(t), bufs, cache)
+
+        for i, blk in enumerate(self.prefix):
+            x, aux, cache = blocks.block_forward(
+                blk, cfg, _PREFIX, x, positions, image_embeds,
+                collect_cache=collect_cache)
+            aux_total = aux_total + aux
+            if collect_cache:
+                write(caches["prefix"][i], cache)
         for layer, period in enumerate(self.periods):
             for key, blk in period.items():
                 x, aux, cache = blocks.block_forward(
                     blk, cfg, key.split(":", 1)[1], x, positions,
-                    collect_cache=collect_cache)
+                    image_embeds, collect_cache=collect_cache)
                 aux_total = aux_total + aux
                 if collect_cache:
-                    _tree_map(lambda buf, t: buf[layer][
-                        tuple(slice(0, n) for n in t.shape)].copy_(t),
-                        caches["periods"][key], cache)
+                    write(_tree_map(lambda t: t[layer],
+                                    caches["periods"][key]), cache)
         return self.final_norm(x), aux_total, caches
 
     # ------------------------------------------------------------------
     # serving
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, max_len: int):
-        """Process a prompt; returns (next-token logits (B, V), caches)
-        with the caches allocated at `max_len`."""
-        h, _, caches = self.forward(tokens, collect_cache=True,
-                                    max_len=max_len)
+    def prefill(self, tokens: torch.Tensor, *, max_len: int,
+                image_embeds=None):
+        """Process a prompt; returns (next-token logits (B, V) or (B, K,
+        V), caches) with the caches allocated at `max_len`."""
+        h, _, caches = self.forward(tokens, image_embeds=image_embeds,
+                                    collect_cache=True, max_len=max_len)
         return self.head(h[:, -1]), caches
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, caches, cur_len: int):
-        """token: (B, 1); cur_len: number of tokens already in the cache.
-        Returns (logits (B, V), caches), the caches updated in place."""
+        """token: (B, 1) (or (B, 1, K) audio); cur_len: number of tokens
+        already in the cache. Returns (logits (B, V) or (B, K, V),
+        caches), the caches updated in place."""
         cfg = self.cfg
         cur_len = int(cur_len)
         x = self.embed(token)
+        for blk, cache in zip(self.prefix, caches["prefix"], strict=True):
+            x, _ = blocks.block_decode(blk, cfg, _PREFIX, x, cache, cur_len)
         for layer, period in enumerate(self.periods):
             for key, blk in period.items():
                 layer_cache = _tree_map(lambda t: t[layer],
@@ -165,11 +198,12 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def cache_shapes(self, batch: int, max_len: int):
         """The caches' (shape, dtype) leaves, stacked over periods."""
-        n = self.cfg.n_periods()
-        period = {f"{i}:{kind}": blocks.cache_spec(self.cfg, kind, batch,
-                                                   max_len)
+        cfg = self.cfg
+        n = cfg.n_periods()
+        period = {f"{i}:{kind}": blocks.cache_spec(cfg, kind, batch, max_len)
                   for i, kind in enumerate(self.kinds)}
-        return {"prefix": [],
+        return {"prefix": [blocks.cache_spec(cfg, _PREFIX, batch, max_len)
+                           for _ in range(cfg.first_dense_layers)],
                 "periods": _tree_map(lambda s: ((n,) + s[0], s[1]), period)}
 
     def init_cache(self, batch: int, max_len: int):

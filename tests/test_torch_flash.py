@@ -9,7 +9,8 @@ and full; float32 rtol/atol 2e-4, bfloat16 2e-2). Ragged lengths, which
 the Pallas kernel does not take (it asserts block-aligned S), are held
 against the oracle only.
 
-The CUDA kernel runs only on the card: the `cuda`-marked cases hold it
+The CUDA kernel runs only on the card: the `cuda`-marked cases (MLA's
+(192, 128) instantiation among them: q/k heads of 192, v of 128) hold it
 against the plain version computed in float32 from the same inputs, each
 entry within `KERNEL_TOL[dtype]` of its envelope Σ p_j |v_j|
 (`ref.scaled_err`). A bfloat16 kernel rounds p before the PV product and
@@ -196,6 +197,31 @@ def test_cuda_kernel_matches_plain_version(cuda_device, rng, B, Sq, Sk, Hq,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,causal", [
+    (2, 512, 16, True),     # deepseek-v2-236b's heads: q/k 192, v 128
+    (2, 1000, 8, True),     # ragged prompt
+    (3, 17, 4, True),
+    (2, 129, 4, True),      # one row past a q tile
+    (2, 300, 8, False),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mla_instantiation_matches_plain_version(cuda_device, rng, B, S,
+                                                      H, causal, dtype):
+    q, k, v = _port((rng.normal(size=(B, S, H, 192)),
+                     rng.normal(size=(B, S, H, 192)),
+                     rng.normal(size=(B, S, H, 128))), dtype, cuda_device)
+    before = tops.LAUNCHES["flash"]
+    got = tops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["flash"] == before + 1
+    assert got.shape == (B, S, H, 128)
+    want = tref.attention(q.float(), k.float(), v.float(), causal=causal)
+    err = tref.scaled_err(got, want, q, k, v, causal=causal)
+    assert err <= KERNEL_TOL[dtype], err
+    assert torch.equal(got, tops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_refuses_what_it_does_not_take(cuda_device):
     q = torch.zeros(1, 8, 2, 64, dtype=torch.float16, device=cuda_device)
     with pytest.raises(TypeError, match="unsupported dtype"):
@@ -206,3 +232,6 @@ def test_cuda_kernel_refuses_what_it_does_not_take(cuda_device):
     q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="causal needs Sq == Sk"):
         tops.flash_attention_cuda(q, q[:, :4], q[:, :4])
+    v = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="v head dim 32"):
+        tops.flash_attention_cuda(q, q, v)

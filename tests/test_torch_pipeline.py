@@ -40,6 +40,18 @@ BUDGET = 1 << 16
 PKGS = {"ref": R, "port": T}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _reference_jit_cache_left_cold():
+    """The reference's jit cache is process-global, and this module
+    compiles the reference's donating executables on the plans and shapes
+    of tests/test_pipeline.py, which counts its own compiles: drop them
+    when the module ends, so that a worker running both files, in either
+    order, gives that test the cold cache it expects (the reference's
+    tests clear the cache for the same reason)."""
+    yield
+    R.clear_jit_cache()
+
+
 @pytest.fixture
 def budget(monkeypatch):
     """Set the streaming budget of both packages."""

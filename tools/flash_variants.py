@@ -18,7 +18,7 @@ is compiled by nvcc with the port's flags (one process per variant, all at
 once) into `build/variants/`; the script prints each bfloat16
 instantiation's registers and spills from the ptxas report, checks it at
 small shapes (ragged, non-causal, GQA; per-entry error over the envelope
-within chip_smoke's FLASH_TOL, bitwise repeatable), then times the five
+within chip_smoke's FLASH_TOL, bitwise repeatable), then times the
 bfloat16 cases of chip_smoke's FLASH_CASES with the variants in turn
 (A, B, ..., ..., B, A), each with its error at that shape. Needs a CUDA
 card and nvcc; imports neither jax nor the JAX package.
@@ -38,9 +38,12 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-CHECK = [(2, 512, 512, 16, 8, 128, True), (2, 512, 512, 32, 8, 64, True),
-         (3, 200, 200, 4, 2, 32, True), (2, 129, 129, 4, 2, 128, True),
-         (2, 300, 1024, 16, 8, 128, False), (2, 64, 100, 4, 2, 64, False)]
+CHECK = [(2, 512, 512, 16, 8, 128, 128, True),
+         (2, 512, 512, 32, 8, 64, 64, True), (3, 200, 200, 4, 2, 32, 32, True),
+         (2, 129, 129, 4, 2, 128, 128, True),
+         (2, 300, 1024, 16, 8, 128, 128, False),
+         (2, 64, 100, 4, 2, 64, 64, False),
+         (2, 300, 300, 8, 8, 192, 128, True)]
 
 
 def variant_source(text: str, opts: dict) -> str:
@@ -87,15 +90,16 @@ def caller(lib):
     import torch
     f = lib.repro_flash_fwd
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    f.argtypes = ([i32, p, p, p, p, i32, i32, i32, i32, i32, i32] + [i64] * 12
+    f.argtypes = ([i32, p, p, p, p, i32, i32, i32, i32, i32, i32, i32]
+                  + [i64] * 12
                   + [i32, ctypes.c_float, p])
     f.restype = ctypes.c_int
 
     def run(q, k, v, causal):
-        o = torch.empty_like(q)
         B, Sq, Hq, hd = q.shape
+        o = q.new_empty((B, Sq, Hq, v.shape[3]))
         rc = f(2, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
-               Sq, k.shape[1], Hq, k.shape[2], hd, *q.stride()[:3],
+               Sq, k.shape[1], Hq, k.shape[2], hd, v.shape[3], *q.stride()[:3],
                *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], int(causal),
                float(1 / math.sqrt(hd)),
                torch.cuda.current_stream().cuda_stream)
@@ -126,9 +130,9 @@ def main(argv: list[str]) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
 
-    def qkv(B, Sq, Sk, Hq, Hkv, hd):
+    def qkv(B, Sq, Sk, Hq, Hkv, hd, dv):
         return [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
-                for s in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd))]
+                for s in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, dv))]
 
     tol = cs.FLASH_TOL["bfloat16"]
     runs = {}
@@ -137,7 +141,8 @@ def main(argv: list[str]) -> int:
         print(f"== {name}: nvcc rc {rc}", flush=True)
         for i, ln in enumerate(lines):
             if "flash_bf16" in ln and "Compiling entry" in ln:
-                hd = re.search(r"kernelILi(\d+)E", ln).group(1)
+                hd = ":".join(re.search(r"kernelILi(\d+)ELi(\d+)E",
+                                        ln).groups())
                 info = " | ".join(x.strip() for x in lines[i + 1:i + 4]
                                   if "spill" in x or "Used" in x)
                 print(f"  hd {hd}: {info}", flush=True)
@@ -163,10 +168,10 @@ def main(argv: list[str]) -> int:
         if ok:
             runs[name] = run
 
-    for name, B, Sq, Sk, Hq, Hkv, hd, causal, dtype in cs.FLASH_CASES:
+    for name, B, Sq, Sk, Hq, Hkv, hd, dv, causal, dtype in cs.FLASH_CASES:
         if dtype != "bfloat16" or not runs:
             continue
-        q, k, v = qkv(B, Sq, Sk, Hq, Hkv, hd)
+        q, k, v = qkv(B, Sq, Sk, Hq, Hkv, hd, dv)
         want = ref.attention(q.float(), k.float(), v.float(), causal=causal)
         errs = {n: ref.scaled_err(r(q, k, v, causal), want, q, k, v,
                                   causal=causal) for n, r in runs.items()}

@@ -3,9 +3,10 @@
     git show <commit>:src/repro_torch/csrc/flash.cu > build/other/flash.cu
     python3 tools/prefill_ab.py build/other/flash.cu
 
-Builds the other `flash.cu` (same C entry point) beside this tree's,
-serves qwen3-0.6b at full width (seeded weights, bf16) and times
-`model.prefill` of 8 prompts of 2,048 tokens (max_len 2,080, as
+Builds the other `flash.cu` (same C entry point, which takes v's head
+dim since the MLA instantiation: a source from before it does not fit)
+beside this tree's, serves qwen3-0.6b at full width (seeded weights,
+bf16) and times `model.prefill` of 8 prompts of 2,048 tokens (max_len 2,080, as
 chip_smoke's lm_serve) with each kernel in turn (this, other, this,
 other): three prefills each by CUDA events, with the host's enqueue and
 total time, then one traced prefill (card busy time, flash's share, the
