@@ -217,7 +217,27 @@ card. One JSON line per phase:
  29. audio_serve   — musicgen-large at full width and depth (48 layers) on
                      (8, 2,048, 4) EnCodec prompts: 32 steps of 4 codebook
                      tokens, 48 flash launches in prefill, the same checks
- 30. kernels       — the summary line of every ported kernel (the
+ 30. train         — lm-100m at full width (8 layers, d 640, vocab
+                     32,768, float32, TF32 off) through
+                     `repro_torch.launch.train.main` with the reference
+                     trainer's defaults: 100 steps of batch 8 × 256, a
+                     checkpoint at 50; the loss falls; a second run given
+                     only the step-50 checkpoint ends bitwise on the
+                     first's step-100 checkpoint, parameters and losses;
+                     the first step's loss and every gradient against a
+                     float64 twin, with a rolled loss chunk and attention
+                     seeing one position ahead planted beyond the limits.
+                     qwen3-0.6b at full width in bf16 with float32
+                     masters, batch 8 × 2,048, 5 steps: finite losses,
+                     after each step a serving model loaded from the
+                     masters computes the training model's hidden states
+                     bitwise, the first step's gradients against the
+                     float32 model's (a rolled chunk planted beyond). Each:
+                     ms a step, tokens/s, peak memory, a traced step's
+                     idle share and top ops, the FLOPs of a step at the
+                     dtype's peak as its bound. No kernel launches: the
+                     wrappers refuse a gradient
+ 31. kernels       — the summary line of every ported kernel (the
                      block-sparse ones at the shape of most of their
                      launches, with launches x (device ms - bound ms) by
                      path; gram and xtv also batched, with their
@@ -288,9 +308,11 @@ WKV6_TOL = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -8 + 2.0 ** -12}
 # (RWKV_SERVE_TOL) and every position's final hidden state, each row over
 # its own max (RWKV_HIDDEN_TOL). The seeded model amplifies the rounding
 # of y's row 0 (position 0, the bonus term alone) with depth: layer by
-# layer on an H100, a kernel-free route (the per-step oracle in float64)
-# splits from the plain route's residual stream from 5.1e-6 after layer 1
-# to 0.195 after layer 32, and as far with only its row 0 swapped in,
+# layer on an H100, a kernel-free route (the per-step oracle in float64;
+# it now runs the first layer only, and the plain route in chunks of 64
+# reads the depths) splits from the plain route's residual stream
+# from 5.1e-6 after layer 1 to 0.195 after layer 32, and as far with only
+# its row 0 swapped in,
 # while the kernel route with the plain version's row 0 reaches 5.9e-4
 # (0.387 without). So the hidden rows are held with row 0 pinned to the
 # plain version on every route compared (each layer's kernel call holds
@@ -2054,10 +2076,11 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
     wops.reset_launches()
     # the timed bf16 model: each layer's WKV kernel call against the plain
     # version on its own served inputs (a measure no depth amplifies), and
-    # the routes' split layer by layer; the end-to-end sound routes are
+    # the routes' split after the first layer (the float32 checks below
+    # read them at every depth); the end-to-end sound routes are
     # recorded, not held: 32 bf16 layers of the seeded model amplify
     # rounding, so the end-to-end checks run in float32
-    bf16_layers = _rwkv_layers(model, tokens)
+    bf16_layers = _rwkv_layers(model, tokens, depth=1)
     bf16_routes = _rwkv_routes(model, tokens, faults=False)
     layer_mats = sum(p.numel() for p in model.periods[0].parameters()
                      if p.ndim >= 2)
@@ -2241,7 +2264,11 @@ def _row_split(a, b) -> float:
             / b.float().abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
-def _rwkv_layers(model, tokens) -> dict:
+class _Deep(Exception):
+    """Ends a forward pass after the layers a route is read over."""
+
+
+def _rwkv_layers(model, tokens, depth=None) -> dict:
     """One prefill of `tokens`, layer by layer. `kernel_scaled_err`: each
     layer's WKV kernel call against the plain wkv_chunked computed in
     float32 from the same (served) inputs, per entry over its envelope
@@ -2254,9 +2281,14 @@ def _rwkv_layers(model, tokens) -> dict:
     the kernel with the plain version's row 0, and the plain version with
     the float64 oracle's. Routes that run no kernel and split as far as
     the kernel does show the model amplifying rounding with depth, not a
-    kernel fault; the row-0 routes show where."""
+    kernel fault; the row-0 routes show where. The kernel route runs every
+    layer; the others stop after `depth` layers (all when None), the
+    per-step float64 oracle after the first, which the first-layer check
+    reads (run over all 32 layers, the oracle was the phase's costliest
+    route, cut to keep the script's time when the train phase came in)."""
     import torch
     from repro_torch.kernels.rwkv6 import ops, ref
+    depth = depth or len(model.periods) * len(model.kinds)
     scaled = []
     split = {f"{a}_vs_{b}": [] for a, b in (
         ("oracle64", "plain"), ("chunk64", "plain"), ("chunk64", "oracle64"),
@@ -2283,7 +2315,8 @@ def _rwkv_layers(model, tokens) -> dict:
     def reader(name):
         def read(i, x):
             split[f"{name}_vs_plain"].append(_row_split(x, plain[i]))
-            split[f"{name}_vs_oracle64"].append(_row_split(x, exact[i]))
+            if i < len(exact):
+                split[f"{name}_vs_oracle64"].append(_row_split(x, exact[i]))
         return read
 
     def chunk64(r, k, v, logw, u, state, chunk):
@@ -2297,15 +2330,30 @@ def _rwkv_layers(model, tokens) -> dict:
         return lambda i, x: split[f"{name}_vs_plain"].append(
             _row_split(x, plain[i]))
 
-    for fn, read in ((ref.wkv_chunked, lambda i, x: plain.append(x)),
-                     (oracle, read_oracle), (chunk64, reader("chunk64")),
-                     (kernel, reader("kernel")),
+    def upto(n, read, run_on=False):
+        """`read` over the first n layers; then end the pass, unless the
+        route must run on (the kernel's per-layer errors)."""
+        def limited(i, x):
+            if i < n:
+                read(i, x)
+            elif not run_on:
+                raise _Deep
+        return limited
+
+    for fn, read in ((ref.wkv_chunked, upto(depth, lambda i, x:
+                                             plain.append(x))),
+                     (oracle, upto(1, read_oracle)),
+                     (chunk64, upto(depth, reader("chunk64"))),
+                     (kernel, upto(depth, reader("kernel"), run_on=True)),
                      (_row0_from(_bare_kernel, ref.wkv_chunked),
-                      only_vs_plain("kernel_row0_plain")),
+                      upto(depth, only_vs_plain("kernel_row0_plain"))),
                      (_row0_from(ref.wkv_chunked, oracle_row0),
-                      only_vs_plain("plain_row0_oracle64"))):
+                      upto(depth, only_vs_plain("plain_row0_oracle64")))):
         with _prefill_wkv(fn), _after_each_layer(read):
-            model(tokens)
+            try:
+                model(tokens)
+            except _Deep:
+                pass
     del plain, exact
     torch.cuda.empty_cache()
     return dict(kernel_scaled_err=max(scaled),
@@ -4220,6 +4268,350 @@ def phase_serve_plan(dev=DEVICE, m: int = 100_000, n: int = 1_000,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# training: lm-100m at full width through the trainer, qwen3-0.6b in bf16
+# ---------------------------------------------------------------------------
+
+# lm-100m's first step in float32 against a float64 twin of the same model,
+# weights and batch (its products, residual stream and gradients in
+# float64; the norms, RoPE, softmax and the loss's logsumexp compute in
+# float32, as the model's code says): the loss relative to the twin's
+# (TRAIN_LOSS_TOL) and each parameter's gradient, max|g - g64| over
+# max|g64| (TRAIN_GRAD_TOL). Planted faults: the first loss chunk's labels
+# rolled by one position, and attention that sees one position ahead
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-3
+# qwen3-0.6b's first step in bf16 (float32 masters) against the same step
+# with the model in float32, each gradient over its leaf's max; the
+# planted fault is the rolled loss chunk
+BF16_TRAIN_GRAD_TOL = 1e-1
+# the reference trainer's defaults at lm-100m, 100 steps, a checkpoint at
+# 50
+TRAIN_FLAGS = ["--arch", "lm-100m", "--steps", "100", "--batch", "8",
+               "--seq-len", "256", "--lr", "3e-4", "--warmup", "20",
+               "--ckpt-every", "50", "--seed", str(SEED), "--log-every", "10"]
+
+
+def _loss_grads(model, batch):
+    """(loss, {name: gradient}) of `model.loss(batch)` over every
+    parameter."""
+    import torch
+    names, params = zip(*model.named_parameters())
+    loss, _ = model.loss(batch)
+    grads = torch.autograd.grad(loss, params, materialize_grads=True)
+    return loss.detach(), dict(zip(names, grads))
+
+
+def _worst_grad(got, want) -> dict:
+    """The leaf with the largest max|got - want| over max|want|."""
+    errs = {n: ((got[n].double() - w.double()).abs().max()
+                / w.double().abs().max().clamp_min(1e-30)).item()
+            for n, w in want.items()}
+    name = max(errs, key=errs.get)
+    return dict(leaf=name, err=errs[name])
+
+
+def _roll_chunk(batch, chunk):
+    """The first loss chunk's labels rolled by one position."""
+    import numpy as np
+    labels = batch["labels"].copy()
+    labels[:, :chunk] = np.roll(labels[:, :chunk], 1, axis=1)
+    return dict(batch, labels=labels)
+
+
+@contextlib.contextmanager
+def _peeking_attention():
+    """Causal attention seeing one position ahead (the mask off by one),
+    on whichever route training takes: a planted fault."""
+    from repro_torch.models import attention as attn_mod
+    orig = attn_mod.attention_core
+
+    def peek(q, k, v, *, causal, cfg, impl=None, q_offset=0):
+        if not causal:
+            return orig(q, k, v, causal=causal, cfg=cfg, impl=impl,
+                        q_offset=q_offset)
+        return attn_mod.ref_attention(q, k, v, causal=True,
+                                      q_offset=q_offset + 1)
+    attn_mod.attention_core = peek
+    try:
+        yield
+    finally:
+        attn_mod.attention_core = orig
+
+
+def _step_flops(step_fn, opt, batch) -> float:
+    """FLOPs of one train step on `batch`: what `torch.utils.flop_counter`
+    counts over a step on its first row (its products in the forward, the
+    checkpointed recompute and the backward), times the rows. Every
+    product's FLOPs are linear in the batch; counted at full size, the
+    counter's mode kept the checkpointed activations alive (4.3x a plain
+    step's live memory on the CPU) and ran a qwen3-0.6b step out of
+    memory."""
+    from torch.utils.flop_counter import FlopCounterMode
+    rows = len(batch["tokens"])
+    with FlopCounterMode(display=False) as counter:
+        step_fn(opt, {k: v[:1] for k, v in batch.items()})
+    return float(counter.get_total_flops()) * rows
+
+
+def _ckpt_leaves(path: str) -> list:
+    """A checkpoint directory's leaves as numpy, in the stored order."""
+    import numpy as np
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    out = []
+    for leaf in manifest["leaves"]:
+        with np.load(os.path.join(path, f"shard_{leaf['shard']}.npz")) as z:
+            out.append(z[leaf["key"]])
+    return out
+
+
+def _refusals() -> dict:
+    """{kernel: True} where its CUDA wrapper, handed an input that requires
+    grad in grad mode, raises for want of a backward."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rwkv6 import ops as wops
+    from repro_torch.kernels.ssd import ops as sops
+
+    def z(*shape):
+        return torch.zeros(shape, device=DEVICE)
+    calls = {"flash": (fops.flash_attention_cuda,
+                       (z(1, 64, 2, 64), z(1, 64, 2, 64), z(1, 64, 2, 64))),
+             "wkv6": (wops.wkv6_cuda,
+                      (z(1, 64, 2, 64), z(1, 64, 2, 64), z(1, 64, 2, 64),
+                       z(1, 64, 2, 64) - 0.5, z(2, 64), z(1, 2, 64, 64))),
+             "ssm_scan": (sops.ssm_scan_cuda,
+                          (z(1, 64, 32), z(1, 64, 32), z(32, 16) - 1,
+                           z(1, 64, 16), z(1, 64, 16), z(32),
+                           z(1, 32, 16)))}
+    refused = {}
+    for name, (fn, args) in calls.items():
+        args[0].requires_grad_(True)
+        try:
+            fn(*args)
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "no backward" in str(e)
+    return refused
+
+
+def _lm_train(peaks: dict, flags: list) -> dict:
+    """lm-100m: the first step against its float64 twin and the planted
+    faults, then the trainer uninterrupted and resumed at its checkpoint."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train as trainer
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    args = trainer.parse_args(flags)
+    cfg = get_config(args.arch)
+    cfg = cfg.reduced() if args.reduced else cfg
+    pipe = TokenPipeline(vocab=cfg.vocab_size, batch=args.batch,
+                         seq_len=args.seq_len, seed=args.seed)
+
+    model = build_model(cfg, DEVICE, train=True)
+    init_train_state(model, seed=args.seed)
+    batch = pipe.batch_at(0)
+    twin = build_model(cfg.with_(dtype="float64"), DEVICE)
+    twin.load_state_dict(model.state_dict())
+    twin.double().requires_grad_(True)
+    loss64, g64 = _loss_grads(twin, batch)
+    del twin
+
+    def against_twin(b=batch, ctx=contextlib.nullcontext):
+        with ctx():
+            loss, g = _loss_grads(model, b)
+        return dict(loss=loss.item(),
+                    loss_rel_err=abs(loss.double() - loss64).item()
+                    / abs(loss64.item()),
+                    worst_grad=_worst_grad(g, g64))
+    first = against_twin()
+    faults = dict(labels_rolled=against_twin(_roll_chunk(batch,
+                                                         cfg.loss_chunk)),
+                  attention_peeks=against_twin(ctx=_peeking_attention))
+    n_params = model.n_params()
+    del model, g64
+    torch.cuda.empty_cache()
+
+    # the main path: uninterrupted; then a second run given only the first
+    # run's step-50 checkpoint (the first run died there) continues to 100
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_a = trainer.main(flags + ["--ckpt-dir", f"{tmp}/a"])
+        wall = time.perf_counter() - t0
+        peak_bytes = torch.cuda.max_memory_allocated()
+        half = f"step_{args.ckpt_every:08d}"
+        shutil.copytree(f"{tmp}/a/{half}", f"{tmp}/b/{half}")
+        run_b = trainer.main(flags + ["--ckpt-dir", f"{tmp}/b"])
+        last = f"step_{args.steps:08d}"
+        same_ckpt = all(
+            x.dtype == y.dtype and x.tobytes() == y.tobytes()
+            for x, y in zip(_ckpt_leaves(f"{tmp}/a/{last}"),
+                            _ckpt_leaves(f"{tmp}/b/{last}"), strict=True))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    resumed = dict(
+        start_step=run_b["start_step"], checkpoint=same_ckpt,
+        params=all(torch.equal(p, q) for p, q in zip(
+            run_a["model"].parameters(), run_b["model"].parameters())),
+        losses=run_b["losses"] == run_a["losses"][run_b["start_step"]:])
+    losses = run_a["losses"]
+    step_ms = float(np.median(run_a["step_ms"][10:]))
+
+    # one step more, traced, and its products counted
+    step_fn = make_train_step(run_a["model"], lr=args.lr)
+    nxt = pipe.batch_at(args.steps)
+    opt = run_a["opt_state"]
+    _, trace_wall, busy, by_name = device_trace(lambda: step_fn(opt, nxt))
+    flops = _step_flops(step_fn, opt, nxt)
+    del run_a, run_b, step_fn, opt
+    torch.cuda.empty_cache()
+    return dict(
+        arch=cfg.name, n_params=n_params, dtype=cfg.dtype, batch=args.batch,
+        seq=args.seq_len, steps=args.steps, ckpt_every=args.ckpt_every,
+        wall_s=wall, loss_first5=float(np.mean(losses[:5])),
+        loss_last5=float(np.mean(losses[-5:])), step_ms=step_ms,
+        tokens_per_s=args.batch * args.seq_len / (step_ms / 1e3),
+        peak_memory_gb=peak_bytes / 1e9, flops_per_step=flops,
+        bound_ms=1e3 * flops / peaks["float32"], bound_by="operations",
+        first_step=first, planted_faults=faults, resumed_bitwise=resumed,
+        traced=_traced(trace_wall, busy, by_name))
+
+
+def _bf16_train(peaks: dict, cfg, batch: int, seq: int, steps: int) -> dict:
+    """qwen3-0.6b in bf16 with float32 masters: the first step's gradients
+    against the float32 model's, then `steps` train steps, each followed
+    by the check that the weights a step computes with are the masters
+    cast (a serving model loaded from them gives the same hidden states,
+    bitwise)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    model = build_model(cfg, DEVICE, train=True)
+    params, opt = init_train_state(model, seed=SEED)
+    pipe = TokenPipeline(vocab=cfg.vocab_size, batch=batch, seq_len=seq,
+                         seed=SEED)
+    b0 = pipe.batch_at(0)
+    _, g16 = _loss_grads(model, b0)
+    f32 = build_model(cfg.with_(dtype="float32"), DEVICE, train=True)
+    f32.load_state_dict(model.state_dict())
+    _, g32 = _loss_grads(f32, b0)
+    del f32
+    grad = _worst_grad(g16, g32)
+    del g16
+    _, gf = _loss_grads(model, _roll_chunk(b0, cfg.loss_chunk))
+    fault = _worst_grad(gf, g32)
+    del gf, g32
+    torch.cuda.empty_cache()
+
+    serve = build_model(cfg, DEVICE)
+    serve_gb = sum(p.numel() * p.element_size()
+                   for p in serve.parameters()) / 1e9
+    probe = torch.as_tensor(b0["tokens"][:1]).to(DEVICE)
+    step_fn = make_train_step(model, lr=3e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, cast_ok = [], [], []
+    for s in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        opt, m = step_fn(opt, pipe.batch_at(s))
+        ev[1].record()
+        losses.append(float(m["loss"]))
+        times.append(ev[0].elapsed_time(ev[1]))
+        serve.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            weights = all(torch.equal(q, p.to(q.dtype)) for p, q in zip(
+                model.parameters(), serve.parameters()))
+            hidden = torch.equal(model._forward(probe, plain=True)[0],
+                                 serve._forward(probe, plain=True)[0])
+        cast_ok.append(weights and hidden)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    wq = params["periods.0.0:attn.attn.wq"].detach()
+    off_grid = (wq != wq.to(torch.bfloat16).float()).float().mean().item()
+    masters = all(p.dtype == torch.float32 for p in params.values())
+    nxt = pipe.batch_at(steps)
+    _, trace_wall, busy, by_name = device_trace(lambda: step_fn(opt, nxt))
+    flops = _step_flops(step_fn, opt, nxt)
+    step_ms = float(np.median(times[1:] or times))
+    del model, serve, params, opt, step_fn
+    torch.cuda.empty_cache()
+    return dict(
+        arch=cfg.name, dtype=cfg.dtype, batch=batch, seq=seq, steps=steps,
+        losses=losses, step_ms=step_ms, step_ms_each=times,
+        tokens_per_s=batch * seq / (step_ms / 1e3),
+        peak_memory_gb=peak_bytes / 1e9, serving_copy_gb=serve_gb,
+        flops_per_step=flops, bound_ms=1e3 * flops / peaks["bfloat16"],
+        bound_by="operations", first_step_vs_float32=grad,
+        planted_fault=fault, masters_float32=masters,
+        masters_off_bf16_grid=off_grid, weights_are_masters_cast=cast_ok,
+        traced=_traced(trace_wall, busy, by_name))
+
+
+def phase_train(peaks: dict, reduced: bool = False, bf16_cfg=None,
+                bf16_batch: int = 8, bf16_seq: int = 2048,
+                bf16_steps: int = 5) -> dict:
+    """Training on the card: lm-100m at full width through
+    `repro_torch.launch.train.main`, then qwen3-0.6b in bf16 (`reduced`
+    and `bf16_cfg` with its sizes cut both for a rehearsal). Returns the
+    model kernels' launches on the path: none, training takes the plain
+    routes (the wrappers refuse a gradient)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rwkv6 import ops as wops
+    from repro_torch.kernels.ssd import ops as sops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refused = _refusals()
+    flags = TRAIN_FLAGS + ["--device", DEVICE] + (["--reduced"] if reduced
+                                                  else [])
+    for mod in (fops, wops, sops):
+        mod.reset_launches()
+    lm = _lm_train(peaks, flags)
+    emit(dict(phase="train", part="lm", **lm))
+    qwen = _bf16_train(peaks, bf16_cfg or get_config("qwen3-0.6b"),
+                       bf16_batch, bf16_seq, bf16_steps)
+    emit(dict(phase="train", part="bf16", **qwen))
+    launches = dict(flash=fops.LAUNCHES["flash"], wkv6=wops.LAUNCHES["wkv6"],
+                    ssm_scan=sops.LAUNCHES["ssm_scan"])
+    row = dict(phase="train", launches=launches,
+               wrappers_refuse_grad=refused,
+               tol=dict(loss=TRAIN_LOSS_TOL, grad=TRAIN_GRAD_TOL,
+                        bf16_grad=BF16_TRAIN_GRAD_TOL))
+    emit(row)
+    # every fault beyond a limit, and every limit below a fault
+    first, faults = lm["first_step"], lm["planted_faults"]
+    beyond = [(f["loss_rel_err"] > TRAIN_LOSS_TOL,
+               f["worst_grad"]["err"] > TRAIN_GRAD_TOL)
+              for f in faults.values()]
+    caught = all(map(any, beyond)) and all(map(any, zip(*beyond)))
+    if not (all(refused.values()) and not any(launches.values())
+            and lm["loss_last5"] < lm["loss_first5"]
+            and first["loss_rel_err"] <= TRAIN_LOSS_TOL
+            and first["worst_grad"]["err"] <= TRAIN_GRAD_TOL and caught
+            and all(v is True for k, v in lm["resumed_bitwise"].items()
+                    if k != "start_step")
+            and lm["resumed_bitwise"]["start_step"] == lm["ckpt_every"]
+            and all(abs(x) < float("inf") for x in qwen["losses"])
+            and qwen["first_step_vs_float32"]["err"] <= BF16_TRAIN_GRAD_TOL
+            and qwen["planted_fault"]["err"] > BF16_TRAIN_GRAD_TOL
+            and qwen["masters_float32"] and qwen["masters_off_bf16_grid"] > 0.5
+            and all(qwen["weights_are_masters_cast"])):
+        raise AssertionError(f"train failed: {row}, lm {lm}, bf16 {qwen}")
+    return launches
+
+
 def ptxas_spills(log: str, entry: str) -> dict:
     """Spill bytes (stores + loads) of each kernel whose mangled name
     matches `entry`, keyed by the pattern's groups, from ptxas's report
@@ -4286,6 +4678,10 @@ def _traced(wall: float, busy, by_name: dict) -> dict:
 
 
 def main() -> int:
+    # the train phase's bit-exact restart runs with deterministic
+    # algorithms, whose cuBLAS check PyTorch makes against this variable
+    # once, at the process's first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4394,6 +4790,7 @@ def main() -> int:
                            mla_serve=timed(phase_mla_serve, peaks),
                            vlm_serve=timed(phase_vlm_serve, peaks),
                            audio_serve=timed(phase_audio_serve, peaks))
+    train_launches = timed(phase_train, peaks)
     emit(dict(phase="timing", seconds=seconds,
               total_s=time.perf_counter() - t0, profiler=PROFILER))
 
@@ -4488,7 +4885,8 @@ def main() -> int:
         lm_serve_prefill=serve_launches["prefill"],
         lm_serve_decode=serve_launches["decode"],
         hybrid_serve_prefill=hybrid_launches["prefill"]["flash"],
-        hybrid_serve_decode=hybrid_launches["decode"]["flash"])
+        hybrid_serve_decode=hybrid_launches["decode"]["flash"],
+        train=train_launches["flash"])
     for path, fl in family_launches.items():
         flash_by_path[f"{path}_prefill"] = fl["prefill"]
         flash_by_path[f"{path}_decode"] = fl["decode"]
@@ -4514,7 +4912,8 @@ def main() -> int:
         replaces="src/repro/kernels/rwkv6/kernel.py:99",
         launches=rwkv_launches["generate"],
         launches_by_path=dict(rwkv_serve_prefill=rwkv_launches["prefill"],
-                              rwkv_serve_decode=rwkv_launches["decode"]),
+                              rwkv_serve_decode=rwkv_launches["decode"],
+                              train=train_launches["wkv6"]),
         max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], bound_rate=r["bound_rate"],
@@ -4527,7 +4926,8 @@ def main() -> int:
         launches=hybrid_launches["generate"]["ssm_scan"],
         launches_by_path=dict(
             hybrid_serve_prefill=hybrid_launches["prefill"]["ssm_scan"],
-            hybrid_serve_decode=hybrid_launches["decode"]["ssm_scan"]),
+            hybrid_serve_decode=hybrid_launches["decode"]["ssm_scan"],
+            train=train_launches["ssm_scan"]),
         max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -11,8 +11,9 @@ Layout: <dir>/step_<n>/ containing
 Atomicity: written to step_<n>.tmp, fsync'd, then renamed — a crashed
 writer never corrupts the latest checkpoint (restart.py relies on this).
 
-Leaf order is jax's: a dict's children in sorted key order, so `leaf_i`
-names the same leaf in both packages. Leaves are stored as full host
+Leaf order is jax's: a dict's children in sorted key order (within lists,
+tuples and NamedTuples such as `AdamWState` too), so `leaf_i` names the
+same leaf in both packages. Leaves are stored as full host
 arrays (tensors are copied off their device on save); `restore` places
 each leaf on the device of its counterpart in `like`, or on `device=`
 when given, and hands a numpy `like` leaf back as numpy, as the
@@ -51,6 +52,8 @@ def _canonical(tree: Any) -> Any:
         return {k: _canonical(tree[k]) for k in sorted(tree)}
     if type(tree) in (list, tuple):
         return type(tree)(_canonical(v) for v in tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # NamedTuple
+        return type(tree)(*(_canonical(v) for v in tree))
     return tree
 
 
@@ -69,7 +72,7 @@ def _to_host(leaf: Any) -> tuple[np.ndarray, str]:
         return arr, str(arr.dtype)
     arr = np.asarray(leaf)
     if arr.dtype.name == BF16:  # an ml_dtypes array
-        return np.ascontiguousarray(arr).view(np.uint16).view("V2"), BF16
+        return np.asarray(arr, order="C").view(np.uint16).view("V2"), BF16
     return arr, str(arr.dtype)
 
 
@@ -82,10 +85,10 @@ def _place(arr: np.ndarray, dtype: str, like_leaf: Any,
     if device is None and not isinstance(like_leaf, torch.Tensor):
         return arr
     if dtype == BF16:
-        bits = np.ascontiguousarray(arr).view(np.int16)
+        bits = np.asarray(arr, order="C").view(np.int16)
         t = torch.from_numpy(bits).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.asarray(arr, order="C"))
     return t.to(device if device is not None else like_leaf.device)
 
 

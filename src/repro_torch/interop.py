@@ -6,7 +6,10 @@ arrays a caller binds to `repro` into tensors for `repro_torch`, so the
 tests and `chip_smoke.py` feed both packages the same bytes;
 `bcoo_from_reference` carries a reference BCOO (its numpy buffers) over.
 `params_from_reference` turns the reference's LM parameter pytree into
-the state dict of the port's `Model`.
+the state dict of the port's `Model`; `train_state_from_reference` and
+`train_state_to_reference` carry a training state (parameters and AdamW
+moments) across in both directions, so that either package's trainer
+resumes the other's checkpoint.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from .core.backend import to_device
 from .core.sparse import BCOO
+from .optim.adamw import AdamWState
 
 
 def from_reference(arrays: Mapping[str, np.ndarray],
@@ -67,6 +71,74 @@ def params_from_reference(params: Mapping[str, Any], cfg,
     dev = torch.device(device)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
             for k, v in flat.items()}
+
+
+def train_state_from_reference(params: Mapping[str, Any], opt_state, cfg,
+                               device):
+    """(state dict, `AdamWState`) of the port holding the reference's
+    training state: `params` its `Model.init` pytree, `opt_state` its
+    `AdamWState(step, m, v)` (or a (step, m, v) tuple) with the moments
+    shaped as `params`; numpy or jax leaves, as `store.restore` returns
+    them. The periods are unstacked as in `params_from_reference`; every
+    leaf is float32, the step a 0-d int32 tensor."""
+    step, m, v = opt_state
+    dev = torch.device(device)
+    return params_from_reference(params, cfg, dev), AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        m=params_from_reference(m, cfg, dev),
+        v=params_from_reference(v, cfg, dev))
+
+
+def train_state_to_reference(params: Mapping[str, torch.Tensor], opt_state,
+                             cfg):
+    """The inverse of `train_state_from_reference`: (params, AdamWState)
+    in the reference's layout (nested dicts in sorted key order, `prefix`
+    a list, each period's leaves stacked on axis 0), the leaves detached
+    tensors on their device. `checkpoint.store.save` of {"params",
+    "opt_state"} then writes the files `repro.launch.train` writes."""
+    return _nest(params, cfg), AdamWState(
+        step=opt_state.step.detach(), m=_nest(opt_state.m, cfg),
+        v=_nest(opt_state.v, cfg))
+
+
+def _nest(flat: Mapping[str, torch.Tensor], cfg) -> dict:
+    """Dotted state-dict names back into the reference's pytree."""
+    periods: dict = {}
+    rest = {}
+    for name, t in flat.items():
+        if name.startswith("periods."):
+            _, i, key = name.split(".", 2)
+            periods.setdefault(key, {})[int(i)] = t.detach()
+        else:
+            rest[name] = t.detach()
+    tree = _nested(rest)
+    if "prefix" in tree:
+        tree["prefix"] = [tree["prefix"][str(i)]
+                          for i in range(len(tree["prefix"]))]
+    tree["periods"] = _nested({
+        key: torch.stack([by_period[i] for i in range(cfg.n_periods())])
+        for key, by_period in periods.items()})
+    return _sorted(tree)
+
+
+def _nested(flat: Mapping[str, Any]) -> dict:
+    tree: dict = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return tree
+
+
+def _sorted(tree):
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_sorted(v) for v in tree]
+    return tree
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):

@@ -21,4 +21,21 @@ Each package: ref.py (plain torch version or oracle, and the per-entry
 error measure the kernel is held to) and ops.py (dispatch: the CUDA
 kernel on a CUDA tensor, with a launch counter; the plain version on a
 CPU tensor). `build` compiles the CUDA sources at first use.
+
+The model kernels (flash, wkv6, ssd) are forward-only, as their Pallas
+counterparts: their CUDA wrappers refuse a call that autograd would
+record (`no_backward`) rather than return outputs cut from the graph.
+Training takes the plain routes by name (`Model.loss`).
 """
+import torch
+
+
+def no_backward(name: str, *inputs: torch.Tensor) -> None:
+    """Raise if grad mode is on and any of `inputs` requires grad: the
+    kernel `name` writes into fresh tensors, so its outputs would carry no
+    gradient back to them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward (nor has its Pallas "
+            f"kernel in the reference); training takes the plain route "
+            f"(Model.loss passes plain=True)")

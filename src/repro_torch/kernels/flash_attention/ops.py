@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from .. import no_backward
 from . import ref
 
 # One count per kernel launch; reset with `reset_launches()`.
@@ -95,7 +96,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """softmax(QKᵀ/√hd + mask) V on the card (replaces `flash_pallas`);
-    hd is q's head dim, the output takes v's."""
+    hd is q's head dim, the output takes v's. Refuses a call that autograd
+    would record (the kernel has no backward)."""
+    no_backward("flash_attention", q, k, v)
     _check(q, k, v, causal)
     B, Sq, Hq, hd = q.shape
     Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]

@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from .. import no_backward
 from .ref import SUB, chunk_rows, wkv_chunked
 
 # One count per call (each call launches both passes); reset with
@@ -103,7 +104,9 @@ def _check(r, k, v, logw, u, state, chunk: int) -> None:
 
 def wkv6_cuda(r, k, v, logw, u, state, *, chunk: int = 128):
     """The WKV6 recurrence on the card (replaces `wkv6_pallas`). Returns
-    (y (B, S, H, dh) in r's dtype, state' (B, H, dh, dh) float32)."""
+    (y (B, S, H, dh) in r's dtype, state' (B, H, dh, dh) float32). Refuses
+    a call that autograd would record (the kernel has no backward)."""
+    no_backward("wkv6", r, k, v, logw, u, state)
     _check(r, k, v, logw, u, state, chunk)
     B, S, H, dh = r.shape
     y = torch.empty((B, S, H, dh), dtype=r.dtype, device=r.device)

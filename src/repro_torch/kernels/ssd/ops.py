@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from .. import no_backward
 from .ref import ssm_scan as ssm_scan_plain
 
 # One count per kernel launch; reset with `reset_launches()`.
@@ -100,7 +101,9 @@ def _aligned16(*tensors) -> bool:
 
 def ssm_scan_cuda(x, dt, A, B, C, D_skip, h0):
     """The selective scan on the card (replaces `ssm_scan_pallas`).
-    Returns (y (Bt, S, di) float32, h (Bt, di, ds) float32)."""
+    Returns (y (Bt, S, di) float32, h (Bt, di, ds) float32). Refuses a
+    call that autograd would record (the kernel has no backward)."""
+    no_backward("ssm_scan", x, dt, A, B, C, D_skip, h0)
     _check(x, dt, A, B, C, D_skip, h0)
     Bt, S, di = x.shape
     ds = A.shape[1]

@@ -1,1 +1,2 @@
-"""Step builders and the token-loop server (port of `repro.launch`)."""
+"""Step functions, the token-loop server, the trainer and the
+assigned input shapes (port of `repro.launch`)."""

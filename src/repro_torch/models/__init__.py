@@ -1,4 +1,5 @@
-"""Model zoo: the dense, ssm (RWKV-6) and hybrid (Jamba) families of the
-reference's architectures as torch modules (port of `repro.models`)."""
+"""Model zoo: every family of the reference's architectures (dense, moe,
+MLA, ssm, hybrid, vision, audio) as torch modules that serve and train
+(port of `repro.models`)."""
 from .config import ModelConfig  # noqa: F401
 from .model import Model, build_model  # noqa: F401

@@ -12,8 +12,11 @@ attention:
 On CUDA, prefill runs "flash" unless the caller names another path. On
 the CPU the reference's own choice stands: "flash" (its plain version)
 when `cfg.use_pallas`, else "chunked" for S > cfg.attn_chunk and "ref"
-otherwise, so the CPU parity tests compare like with like. Every path
-takes a v whose head dim differs from q's (MLA) and returns v's.
+otherwise, so the CPU parity tests compare like with like. Training
+(`Model.loss`) names "chunked" on every device: the reference trains on
+that route (`use_pallas` is off by default) and the flash kernel has no
+backward in either package. Every path takes a v whose head dim differs
+from q's (MLA) and returns v's.
 
 Decode attends over the padded KV cache with position masking in plain
 torch (no Pallas kernel backs it in the reference). The cache is
@@ -35,6 +38,9 @@ from .layers import (RMSNorm, apply_rope, cdtype, dense_init, frozen, load_,
                      rmsnorm)
 
 NEG_INF = -1e30
+# the route training names (`Model.loss`): the reference's with use_pallas
+# off, "chunked" for S > cfg.attn_chunk and "ref" otherwise
+PLAIN = "chunked"
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +159,8 @@ def gqa_init(gen: torch.Generator, cfg) -> dict:
 
 class GQA(nn.Module):
     """Parameters of one GQA layer: wq/wk/wv/wo (d_in, d_out) in the
-    compute dtype, and q_norm/k_norm when `cfg.qk_norm`."""
+    compute dtype (float32 in a training model), and q_norm/k_norm when
+    `cfg.qk_norm`."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -177,10 +184,10 @@ class GQA(nn.Module):
 
 def _qkv(p: GQA, cfg, x, positions):
     B, S, D = x.shape
-    hd = cfg.head_dim
-    q = (x @ p.wq).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ p.wk).reshape(B, S, cfg.kv_heads, hd)
-    v = (x @ p.wv).reshape(B, S, cfg.kv_heads, hd)
+    hd, dt = cfg.head_dim, x.dtype
+    q = (x @ p.wq.to(dt)).reshape(B, S, cfg.n_heads, hd)
+    k = (x @ p.wk.to(dt)).reshape(B, S, cfg.kv_heads, hd)
+    v = (x @ p.wv.to(dt)).reshape(B, S, cfg.kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm.scale, q)
         k = rmsnorm(p.k_norm.scale, k)
@@ -193,7 +200,8 @@ def gqa_forward(p: GQA, cfg, x, positions, impl: Optional[str] = None):
     """Prefill: returns (out, (k, v)) for cache construction."""
     q, k, v = _qkv(p, cfg, x, positions)
     out = attention_core(q, k, v, causal=True, cfg=cfg, impl=impl)
-    return out.reshape(x.shape[0], x.shape[1], -1) @ p.wo, (k, v)
+    return out.reshape(x.shape[0], x.shape[1], -1) @ p.wo.to(x.dtype), \
+        (k, v)
 
 
 def gqa_decode(p: GQA, cfg, x, cache: tuple, cur_len: int):
@@ -207,7 +215,7 @@ def gqa_decode(p: GQA, cfg, x, cache: tuple, cur_len: int):
     k_cache[:, cur_len] = k_new[:, 0]
     v_cache[:, cur_len] = v_new[:, 0]
     out = decode_attention(q, k_cache, v_cache, cur_len + 1)
-    return out.reshape(B, 1, -1) @ p.wo, cache
+    return out.reshape(B, 1, -1) @ p.wo.to(x.dtype), cache
 
 
 def gqa_cache_spec(cfg, batch: int, max_len: int):
@@ -256,24 +264,24 @@ def xattn_forward(p: XAttn, cfg, x, image_embeds, impl: Optional[str] = None):
     n_img, D), non-causal; returns (tanh(gate) · out, (k, v)), the image's
     K/V (B, n_img, Hkv, hd) for the cache."""
     B, S, _ = x.shape
+    dt = x.dtype
     kv_shape = (B, image_embeds.shape[1], cfg.kv_heads, cfg.head_dim)
-    q = (x @ p.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (image_embeds @ p.wk).reshape(kv_shape)
-    v = (image_embeds @ p.wv).reshape(kv_shape)
+    q = (x @ p.wq.to(dt)).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = (image_embeds @ p.wk.to(dt)).reshape(kv_shape)
+    v = (image_embeds @ p.wv.to(dt)).reshape(kv_shape)
     out = attention_core(q, k, v, causal=False, cfg=cfg, impl=impl)
-    out = out.reshape(B, S, -1) @ p.wo
-    return torch.tanh(p.gate).to(x.dtype) * out, (k, v)
+    out = out.reshape(B, S, -1) @ p.wo.to(dt)
+    return torch.tanh(p.gate).to(dt) * out, (k, v)
 
 
 def xattn_decode(p: XAttn, cfg, x, cache: tuple):
     """x: (B, 1, D) against the cached image K/V through the plain
     attention (as the reference's decode); returns tanh(gate) · out."""
-    B = x.shape[0]
+    B, dt = x.shape[0], x.dtype
     k_img, v_img = cache
-    q = (x @ p.wq).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-    out = ref_attention(q, k_img.to(x.dtype), v_img.to(x.dtype),
-                        causal=False)
-    return torch.tanh(p.gate).to(x.dtype) * (out.reshape(B, 1, -1) @ p.wo)
+    q = (x @ p.wq.to(dt)).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    out = ref_attention(q, k_img.to(dt), v_img.to(dt), causal=False)
+    return torch.tanh(p.gate).to(dt) * (out.reshape(B, 1, -1) @ p.wo.to(dt))
 
 
 def xattn_cache_spec(cfg, batch: int):

@@ -15,7 +15,10 @@ all pre-norm residual. The attention of the "attn" kinds is MLA where
 `cfg.attn_type` is "mla" (deepseek-v2), GQA otherwise. Decode carries a
 per-layer cache whose structure is fixed per kind (see `cache_spec`) and
 updates it in place; the xattn cache (the image's K/V, written at
-prefill) is only read.
+prefill) is only read. `block_forward(..., plain=True)` (training) runs
+every mixer on the reference's plain route ("chunked" attention,
+`wkv_chunked`, `selective_scan`) on any device: no kernel has a
+backward.
 """
 from __future__ import annotations
 
@@ -82,17 +85,20 @@ def _ffn(p: Block, cfg, kind: str, x, aux):
 
 
 def block_forward(p: Block, cfg, kind: str, x, positions,
-                  image_embeds=None, collect_cache: bool = False):
-    """Returns (x, aux_loss, the layer's cache or None)."""
+                  image_embeds=None, collect_cache: bool = False,
+                  plain: bool = False):
+    """Returns (x, aux_loss, the layer's cache or None). `plain` takes the
+    reference's plain routes, whatever the device (training)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
+    impl = attn_mod.PLAIN if plain else None
     if kind == "rwkv6":
         # a fresh sequence: zero float32 WKV state, zero token shifts
         dh = cfg.rwkv_head_dim
         state = torch.zeros((x.shape[0], cfg.d_model // dh, dh, dh),
                             dtype=torch.float32, device=x.device)
         y, shift_tm, state = rwkv_mod.time_mix(p.rwkv, cfg, p.norm1(x), None,
-                                               state)
+                                               state, plain=plain)
         x = x + y
         y, shift_cm = rwkv_mod.channel_mix(p.rwkv, p.norm2(x), None)
         x = x + y
@@ -103,15 +109,17 @@ def block_forward(p: Block, cfg, kind: str, x, positions,
     if kind.startswith("attn") or kind == "xattn":
         h = p.norm1(x)
         if kind == "xattn":  # the image's K/V, so decode never re-encodes it
-            y, kv = attn_mod.xattn_forward(p.xattn, cfg, h, image_embeds)
+            y, kv = attn_mod.xattn_forward(p.xattn, cfg, h, image_embeds,
+                                           impl)
         elif cfg.attn_type == "mla":  # the latent and RoPE-key caches
-            y, kv = mla_mod.mla_forward(p.attn, cfg, h, positions)
+            y, kv = mla_mod.mla_forward(p.attn, cfg, h, positions, impl)
         else:
-            y, kv = attn_mod.gqa_forward(p.attn, cfg, h, positions)
+            y, kv = attn_mod.gqa_forward(p.attn, cfg, h, positions, impl)
         if collect_cache:
             cache = tuple(t.to(cdtype(cfg)) for t in kv)
     else:
-        y, state = mamba_mod.mamba_forward(p.mamba, cfg, p.norm1(x))
+        y, state = mamba_mod.mamba_forward(p.mamba, cfg, p.norm1(x),
+                                           plain=plain)
         if collect_cache:
             cache = {"h": state["h"], "conv": state["conv"].to(cdtype(cfg))}
     x, aux = _ffn(p, cfg, kind, x + y, aux)

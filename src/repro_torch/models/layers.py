@@ -1,17 +1,24 @@
-"""Shared transformer layers, the serving half: norms, RoPE, SwiGLU,
-embeddings and the last-position head.
+"""Shared transformer layers: norms, RoPE, SwiGLU, embeddings, the
+last-position head and the chunked cross-entropy.
 
 Port of `repro.models.layers`. Conventions kept from the reference:
   * activations are (B, S, D); attention heads (B, S, H, hd);
   * weights are laid out (d_in, d_out) and applied as `x @ w`;
   * compute runs in `cdtype(cfg)`; norms and RoPE compute in float32 and
-    cast back.
-The reference keeps float32 master weights and casts them at every
-product (`x @ w.astype(dt)`); the port's modules hold each matrix once
-in the compute dtype, which is bit for bit the same cast made once. The
-init helpers draw float32 from an explicit `torch.Generator` with the
-reference's distributions and scales (the values cannot equal
-jax.random's). `chunked_cross_entropy` waits for the training slice.
+    cast back;
+  * the loss is chunked over the sequence, so the (B, S, V) logits never
+    materialise (V up to 152k).
+The reference keeps float32 master weights and casts them at every use
+(`x @ w.astype(dt)`), and so does every use site here (`x @ w.to(dt)`).
+A serving model (`build_model(cfg)`) holds each matrix in the compute
+dtype, where that cast returns the same tensor: its forward gives the
+bits of the float32 masters cast, but it cannot train (an update would
+round into the compute dtype). A training model (`build_model(cfg,
+train=True)`) holds every leaf in float32, as the reference's pytree,
+so the updates and the gradients' sums (the embedding's scatter-add
+among them) stay in float32. The init helpers draw float32 from an
+explicit `torch.Generator` with the reference's distributions and
+scales (the values cannot equal jax.random's).
 """
 from __future__ import annotations
 
@@ -19,14 +26,18 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 def cdtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A parameter that serving never differentiates."""
+    """A parameter created without `requires_grad`: serving never
+    differentiates. `Model.as_trainable` turns it on for every leaf (and
+    casts every leaf to float32) for training."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -142,7 +153,9 @@ class MLP(nn.Module):
 
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
-    return (silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    dt = x.dtype
+    return (silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))) \
+        @ p.w_down.to(dt)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -156,10 +169,10 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 # -- Embedding + last-position head ----------------------------------------------
 
 class Embedding(nn.Module):
-    """`tok` (V, D) in the compute dtype, or for multi-codebook audio
-    `books` (K, V, D) in float32: the reference sums the K rows in float32
-    and casts once, and rows rounded before the sum would give other
-    bits."""
+    """`tok` (V, D) in the compute dtype (float32 in a training model), or
+    for multi-codebook audio `books` (K, V, D) in float32: the reference
+    sums the K rows in float32 and casts once, and rows rounded before the
+    sum would give other bits."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -181,21 +194,26 @@ class Embedding(nn.Module):
 
 
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) int, or (B, S, K) for K codebooks. The reference
-    gathers the float32 table and casts; gathering the table held in the
-    compute dtype is the same. Codebooks: book k's row for k = 0, ..., K-1
-    summed in float32, then cast."""
+    """tokens: (B, S) int, or (B, S, K) for K codebooks. The table's rows
+    gathered, then cast to the compute dtype, as the reference's
+    `take(tok, ids).astype(dt)`: the backward scatter-adds the cotangent
+    into a float32 table's gradient in float32. Codebooks: book k's row
+    for k = 0, ..., K-1 summed in float32, then cast. The gather is
+    `F.embedding`, whose backward sums each row's cotangents in a fixed
+    order on the CPU (indexing's `index_put_` does not), so that a step
+    gives the same bits every time."""
     tokens = tokens.long()
     if hasattr(p, "books"):
-        out = p.books[0][tokens[..., 0]]
+        out = F.embedding(tokens[..., 0], p.books[0])
         for k in range(1, p.books.shape[0]):
-            out = out + p.books[k][tokens[..., k]]
+            out = out + F.embedding(tokens[..., k], p.books[k])
         return out.to(p.dtype)
-    return p.tok[tokens]
+    return F.embedding(tokens, p.tok).to(p.dtype)
 
 
 class Head(nn.Module):
-    """`w` (D, V), or (K, D, V) for K codebooks, in the compute dtype."""
+    """`w` (D, V), or (K, D, V) for K codebooks, in the compute dtype
+    (float32 in a training model)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -214,6 +232,48 @@ class Head(nn.Module):
 def logits_last(p, h_last: torch.Tensor) -> torch.Tensor:
     """h_last: (B, D) -> logits (B, V), or (B, K, V) for K codebooks, in
     the compute dtype."""
-    if p.w.ndim == 3:
-        return torch.einsum("bd,kdv->bkv", h_last, p.w)
-    return h_last @ p.w
+    w = p.w.to(h_last.dtype)
+    if w.ndim == 3:
+        return torch.einsum("bd,kdv->bkv", h_last, w)
+    return h_last @ w
+
+
+def chunked_cross_entropy(p, cfg, h: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE without materialising (B, S, V).
+
+    h: (B, S, D) final hidden states; labels: (B, S) int (or (B, S, K)
+    for K codebooks); `p` the head. Walks the sequence in chunks of
+    min(cfg.loss_chunk, S) (S must be a multiple): each chunk's logits in
+    the compute dtype, then in float32 their logsumexp and the label's
+    log-probability, summed in float32 and divided by the number of
+    labels. Each chunk runs under a non-reentrant checkpoint, so the
+    backward recomputes its (B, c, V) logits rather than keeping them, as
+    the reference's `jax.checkpoint` does. The head's matrix is cast once,
+    as in the reference, so in bf16 its gradient sums over the chunks in
+    bf16 before it reaches the float32 leaf."""
+    B, S, D = h.shape
+    c = min(cfg.loss_chunk, S)
+    if S % c:
+        raise ValueError(f"chunked_cross_entropy: sequence {S} is not a "
+                         f"multiple of the loss chunk {c}")
+    w = p.w.to(h.dtype)
+
+    def chunk_loss(h_c, y_c, w):
+        if w.ndim == 3:
+            logits = torch.einsum("bsd,kdv->bskv", h_c, w)
+        else:
+            logits = h_c @ w                           # (B, c, V)
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+        return torch.sum(lse - ll)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(S // c):
+        # the forward draws no random numbers: no RNG state to keep
+        total = total + checkpoint(chunk_loss, h[:, i * c:(i + 1) * c],
+                                   labels[:, i * c:(i + 1) * c], w,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / labels.numel()

@@ -3,13 +3,17 @@
 Port of `repro.models.mamba`, names kept. Prefill's selective scan goes
 through `kernels.ssd.ops.ssm_scan`: on CUDA the hand-written kernel of
 `csrc/ssd.cu` (the state in registers, the time loop inside the kernel,
-channels across the grid), on the CPU the plain `ref.ssm_scan`. Decode
-runs the plain `selective_scan` at S = 1, as the reference does, and the
-causal conv carries its last ck - 1 inputs.
+channels across the grid), on the CPU the plain `ref.ssm_scan`. Training
+(`plain=True`, from `Model.loss`) runs the plain `selective_scan` on
+every device, the reference's route with `use_pallas` off: the kernel
+has no backward in either package. Decode runs the plain
+`selective_scan` at S = 1, as the reference does, and the causal conv
+carries its last ck - 1 inputs.
 
-The module holds each weight the reference casts with `.astype(dt)` in
-the compute dtype; `dt_bias`, `A_log` and `D_skip`, which the reference
-uses in float32, stay float32.
+Each use of a weight the reference casts with `.astype(dt)` casts it to
+the compute dtype (a serving model holds it so already); `dt_bias`,
+`A_log` and `D_skip`, which the reference uses in float32, are held in
+float32.
 """
 from __future__ import annotations
 
@@ -96,15 +100,17 @@ def _causal_conv(p: Mamba, xin: torch.Tensor,
 
 
 def mamba_forward(p: Mamba, cfg, x: torch.Tensor,
-                  state: Optional[dict] = None, decode: bool = False):
+                  state: Optional[dict] = None, decode: bool = False,
+                  plain: bool = False):
     """x: (B, S, D). state: {'h': (B, di, ds), 'conv': (B, di, ck-1)} for
-    decode. Returns (out, new_state)."""
+    decode. Returns (out, new_state). `plain` takes the plain
+    `selective_scan` on every device (training)."""
     B, S, D = x.shape
     di, ds = cfg.d_inner, cfg.d_state
     ck = cfg.conv_kernel
     r = dt_rank(cfg)
 
-    xz = x @ p.in_proj
+    xz = x @ p.in_proj.to(x.dtype)
     xin, z = torch.split(xz, di, dim=-1)
 
     conv_state = state["conv"] if decode else None
@@ -117,17 +123,19 @@ def mamba_forward(p: Mamba, cfg, x: torch.Tensor,
         new_conv = xin.transpose(1, 2)[:, :, -(ck - 1):]
     xin_c = silu(conv_out)
 
-    dbc = xin_c @ p.x_proj
+    dbc = xin_c @ p.x_proj.to(x.dtype)
     dt_raw, Bv, Cv = torch.split(dbc, [r, ds, ds], dim=-1)
-    dt = F.softplus((dt_raw @ p.dt_proj).float() + p.dt_bias[None, None])
+    dt = F.softplus((dt_raw @ p.dt_proj.to(x.dtype)).float()
+                    + p.dt_bias[None, None])
     A = -torch.exp(p.A_log)
 
     if decode:
         y, h = selective_scan(xin_c, dt, A, Bv, Cv, p.D_skip, state["h"])
     else:
         h0 = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
-        y, h = sops.ssm_scan(xin_c, dt, A, Bv, Cv, p.D_skip, h0)
-    out = (y.to(x.dtype) * silu(z)) @ p.out_proj
+        scan = selective_scan if plain else sops.ssm_scan
+        y, h = scan(xin_c, dt, A, Bv, Cv, p.D_skip, h0)
+    out = (y.to(x.dtype) * silu(z)) @ p.out_proj.to(x.dtype)
     return out, {"h": h, "conv": new_conv}
 
 

@@ -51,7 +51,7 @@ class MLA(nn.Module):
     """Parameters of one MLA layer, with the reference's leaf names:
     wq_a, q_norm, wq_b (or wq when q_lora_rank is 0), wkv_a, kv_norm,
     wkv_b_k (L, H, dn), wkv_b_v (L, H, dv) and wo, the matrices in the
-    compute dtype."""
+    compute dtype (float32 in a training model)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -81,10 +81,11 @@ def _queries(p: MLA, cfg, x, positions):
     """(q_nope (B, S, H, dn), q_rope (B, S, H, dr)), RoPE on the latter."""
     B, S, _ = x.shape
     nh, dn, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    dt = x.dtype
     if cfg.q_lora_rank:
-        q = rmsnorm(p.q_norm.scale, x @ p.wq_a) @ p.wq_b
+        q = rmsnorm(p.q_norm.scale, x @ p.wq_a.to(dt)) @ p.wq_b.to(dt)
     else:
-        q = x @ p.wq
+        q = x @ p.wq.to(dt)
     q = q.reshape(B, S, nh, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
@@ -92,7 +93,7 @@ def _queries(p: MLA, cfg, x, positions):
 def _latents(p: MLA, cfg, x, positions):
     """(c_kv (B, S, L) normed, k_rope (B, S, dr)), the one RoPE key."""
     L = cfg.kv_lora_rank
-    ckv_full = x @ p.wkv_a                               # (B, S, L + dr)
+    ckv_full = x @ p.wkv_a.to(x.dtype)                   # (B, S, L + dr)
     c_kv = rmsnorm(p.kv_norm.scale, ckv_full[..., :L])
     k_rope = apply_rope(ckv_full[..., L:][:, :, None, :], positions,
                         cfg.rope_theta)
@@ -103,17 +104,18 @@ def mla_forward(p: MLA, cfg, x, positions, impl: Optional[str] = None):
     """Prefill: expand per-head K/V from the latent; returns (out,
     (c_kv, k_rope)) for the cache."""
     B, S, _ = x.shape
+    dt = x.dtype
     nh, dn, dr, dv = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, cfg.vdim
     q_nope, q_rope = _queries(p, cfg, x, positions)
     c_kv, k_rope = _latents(p, cfg, x, positions)
-    k_nope = torch.einsum("bsl,lhd->bshd", c_kv, p.wkv_b_k)
-    v = torch.einsum("bsl,lhd->bshd", c_kv, p.wkv_b_v)
+    k_nope = torch.einsum("bsl,lhd->bshd", c_kv, p.wkv_b_k.to(dt))
+    v = torch.einsum("bsl,lhd->bshd", c_kv, p.wkv_b_v.to(dt))
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, nh, dr)],
                   dim=-1)
     out = attn_mod.attention_core(q, k, v, causal=True, cfg=cfg, impl=impl)
     out = out.reshape(B, S, nh * dv)
-    return out @ p.wo, (c_kv, k_rope)
+    return out @ p.wo.to(dt), (c_kv, k_rope)
 
 
 def mla_decode(p: MLA, cfg, x, cache, cur_len: int):
@@ -132,7 +134,7 @@ def mla_decode(p: MLA, cfg, x, cache, cur_len: int):
     kr_cache[:, cur_len] = kr_new[:, 0]
 
     # absorb wkv_b_k into the query: (B, 1, H, dn)·(L, H, dn) -> (B, 1, H, L)
-    q_abs = torch.einsum("bqhd,lhd->bqhl", q_nope, p.wkv_b_k)
+    q_abs = torch.einsum("bqhd,lhd->bqhl", q_nope, p.wkv_b_k.to(dt))
     ck = ckv_cache.to(dt)
     scores = (torch.einsum("bqhl,bsl->bhqs", q_abs, ck)
               + torch.einsum("bqhd,bsd->bhqs", q_rope, kr_cache.to(dt)))
@@ -141,8 +143,8 @@ def mla_decode(p: MLA, cfg, x, cache, cur_len: int):
     scores = torch.where(kpos < cur_len + 1, scores, attn_mod.NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dt)
     ctx = torch.einsum("bhqs,bsl->bqhl", probs, ck)     # (B, 1, H, L)
-    out = torch.einsum("bqhl,lhd->bqhd", ctx, p.wkv_b_v)
-    return out.reshape(B, 1, nh * dv) @ p.wo, cache
+    out = torch.einsum("bqhl,lhd->bqhd", ctx, p.wkv_b_v.to(dt))
+    return out.reshape(B, 1, nh * dv) @ p.wo.to(dt), cache
 
 
 def mla_cache_spec(cfg, batch: int, max_len: int):

@@ -1,4 +1,4 @@
-"""Model: init / prefill / decode for every family of the model zoo.
+"""Model: init / loss / prefill / decode for every family of the model zoo.
 
 Port of `repro.models.model` as an `nn.Module`. The `first_dense_layers`
 (the deepseek models' leading "attn+mlp_first" layers) run first, one by
@@ -33,7 +33,19 @@ scanned residual, to float32, which its layer scan refuses. The cast
 gives the port that same bf16 image whatever dtype it is handed.
 
 The MoE layers' aux losses are summed over the layers, as in the
-reference (serving reads none of them).
+reference (serving reads none of them; `loss` adds 0.01 of their sum).
+
+Training: `build_model(cfg, train=True)` holds every parameter as a
+float32 leaf that requires grad (the reference's pytree, which
+`jax.value_and_grad` differentiates whole); the use sites cast to the
+compute dtype. `loss` runs a grad-enabled forward on the reference's
+plain routes (no kernel has a backward) and, with `cfg.remat`, each
+period under a non-reentrant checkpoint, as the reference's
+`jax.checkpoint` of its period body: the backward recomputes a period's
+activations from its input. The prefix layers run outside it, as in the
+reference. A MoE layer's host read of its group sizes runs again in the
+recompute and routes the same tokens (top-k breaks ties to the lower
+index), so the recompute matches the forward.
 
 Entry points compute on CUDA unless the caller passes `device="cpu"`
 (`build_model`).
@@ -44,11 +56,12 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.backend import resolve_device
 from . import blocks
 from .config import ModelConfig
-from .layers import Embedding, Head, RMSNorm
+from .layers import Embedding, Head, RMSNorm, chunked_cross_entropy
 
 _PREFIX = "attn+mlp_first"  # the kind of the first dense layers
 
@@ -116,8 +129,20 @@ class Model(nn.Module):
         `Model.n_params`; `cfg.total_params()` leaves the scales out)."""
         return sum(p.numel() for p in self.parameters())
 
+    def as_trainable(self) -> "Model":
+        """In place: every parameter a float32 leaf that requires grad;
+        returns self. Casting a compute-dtype weight up is exact, so a
+        served model's weights carry over unchanged."""
+        self.float()
+        return self.requires_grad_(True)
+
+    @property
+    def trainable(self) -> bool:
+        return all(p.dtype == torch.float32 and p.requires_grad
+                   for p in self.parameters())
+
     # ------------------------------------------------------------------
-    # prefill forward
+    # forward (training and prefill share this body)
     # ------------------------------------------------------------------
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *, image_embeds=None,
@@ -126,6 +151,15 @@ class Model(nn.Module):
         `collect_cache`, caches are allocated at `max_len` (default S) and
         hold the prompt's K/V in their first S slots (and each recurrent
         layer's final state, each xattn layer's image K/V)."""
+        return self._forward(tokens, image_embeds=image_embeds,
+                             collect_cache=collect_cache, max_len=max_len)
+
+    def _forward(self, tokens, *, image_embeds=None,
+                 collect_cache: bool = False, max_len: Optional[int] = None,
+                 plain: bool = False, remat: bool = False):
+        """`forward`'s body, in the caller's grad mode; `plain` takes the
+        reference's plain routes on every device, `remat` checkpoints each
+        period (training)."""
         cfg = self.cfg
         x = self.embed(tokens)
         B, S = x.shape[0], x.shape[1]
@@ -147,20 +181,55 @@ class Model(nn.Module):
         for i, blk in enumerate(self.prefix):
             x, aux, cache = blocks.block_forward(
                 blk, cfg, _PREFIX, x, positions, image_embeds,
-                collect_cache=collect_cache)
+                collect_cache=collect_cache, plain=plain)
             aux_total = aux_total + aux
             if collect_cache:
                 write(caches["prefix"][i], cache)
         for layer, period in enumerate(self.periods):
+            if remat:
+                # the forward draws no random numbers: no RNG state to keep
+                x, aux = checkpoint(self._period, period, x, positions,
+                                    image_embeds, plain, use_reentrant=False,
+                                    preserve_rng_state=False)
+                aux_total = aux_total + aux
+                continue
             for key, blk in period.items():
                 x, aux, cache = blocks.block_forward(
                     blk, cfg, key.split(":", 1)[1], x, positions,
-                    image_embeds, collect_cache=collect_cache)
+                    image_embeds, collect_cache=collect_cache, plain=plain)
                 aux_total = aux_total + aux
                 if collect_cache:
                     write(_tree_map(lambda t: t[layer],
                                     caches["periods"][key]), cache)
         return self.final_norm(x), aux_total, caches
+
+    def _period(self, period, x, positions, image_embeds, plain: bool):
+        """One period's layers without caches: (x, the period's aux)."""
+        aux_p = torch.zeros((), dtype=torch.float32, device=x.device)
+        for key, blk in period.items():
+            x, aux, _ = blocks.block_forward(
+                blk, self.cfg, key.split(":", 1)[1], x, positions,
+                image_embeds, plain=plain)
+            aux_p = aux_p + aux
+        return x, aux_p
+
+    # ------------------------------------------------------------------
+    # loss
+    # ------------------------------------------------------------------
+    def loss(self, batch: dict):
+        """batch: {'tokens', 'labels', optional 'image_embeds'} (numpy or
+        tensors). Returns (ce + 0.01 · aux, {"ce", "aux"}), float32 scalars
+        on the model's device, differentiable in the caller's grad mode:
+        the reference's plain routes on every device, each period
+        checkpointed when `cfg.remat`."""
+        dev = self.device
+        tokens = torch.as_tensor(batch["tokens"]).to(dev)
+        labels = torch.as_tensor(batch["labels"]).to(dev)
+        h, aux, _ = self._forward(tokens,
+                                  image_embeds=batch.get("image_embeds"),
+                                  plain=True, remat=self.cfg.remat)
+        ce = chunked_cross_entropy(self.head, self.cfg, h, labels)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------
     # serving
@@ -212,9 +281,14 @@ class Model(nn.Module):
                          self.cache_shapes(batch, max_len))
 
 
-def build_model(cfg: ModelConfig, device=None) -> Model:
+def build_model(cfg: ModelConfig, device=None, *, train: bool = False
+                ) -> Model:
     """The model on `device` (CUDA unless the caller asks for another;
     raises without a GPU; "meta" allocates nothing), its weights zero
     until `Model.init` or a `load_state_dict` (see
-    `repro_torch.interop.params_from_reference`)."""
-    return Model(cfg, resolve_device(device))
+    `repro_torch.interop.params_from_reference`). A serving model holds
+    its matrices in the compute dtype and differentiates nothing; with
+    `train`, every parameter is a float32 leaf that requires grad
+    (`Model.as_trainable`)."""
+    model = Model(cfg, resolve_device(device))
+    return model.as_trainable() if train else model

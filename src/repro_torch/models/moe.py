@@ -42,7 +42,8 @@ def moe_init(gen: torch.Generator, cfg) -> dict:
 
 class MoE(nn.Module):
     """Parameters of one MoE FFN: router (d, E) and the experts' w_gate,
-    w_up (E, d, de) and w_down (E, de, d) in the compute dtype; `shared`
+    w_up (E, d, de) and w_down (E, de, d) in the compute dtype (float32
+    in a training model); `shared`
     (an MLP of n_shared_experts · de) where the config has shared
     experts."""
 
@@ -75,7 +76,7 @@ def route(p: MoE, cfg, xf: torch.Tensor):
     """Router of the tokens xf (T, D): (probs (T, E) float32, top_vals,
     top_idx (T, k)). The logits are rounded to the compute dtype before
     the float32 softmax, as in the reference."""
-    logits = (xf @ p.router).float()
+    logits = (xf @ p.router.to(xf.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     top_vals, top_idx = top_k(probs, cfg.moe_top_k)
     return probs, top_vals, top_idx
@@ -115,16 +116,20 @@ def moe_forward_local(p: MoE, cfg, x: torch.Tensor):
     flat_expert = top_idx.reshape(T * k)
     sort_idx = torch.argsort(flat_expert, stable=True)
     token_of = sort_idx // k
-    xs = xf[token_of]                                          # (T·k, D)
+    # index_select, not xf[token_of]: its backward (index_add) sums each
+    # token's k replicas in a fixed order on the CPU, where indexing's
+    # index_put_ does not
+    xs = xf.index_select(0, token_of)                          # (T·k, D)
     sizes = torch.bincount(flat_expert, minlength=E).tolist()  # host sync
 
+    w_gate, w_up, w_down = (w.to(dt) for w in (p.w_gate, p.w_up, p.w_down))
     eo = torch.empty_like(xs)
     start = 0
     for e, n in enumerate(sizes):
         if n:
             rows = slice(start, start + n)
-            h = silu(xs[rows] @ p.w_gate[e]) * (xs[rows] @ p.w_up[e])
-            eo[rows] = h @ p.w_down[e]
+            h = silu(xs[rows] @ w_gate[e]) * (xs[rows] @ w_up[e])
+            eo[rows] = h @ w_down[e]
         start += n
 
     # the weighted replicas back in token order, each token's k replicas
@@ -165,9 +170,9 @@ def moe_forward_dense_fallback(p: MoE, cfg, x: torch.Tensor):
     weights = top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True),
                                          1e-9)
     dense_w = torch.zeros_like(probs).scatter(1, top_idx, weights)
-    g = torch.einsum("td,edf->tef", xf, p.w_gate)
-    u = torch.einsum("td,edf->tef", xf, p.w_up)
-    eo = torch.einsum("tef,efd->ted", silu(g) * u, p.w_down)
+    g = torch.einsum("td,edf->tef", xf, p.w_gate.to(dt))
+    u = torch.einsum("td,edf->tef", xf, p.w_up.to(dt))
+    eo = torch.einsum("tef,efd->ted", silu(g) * u, p.w_down.to(dt))
     out = torch.einsum("ted,te->td", eo, dense_w.to(dt))
     aux = _aux_loss(probs, top_idx, E, k)
     if cfg.n_shared_experts:

@@ -8,12 +8,15 @@ chunk, O(S·C·dh) instead of O(S²); decode is O(1) per token from the
 recurrent state. Prefill's WKV goes through `kernels.rwkv6.ops.wkv6`:
 on CUDA the hand-written kernel of `csrc/wkv6.cu`, on the CPU
 `wkv_chunked` (the reference's own off-TPU route, kept with `SUB` in
-`kernels/rwkv6/ref.py` below the model and imported here). Decode runs
-`wkv_step` in plain torch, as in the reference.
+`kernels/rwkv6/ref.py` below the model and imported here). Training
+(`plain=True`, from `Model.loss`) runs `wkv_chunked` on every device,
+the reference's route with `use_pallas` off: the kernel has no backward
+in either package. Decode runs `wkv_step` in plain torch, as in the
+reference.
 
-The module holds each weight the reference casts with `.astype(dt)` in
-the compute dtype; `w0`, `u` and `ln_x`, which the reference uses in
-float32, stay float32.
+Each use of a weight the reference casts with `.astype(dt)` casts it to
+the compute dtype (a serving model holds it so already); `w0`, `u` and
+`ln_x`, which the reference uses in float32, are held in float32.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 from torch import nn
 
 from ..kernels.rwkv6 import ops as wops
-from ..kernels.rwkv6.ref import SUB, wkv_chunked  # noqa: F401 (names kept)
+from ..kernels.rwkv6.ref import SUB, wkv_chunked  # noqa: F401 (SUB kept)
 from .layers import _normal, cdtype, dense_init, frozen, load_, silu
 
 LORA_SHIFT = 32     # token-shift ddlerp lora rank
@@ -119,13 +122,14 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]
 
 def _ddlerp(p: RWKV6, x: torch.Tensor, xprev: torch.Tensor) -> torch.Tensor:
     """Data-dependent lerp producing the 5 mixed inputs (r,k,v,w,g)."""
+    dt = x.dtype
     xx = xprev - x
-    base = x + xx * p.mu_x
-    lora = torch.tanh(base @ p.tm_w1)
+    base = x + xx * p.mu_x.to(dt)
+    lora = torch.tanh(base @ p.tm_w1.to(dt))
     B, S, _ = x.shape
     lora = lora.reshape(B, S, 5, LORA_SHIFT)
-    delta = torch.einsum("bsfl,fld->fbsd", lora, p.tm_w2)
-    mixed = x[None] + xx[None] * (p.mu[:, None, None] + delta)
+    delta = torch.einsum("bsfl,fld->fbsd", lora, p.tm_w2.to(dt))
+    mixed = x[None] + xx[None] * (p.mu.to(dt)[:, None, None] + delta)
     return mixed  # (5, B, S, D)
 
 
@@ -152,42 +156,48 @@ def wkv_step(r, k, v, logw, u, state):
     return y.to(r.dtype), state
 
 
-def time_mix(p: RWKV6, cfg, x, shift_prev, state, decode: bool = False):
+def time_mix(p: RWKV6, cfg, x, shift_prev, state, decode: bool = False,
+             plain: bool = False):
     """x: (B, S, D). Returns (out, new_shift, new_state); the shift carry
-    is the (normed) input's last row."""
+    is the (normed) input's last row. `plain` takes the plain
+    `wkv_chunked` on every device (training)."""
     B, S, D = x.shape
-    dh = cfg.rwkv_head_dim
+    dh, dt = cfg.rwkv_head_dim, x.dtype
     H = D // dh
     xprev = _token_shift(x, shift_prev)
     xr, xk, xv, xw, xg = _ddlerp(p, x, xprev)
-    r = (xr @ p.wr).reshape(B, S, H, dh)
-    k = (xk @ p.wk).reshape(B, S, H, dh)
-    v = (xv @ p.wv).reshape(B, S, H, dh)
-    g = xg @ p.wg
+    r = (xr @ p.wr.to(dt)).reshape(B, S, H, dh)
+    k = (xk @ p.wk.to(dt)).reshape(B, S, H, dh)
+    v = (xv @ p.wv.to(dt)).reshape(B, S, H, dh)
+    g = xg @ p.wg.to(dt)
     g = silu(g)  # jax.nn.silu's roundings in bf16
     logw = -torch.exp(p.w0.float()
-                      + (torch.tanh(xw @ p.wA) @ p.wB).float())
+                      + (torch.tanh(xw @ p.wA.to(dt))
+                         @ p.wB.to(dt)).float())
     logw = logw.clamp(-MAX_DECAY, -1e-4)  # see MAX_DECAY note
     logw = logw.reshape(B, S, H, dh)
     if decode:
         y, state = wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], p.u,
                             state)
         y = y[:, None]
+    elif plain:
+        y, state = wkv_chunked(r, k, v, logw, p.u, state, cfg.rwkv_chunk)
     else:
         y, state = wops.wkv6(r, k, v, logw, p.u, state,
                              chunk=cfg.rwkv_chunk)
     y = _group_norm(p, y.reshape(B, S, D), H) * g
-    return y @ p.wo, x[:, -1:], state
+    return y @ p.wo.to(dt), x[:, -1:], state
 
 
 def channel_mix(p: RWKV6, x, shift_prev):
+    dt = x.dtype
     xprev = _token_shift(x, shift_prev)
     xx = xprev - x
-    xr = x + xx * p.mu_rc
-    xk = x + xx * p.mu_kc
-    rr = torch.sigmoid(xr @ p.wr_c)
-    kk = torch.square(torch.relu(xk @ p.wk_c))
-    return rr * (kk @ p.wv_c), x[:, -1:]
+    xr = x + xx * p.mu_rc.to(dt)
+    xk = x + xx * p.mu_kc.to(dt)
+    rr = torch.sigmoid(xr @ p.wr_c.to(dt))
+    kk = torch.square(torch.relu(xk @ p.wk_c.to(dt)))
+    return rr * (kk @ p.wv_c.to(dt)), x[:, -1:]
 
 
 def rwkv6_state_spec(cfg, batch: int):

@@ -1,9 +1,9 @@
 """The port stands alone: `repro_torch` and `chip_smoke.py` import
 neither jax nor anything of the JAX package `repro` (nor `ml_dtypes`,
 which only `core/backend.py`'s `to_numpy` takes where it is installed),
-the package works with jax made unimportable, and the entry points
-compute on CUDA unless the CPU is asked for — never falling back to
-it."""
+the package works with jax made unimportable (the lifecycle, serving and
+training entry points), and the entry points compute on CUDA unless the
+CPU is asked for — never falling back to it."""
 import ast
 import os
 import subprocess
@@ -160,6 +160,62 @@ print("ok")
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_trains_reduced_lm_with_jax_blocked():
+    """The training entry points (`optim`, `launch.steps`,
+    `launch.train`, `launch.shapes`) import and run on the CPU with jax
+    and `repro` unimportable: the trainer trains, checkpoints and resumes
+    the reduced lm-100m, and `input_specs` describes a full-width model
+    on the meta device."""
+    code = """
+import os, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import math
+from repro_torch.configs import get_config
+from repro_torch.launch import shapes, train
+from repro_torch.launch.steps import train_state_shapes
+from repro_torch.models import build_model
+from repro_torch.optim import AdamWState, adamw_init, warmup_cosine
+d = tempfile.mkdtemp()
+flags = ["--device", "cpu", "--reduced", "--steps", "4", "--batch", "2",
+         "--seq-len", "64", "--ckpt-every", "2", "--ckpt-dir", d]
+first = train.main(flags)
+assert len(first["losses"]) == 4 and all(map(math.isfinite, first["losses"]))
+again = train.main(flags[:4] + ["6"] + flags[5:])
+assert again["start_step"] == 4 and len(again["losses"]) == 2
+cfg = get_config("qwen3-0.6b")
+meta = build_model(cfg, device="meta")
+spec = shapes.input_specs(cfg, "decode_32k", meta)
+assert spec["cur_len"] is int and spec["token"][0] == (128, 1)
+params, opt = train_state_shapes(meta)
+assert isinstance(opt, AdamWState) and len(params) == len(opt.m)
+assert not any(m in ("jax",) or m.startswith(("jax.", "repro."))
+               for m, v in sys.modules.items() if v is not None)
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_trainer_defaults_to_cuda():
+    """`launch.train` and `build_model(train=True)` compute on CUDA unless
+    the CPU is asked for, and raise without a GPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    if torch.cuda.is_available():
+        assert build_model(get_config("lm-100m").reduced(), train=True
+                           ).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(get_config("lm-100m").reduced(), train=True)
 
 
 def test_to_numpy_keeps_bfloat16_where_ml_dtypes_is_installed():
