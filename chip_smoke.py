@@ -87,7 +87,8 @@ card. One JSON line per phase:
                      traffic as lm_serve: 32 wkv6 launches in prefill, none
                      in decode; each layer's kernel call on its served
                      inputs against the plain WKV, and the routes' split
-                     layer by layer against a kernel-free float64 route;
+                     after the first layer against a kernel-free float64
+                     route;
                      teacher-forced decode from the kernel's final state,
                      kernel against plain WKV and against two planted
                      faults (the state zeroed 4 positions before the end,
@@ -193,7 +194,21 @@ card. One JSON line per phase:
                      compile) bitwise the clean run with its counters; an
                      8-λ federated grid under parfor with one exchange
                      round per site per fed instruction
- 26. moe_serve     — the moe family served at deepseek-moe-16b's full width
+ 26. sharded       — lmDS at the lmds point compiled under
+                     use_mesh(data=8) with 8 logical devices laid over the
+                     card: X sharded (neither streamed nor chunked), 8 gram
+                     and 8 xtv launches (counted in a trace), β within rel
+                     1e-9 of numpy's solve and of the local lmDS, the
+                     fitted values X β (one reshard) within 1e-9, the shard
+                     meter equal to the compile-time formulas, a refit
+                     bitwise; a shard_gram sum dropping the last shard and
+                     a reshard gathering in reverse order, each caught;
+                     the card's own count (1) runs the unshard closures (1
+                     + 1 launches, the same values); an 8-λ grid under
+                     use_mesh(config=8), mode "shard" against "vmap";
+                     walls, per-shard device ms against the bound, the
+                     traced idle share, peak device memory
+ 27. moe_serve     — the moe family served at deepseek-moe-16b's full width
                      and depth (28 layers: one dense, 27 MoE of 64 experts
                      top-6 and 2 shared; bf16, seeded weights), lm_serve's
                      traffic: 28 flash launches in prefill, none in decode;
@@ -203,21 +218,21 @@ card. One JSON line per phase:
                      replayed and the flips counted; experts touched per
                      decode step; tokens/s, peak memory, a traced idle
                      share
- 27. mla_serve     — MLA served at deepseek-v2-236b's full width, its depth
+ 28. mla_serve     — MLA served at deepseek-v2-236b's full width, its depth
                      cut to the dense first layer and 4 MoE layers (160
                      experts top-6), moe_serve's checks: 5 launches of the
                      (192, 128) flash instantiation in prefill, absorbed
                      decode over the latent cache, and the first layer's
                      absorbed decode against its expanded prefill
- 28. vlm_serve     — llama-3.2-vision-90b at full width, one period (4
+ 29. vlm_serve     — llama-3.2-vision-90b at full width, one period (4
                      self-attention layers, 1 cross-attention layer over
                      an (8, 1,024, 8,192) image; the gate drawn nonzero
                      from the seed), the same checks: 4 causal and 1
                      non-causal flash launches in prefill
- 29. audio_serve   — musicgen-large at full width and depth (48 layers) on
+ 30. audio_serve   — musicgen-large at full width and depth (48 layers) on
                      (8, 2,048, 4) EnCodec prompts: 32 steps of 4 codebook
                      tokens, 48 flash launches in prefill, the same checks
- 30. train         — lm-100m at full width (8 layers, d 640, vocab
+ 31. train         — lm-100m at full width (8 layers, d 640, vocab
                      32,768, float32, TF32 off) through
                      `repro_torch.launch.train.main` with the reference
                      trainer's defaults: 100 steps of batch 8 × 256, a
@@ -237,11 +252,13 @@ card. One JSON line per phase:
                      idle share and top ops, the FLOPs of a step at the
                      dtype's peak as its bound. No kernel launches: the
                      wrappers refuse a gradient
- 31. kernels       — the summary line of every ported kernel (the
+ 32. kernels       — the summary line of every ported kernel (the
                      block-sparse ones at the shape of most of their
                      launches, with launches x (device ms - bound ms) by
-                     path; gram and xtv also batched, with their
-                     launches on the CV path; flash with its launches
+                     path; gram and xtv with their launches on the
+                     sharded paths and a shard's device ms against its
+                     bound, and batched, with their launches on the CV
+                     path; flash with its launches
                      on every serving path and MLA's instantiation)
 
 then the card line of `nvidia-smi` and, last, the contract line
@@ -441,22 +458,33 @@ def device_trace(fn, counts: dict | None = None):
     return out, wall, (busy / 1e6 if events else None), by_name
 
 
+def retaken_trace(fn, calls: int = 1, tries: int = 3, whole=None):
+    """A trace of `calls` calls of `fn` (`device_trace`), taken again
+    while it holds no device event or `whole(counts)` is false, up to
+    `tries` times (late in a long run the profiler was seen to drop some
+    of a trace's records, or all of them): (wall s, device-busy s or
+    None, {kernel: device s}, {kernel: events}, takes). The last take is
+    returned if none was whole."""
+    for take in range(1, tries + 1):
+        counts: dict = {}
+        _, wall, busy, by_name = device_trace(
+            lambda: [fn() for _ in range(calls)], counts)
+        if busy is not None and (whole is None or whole(counts)):
+            break
+    return wall, busy, by_name, counts, take
+
+
 def per_call_ms(fn, calls: int = 10, tries: int = 3):
     """(card ms a call of `fn`, {kernel: ms a call}, {kernel: events})
-    from a trace of `calls` calls: each kernel's mean event time times
-    its events a call, so that a record the profiler drops does not lower
-    the sum (late in a long run it was seen to drop some of a trace's
-    records, or all of them); a trace that holds no device event is
-    retaken, up to `tries` times. (None, {}, {}) if none holds one."""
-    for _ in range(tries):
-        counts: dict = {}
-        _, _, busy, by_name = device_trace(
-            lambda: [fn() for _ in range(calls)], counts)
-        if busy is not None:
-            per = {k: 1e3 * v / counts[k] * max(1, round(counts[k] / calls))
-                   for k, v in by_name.items()}
-            return sum(per.values()), per, counts
-    return None, {}, {}
+    from a `retaken_trace` of `calls` calls: each kernel's mean event time
+    times its events a call, so that a record the profiler drops does not
+    lower the sum. (None, {}, {}) if no take holds a device event."""
+    _, busy, by_name, counts, _ = retaken_trace(fn, calls, tries)
+    if busy is None:
+        return None, {}, {}
+    per = {k: 1e3 * v / counts[k] * max(1, round(counts[k] / calls))
+           for k, v in by_name.items()}
+    return sum(per.values()), per, counts
 
 
 def bound(kind: str, m: int, n: int, c: int, dtype: str, peaks: dict
@@ -500,19 +528,28 @@ def phase_kernels(peaks: dict) -> dict:
     rng = np.random.default_rng(SEED)
     # the streaming bucket, its ragged tail, the quickstart matrix; then
     # steplm's column slice at an offset (8-byte-aligned base, element
-    # copies) and an odd width (8-byte-aligned rows)
+    # copies) and an odd width (8-byte-aligned rows); then, in float64
+    # only, the sharded lane's shapes at the lmds point: a shard of
+    # 12,500 rows (97 row blocks of 128 and a tail of 84) and the whole
+    # 100,000 rows its unshard fallback launches on
     cases = [("gram", 8192, 1000, 0, 0), ("gram", 1696, 1000, 0, 0),
              ("gram", 5000, 64, 0, 0), ("xtv", 8192, 1000, 1, 0),
              ("xtv", 1696, 1000, 1, 0), ("xtv", 5000, 64, 1, 0),
              ("xtv", 8192, 1000, 3, 0), ("gram", 20000, 34, 0, 1),
              ("xtv", 20000, 34, 1, 1), ("gram", 3000, 1001, 0, 0),
              ("xtv", 3000, 1001, 3, 0)]
+    sharded = [("gram", 12500, 1000, 0, 0), ("xtv", 12500, 1000, 1, 0),
+               ("gram", 100000, 1000, 0, 0), ("xtv", 100000, 1000, 1, 0)]
+    cases = ([(*case, None) for case in cases]
+             + [(*case, ("float64",)) for case in sharded])
     main = {}
-    for kind, m, n, c, offset in cases:
+    for kind, m, n, c, offset, dtypes in cases:
         host = from_reference(
             {"x": rng.standard_normal((m, n + offset)),
              "v": rng.standard_normal((m, max(c, 1)))}, "cuda")
         for name, dtype in dt.items():
+            if dtypes is not None and name not in dtypes:
+                continue
             x = host["x"].to(dtype)[:, offset:]
             if kind == "gram":
                 args, kern, plain = (x,), ops.gram_cuda, ref.gram
@@ -1029,6 +1066,265 @@ def phase_federated(dev=DEVICE, m: int = 100_000, n: int = 1_000,
         raise AssertionError(f"federated grid failed: {grid_row}")
     by_path["federated_grid_vmap"] = blaunch
     return by_path
+
+
+# ---------------------------------------------------------------------------
+# sharded placement: MeshSpec over logical devices laid over the card
+# ---------------------------------------------------------------------------
+
+# the dense gram/xtv kernels' passes, by the names the profiler reports
+GRAM_PASSES = ("gram_f64_partial", "gram_tile_reduce")
+XTV_PASSES = ("xtv_slab", "xtv_reduce")
+
+
+@contextlib.contextmanager
+def _planted(op: str, builder):
+    """The backend's kernel builder of `op` swapped for `builder` for a
+    block (a planted fault), every cached kernel and closure dropped on
+    the way in and out."""
+    from repro_torch.core import backend, clear_jit_cache
+    old = backend._KERNEL_BUILDERS[op]
+    backend._KERNEL_BUILDERS[op] = builder
+    backend._kernel_cached.cache_clear()
+    clear_jit_cache()
+    try:
+        yield
+    finally:
+        backend._KERNEL_BUILDERS[op] = old
+        backend._kernel_cached.cache_clear()
+        clear_jit_cache()
+
+
+def _pass_trace(fn, launches: dict) -> dict:
+    """A `retaken_trace` of `fn`, taken again until it holds each gram/xtv
+    pass as often as the wrappers counted its launches (`launches`).
+    `whole` is false when no take did: the caller fails and the row
+    reports the events seen."""
+    want = {p: launches[k if "reduce" not in p else f"{k}_reduce"]
+            for k, ps in (("gram", GRAM_PASSES), ("xtv", XTV_PASSES))
+            for p in ps}
+
+    def passes(counts):
+        return {p: sum(v for k, v in counts.items() if p in k) for p in want}
+    wall, busy, by_name, counts, takes = retaken_trace(
+        fn, whole=lambda c: passes(c) == want)
+    got = passes(counts)
+    return dict(trace=(wall, busy, by_name), events=got, want=want,
+                tries=takes, whole=got == want)
+
+
+def _kernel_times(tr: dict, m: int, n: int, peaks: dict) -> dict:
+    """Per launch of gram and of xtv over an (m, n) float64 X in a
+    `_pass_trace`: each pass's mean device ms an event, summed over the
+    kernel's passes, beside the bound."""
+    by_name, out = tr["trace"][2], {}
+    for kind, passes, c in (("gram", GRAM_PASSES, 0), ("xtv", XTV_PASSES, 1)):
+        ev = {p: tr["events"][p] for p in passes}
+        ms = sum(_device_ms(by_name, p) / ev[p] for p in passes if ev[p])
+        bms, by = bound(kind, m, n, max(c, 1), "float64", peaks)
+        out[kind] = dict(shape=[m, n], events=ev, device_ms=ms,
+                         bound_ms=bms, bound_by=by)
+    return out
+
+
+def _drop_last_partial(attrs):
+    """shard_gram whose sum over the shards leaves out the last one."""
+    from repro_torch.core import backend
+
+    def run(x):
+        acc = backend._gram(x[0])
+        for b in x[1:-1]:
+            acc = acc + backend._gram(b)
+        return acc
+    return run
+
+
+def _reversed_gather(attrs):
+    """reshard gathering the row blocks in reverse shard order."""
+    import torch
+    return lambda x: torch.cat(list(reversed(x)))
+
+
+def phase_sharded(peaks: dict, dev=DEVICE, m: int = 100_000, n: int = 1_000,
+                  d: int = 8, grid=(0.01, 0.1, 1.0, 10.0, 0.05, 0.5, 5.0,
+                                    50.0)) -> dict:
+    """Sharded placement at the lmds point, on the card: lmDS compiled
+    under `use_mesh(data=8)` with 8 logical devices laid over the card —
+    the plan shards X (neither streamed nor chunked), runs 8 gram and 8
+    xtv launches (a trace counts them), β within rel 1e-9 of numpy's
+    float64 solve and of the local (streamed) lmDS, the fitted values
+    X β (a sharded root: one reshard) within 1e-9 of numpy's,
+    `stats.shard` equal to the compile-time formulas over the plan, a
+    second fit bitwise the first; a shard_gram sum that drops the last
+    shard and a reshard that gathers in reverse order, each failing its
+    check; with the card's own device count (1) the same mesh runs the
+    unshard closures (1 + 1 launches, the same values); an 8-λ grid
+    under `use_mesh(config=8)` in mode "shard" against mode "vmap".
+    Returns the launches per path."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (LineageRuntime, backend, compile_plan,
+                                  costmodel, input_tensor, ops)
+    from repro_torch.distributed import logical_devices, use_mesh
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.lifecycle import grid_search_lm, lmDS
+    xn, yn, want = _lmds_point(m, n)
+    cuda = torch.device(dev).type == "cuda"
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+    def program(X, y):  # lmDS's DAG (lifecycle/regression.py)
+        return ops.solve(X.T @ X + LMDS_REG * ops.eye(n), X.T @ y)
+
+    def fit(devices: int):
+        """A cold lmDS fit under use_mesh(data=d) on a fresh runtime with
+        `devices` logical devices: (β, wall s, launches, shard meter)."""
+        with logical_devices(devices), use_mesh(data=d):
+            rt = LineageRuntime(device=dev)
+            gops.reset_launches()
+            _sync(dev)
+            t0 = time.perf_counter()
+            beta = lmDS(input_tensor("X", xn), input_tensor("y", yn),
+                        reg=LMDS_REG, runtime=rt)
+            wall = time.perf_counter() - t0
+        return beta, wall, dict(gops.LAUNCHES), rt.stats.shard.as_dict()
+
+    def fitted(beta, devices: int):
+        """X β under the mesh: a sharded matmul and its reshard."""
+        with logical_devices(devices), use_mesh(data=d):
+            rt = LineageRuntime(device=dev)
+            out = rt.evaluate([input_tensor("X", xn)
+                               @ input_tensor("b", beta)])[0]
+        return out, rt.stats.shard.as_dict()
+
+    # ---- the plan: X sharded, never streamed ------------------------------
+    with use_mesh(data=d):
+        plan = compile_plan([program(input_tensor("X", xn),
+                                     input_tensor("y", yn))])
+    segs = plan.segments_for(False)
+    formulas = dict(sharded_segments=0, config_sharded_segments=0,
+                    reshards=0, collectives=0, collective_bytes=0)
+    for seg in segs:
+        if seg.sharded:
+            formulas["sharded_segments"] += 1
+            for ins in seg.instructions:
+                if ins.node.op == backend.RESHARD_OP:
+                    formulas["reshards"] += 1
+                elif ins.node.op in backend.SHARD_REDUCE_OPS:
+                    formulas["collectives"] += 1
+                formulas["collective_bytes"] += costmodel.collective_bytes(
+                    ins.node)
+    plan_ok = (not plan.chunk_sliced and not any(s.chunked for s in segs)
+               and {"shard_gram", "shard_xtv"} <= set(plan.count_ops()))
+
+    # ---- data-axis sharding: the path -------------------------------------
+    beta_local = lmDS(input_tensor("X", xn), input_tensor("y", yn),
+                      reg=LMDS_REG, runtime=LineageRuntime(device=dev))
+    live_gb = None
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        live_gb = torch.cuda.memory_allocated() / 1e9
+    beta, cold_s, launches, meter = fit(d)          # the path
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    beta2, warm_s, _, _ = fit(d)
+    fit_x, fit_meter = fitted(beta, d)
+    want_fit = xn @ beta
+
+    def beta_ok(b):
+        return rel(b, want) <= 1e-9 and rel(b, beta_local) <= 1e-9
+
+    def fitted_ok(f):
+        return rel(f, want_fit) <= 1e-9
+
+    # per-shard launches in a trace of one more fit
+    traced, per_shard, trace_ok = None, {}, True
+    if cuda:
+        tr = _pass_trace(lambda: fit(d), launches)
+        traced = dict(_traced(*tr["trace"]), tries=tr["tries"],
+                      whole=tr["whole"], events=tr["events"])
+        per_shard = _kernel_times(tr, m // d, n, peaks)
+        trace_ok = tr["whole"]
+
+    # ---- planted faults, each beyond its limit ----------------------------
+    with _planted("shard_gram", _drop_last_partial):
+        beta_bad, _, _, _ = fit(d)
+    with _planted(backend.RESHARD_OP, _reversed_gather):
+        fit_bad, _ = fitted(beta, d)
+    faults_caught = dict(dropped_partial=not beta_ok(beta_bad),
+                         dropped_partial_rel=rel(beta_bad, want),
+                         reversed_gather=not fitted_ok(fit_bad),
+                         reversed_gather_rel=rel(fit_bad, want_fit))
+
+    # ---- degradation: the card's own device count -------------------------
+    beta_1, one_s, launches_1, meter_1 = fit(1)
+    fit_1, fit_meter_1 = fitted(beta, 1)
+    whole = {}
+    if cuda:  # the one gram and xtv over the whole X, traced
+        tr = _pass_trace(lambda: fit(1), launches_1)
+        whole = _kernel_times(tr, m, n, peaks)
+        trace_ok = trace_ok and tr["whole"]
+
+    # ---- the bucket axis: an 8-λ grid over config=8 -----------------------
+    lams = list(grid)
+    grid_runs = {}
+    with logical_devices(len(lams)), use_mesh(config=len(lams)):
+        for mode in ("shard", "vmap"):
+            rt = LineageRuntime(device=dev)
+            gops.reset_launches()
+            _sync(dev)
+            t0 = time.perf_counter()
+            gb, gl = grid_search_lm(input_tensor("gX", xn),
+                                    input_tensor("gy", yn), lams,
+                                    runtime=rt, mode=mode)
+            grid_runs[mode] = dict(
+                wall_s=time.perf_counter() - t0, betas=gb,
+                losses=np.asarray(gl), launches=dict(gops.LAUNCHES),
+                shard=rt.stats.shard.as_dict(),
+                batched_segments=rt.stats.batched_segments)
+    g_sh, g_vm = grid_runs["shard"], grid_runs["vmap"]
+    grid_row = dict(
+        k=len(lams), shard_wall_s=g_sh["wall_s"], vmap_wall_s=g_vm["wall_s"],
+        config_sharded_segments=g_sh["shard"]["config_sharded_segments"],
+        rel_beta_vs_vmap=rel(g_sh["betas"], g_vm["betas"]),
+        rel_loss_vs_vmap=rel(g_sh["losses"], g_vm["losses"]),
+        shard_launches=g_sh["launches"], vmap_launches=g_vm["launches"])
+
+    row = dict(
+        phase="sharded", shape=[m, n], mesh=dict(data=d), dtype="float64",
+        plan_sharded_not_streamed=plan_ok,
+        segments=[s.summary() for s in segs],
+        cold_s=cold_s, warm_s=warm_s, peak_device_gb=peak_gb,
+        live_before_gb=live_gb,
+        rel_err_vs_numpy=rel(beta, want),
+        rel_err_vs_local=rel(beta, beta_local),
+        fitted_rel_err=rel(fit_x, want_fit),
+        bitwise_rerun=bool(np.array_equal(beta, beta2)),
+        launches=launches, shard=meter, formulas=formulas,
+        fitted_shard=fit_meter, per_shard=per_shard, traced=traced, faults=faults_caught,
+        unshard=dict(wall_s=one_s, launches=launches_1, shard=meter_1,
+                     whole_x=whole,
+                     fitted_shard=fit_meter_1,
+                     rel_beta_vs_sharded=rel(beta_1, beta),
+                     rel_fitted_vs_sharded=rel(fit_1, fit_x)),
+        grid=grid_row)
+    emit(row)
+    ok = (plan_ok and beta_ok(beta) and fitted_ok(fit_x)
+          and row["bitwise_rerun"] and meter == formulas
+          and fit_meter["reshards"] == 1
+          and launches["gram"] == launches["xtv"] == d and trace_ok
+          and faults_caught["dropped_partial"]
+          and faults_caught["reversed_gather"]
+          and sum(meter_1.values()) == 0 and sum(fit_meter_1.values()) == 0
+          and launches_1["gram"] == launches_1["xtv"] == 1
+          and rel(beta_1, beta) <= 1e-9 and rel(fit_1, fit_x) <= 1e-9
+          and grid_row["config_sharded_segments"] > 0
+          and grid_row["rel_beta_vs_vmap"] <= 1e-9
+          and grid_row["rel_loss_vs_vmap"] <= 1e-9)
+    if not ok:
+        raise AssertionError(f"sharded placement failed: {row}")
+    return dict(sharded_lmds=launches, sharded_unshard=launches_1,
+                sharded_grid_shard=g_sh["launches"]), per_shard
 
 
 # ---------------------------------------------------------------------------
@@ -1939,13 +2235,13 @@ def phase_wkv6_kernels(peaks: dict, cases=WKV6_CASES) -> dict:
         # the trace is taken again, up to eight times; a run in which two
         # cases need more than one retake fails
         lost = PROFILER["sentinels_lost"]
-        for retries in range(8):
-            counts: dict = {}
-            _, _, dev_s, _ = device_trace(
-                lambda: [kern() for _ in range(10)], counts)
+
+        def whole_tens(counts):
             wkv = [n for k, n in counts.items() if "wkv6_" in k]
-            if wkv and all(n % 10 == 0 for n in wkv):
-                break
+            return bool(wkv) and all(n % 10 == 0 for n in wkv)
+        _, dev_s, _, counts, takes = retaken_trace(kern, 10, 8, whole_tens)
+        wkv = [n for k, n in counts.items() if "wkv6_" in k]
+        retries = takes - 1
         ops.LAUNCHES.update(saved)
         retaken += retries > 1
         checks["trace_retakes"] = retaken < 2
@@ -2076,8 +2372,8 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
     wops.reset_launches()
     # the timed bf16 model: each layer's WKV kernel call against the plain
     # version on its own served inputs (a measure no depth amplifies), and
-    # the routes' split after the first layer (the float32 checks below
-    # read them at every depth); the end-to-end sound routes are
+    # the routes' split after the first layer (as the float32 checks
+    # below); the end-to-end sound routes are
     # recorded, not held: 32 bf16 layers of the seeded model amplify
     # rounding, so the end-to-end checks run in float32
     bf16_layers = _rwkv_layers(model, tokens, depth=1)
@@ -2096,7 +2392,11 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
     # against the planted faults, read with row 0 pinned
     model = build_model(cfg.with_(dtype="float32"), device=DEVICE).init(
         torch.Generator(device=DEVICE).manual_seed(SEED))
-    layers = _rwkv_layers(model, tokens)
+    # every layer's kernel call is held; the routes' splits are read
+    # after the first layer, the one the check holds (the deeper splits
+    # were recorded, not held: cut for the script's time when the sharded
+    # phase came in)
+    layers = _rwkv_layers(model, tokens, depth=1)
     routes = _rwkv_routes(model, tokens, faults=True)
     wops.reset_launches()
     del model
@@ -4746,12 +5046,13 @@ def main() -> int:
             raise AssertionError(f"{prefix}* kernels of spmm.cu spill (or "
                                  f"are not all built): {got}")
 
-    # the WKV6 phase counts each call's kernels in profiler traces: it
-    # runs first, since after a hundred earlier traces in one process the
+    # the WKV6 and sharded phases count kernels in profiler traces: they
+    # run first, since after a hundred earlier traces in one process the
     # profiler was seen to drop one record of every trace of a case (on
-    # an H100, two runs in a row); run first, it once lost the first
-    # record of every trace of its last case, which device_trace's
-    # sentinel now absorbs
+    # an H100, two runs in a row; the sharded phase's traces too, after
+    # federated); run first, WKV6 once lost the first record of every
+    # trace of its last case, which device_trace's sentinel now absorbs.
+    # The sharded phase adds 4 traces before WKV6's
     seconds: dict = {}  # wall seconds of each phase
 
     def timed(phase, *args):
@@ -4761,6 +5062,7 @@ def main() -> int:
             time.perf_counter() - t
         return out
 
+    shard_launches, per_shard = timed(phase_sharded, peaks)
     wkv6_row = timed(phase_wkv6_kernels, peaks)
     main_rows = timed(phase_kernels, peaks)
     sparse_rows = timed(phase_sparse_kernels, peaks)
@@ -4811,7 +5113,9 @@ def main() -> int:
                 csv_stream=csv_launches[kind],
                 serve_plan_train=plan_launches[kind],
                 **{p: v[kind] for p, v in pipe_launches.items()},
-                **{p: v[kind] for p, v in fed_launches.items()}),
+                **{p: v[kind] for p, v in fed_launches.items()},
+                **{p: v[kind] for p, v in shard_launches.items()}),
+            per_shard=per_shard.get(kind),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             device_ms=r["device_ms"], host_us=r["host_us"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -29,6 +29,14 @@ CPU tensor. Every kernel also runs inside `torch.func.vmap` (the parfor
 lane's config-variant segments): gram and xtv take their custom ops'
 vmap rules there, one batched launch over the whole batch.
 
+The sharded lane's reduces (`shard_gram`, `shard_xtv`, `shard_colsums`,
+`shard_sum`) and its `reshard` boundary run in lockstep over the mesh's
+logical devices: a row-split value is a `Shards` (its d row blocks, in
+shard order), each reduce runs its base op's kernel on every block (on a
+CUDA tensor the hand-written gram/xtv kernels, one launch per shard) and
+sums the partials in ascending shard order, and `reshard` concatenates
+the blocks in shard order.
+
 Kernels take device tensors and return device tensors; generators
 (`literal`, `full`, `eye`, `seq`) are built for an explicit device and
 take their dtype from the node, never from torch's default dtype.
@@ -451,6 +459,35 @@ FED_OPS: frozenset[str] = frozenset({
 # exchanged) so non-lowerable consumers can run locally.
 COLLECT_OP = "collect"
 
+# Sharded instructions (the paper's distributed backend as a compiler
+# placement): generated by `repro_torch.core.compiler.lower_distributed`
+# when a device mesh is attached. Partial-reduction ops compute per shard
+# on the row-split operand and sum the partials over the mesh's `data`
+# axis; `reshard` is the explicit, cost-gated boundary materializing a
+# row-split value as a replicated one. They only run inside a sharded
+# segment closure (`segments.build_sharded_segment_fn`), on `Shards`;
+# where the mesh does not resolve — and on the per-instruction
+# interpreter, which holds global values — `kernel_for_node(...,
+# unshard=True)` swaps each for its local equivalent (`SHARD_BASE_OPS`),
+# the 3-way parity oracle.
+SHARD_REDUCE_OPS: frozenset[str] = frozenset({
+    "shard_gram", "shard_xtv", "shard_colsums", "shard_sum",
+})
+RESHARD_OP = "reshard"
+SHARD_EXEC_OPS: frozenset[str] = SHARD_REDUCE_OPS | {RESHARD_OP}
+# local-equivalent op per shard op (None: identity)
+SHARD_BASE_OPS: dict[str, Optional[str]] = {
+    "shard_gram": "gram", "shard_xtv": "xtv",
+    "shard_colsums": "colSums", "shard_sum": "sum", RESHARD_OP: None,
+}
+
+
+class Shards(tuple):
+    """A value split on the mesh's `data` axis inside a sharded closure:
+    its row blocks, one per logical device, in shard order (views of the
+    global tensor where it was split from one)."""
+
+
 # Ops the segmenter isolates and the runtime executes eagerly on the host
 # path: the federated orchestration (`fed_*`, `collect`) and `quantile`
 # (sort-based order statistics in numpy).
@@ -641,6 +678,31 @@ register_sparse_kernel("matmul", (BCOO, BCOO))(
     lambda attrs: lambda a, b: _spmm_ops().matmul_bcoo(a, b.todense()))
 register_sparse_kernel("t", (BCOO,), BCOO)(lambda attrs: lambda x: x.T)
 
+
+def _lockstep_reduce(base: KernelFn) -> KernelFn:
+    """A shard reduce: `base` on every shard's operands (a `Shards`
+    operand gives its block, a replicated one itself), the partials
+    summed in ascending shard order — a fixed order, so a sharded run is
+    bitwise repeatable."""
+    def run(*xs):
+        d = next(len(x) for x in xs if isinstance(x, Shards))
+        acc = None
+        for i in range(d):
+            part = base(*[x[i] if isinstance(x, Shards) else x for x in xs])
+            acc = part if acc is None else acc + part
+        return acc
+    return run
+
+
+for _op, _base in SHARD_BASE_OPS.items():
+    if _base is not None:
+        register_kernel(_op)(
+            (lambda b: lambda attrs: _lockstep_reduce(
+                _KERNEL_BUILDERS[b](attrs)))(_base))
+# the gather: the blocks concatenated in shard order
+register_kernel(RESHARD_OP)(
+    lambda attrs: lambda x: torch.cat([densify(b) for b in x]))
+
 for _op, _fn in _ZERO_PRESERVING_FNS.items():
     register_sparse_kernel(_op, (BCOO,), BCOO)(
         (lambda fn: lambda attrs: lambda x: x.with_data(fn(x.data)))(_fn))
@@ -656,7 +718,12 @@ register_sparse_kernel("mul", (DENSE, BCOO), BCOO)(
 @lru_cache(maxsize=4096)
 def _kernel_cached(op: str, attrs: tuple, shape: tuple, dtype: np.dtype,
                    device: torch.device, in_fmts: Optional[tuple],
-                   out_fmt: str) -> KernelFn:
+                   out_fmt: str, unshard: bool = False) -> KernelFn:
+    if unshard and op in SHARD_BASE_OPS:
+        base = SHARD_BASE_OPS[op]
+        if base is None:  # reshard of a global value is the identity
+            return densify
+        op = base
     if op in CHUNK_BASE_OPS:
         # chunk partials ARE the base op over the rows they are handed
         # (sparse variants included)
@@ -671,15 +738,19 @@ def _kernel_cached(op: str, attrs: tuple, shape: tuple, dtype: np.dtype,
 
 def kernel_for_node(node: Node, device: torch.device,
                     in_fmts: Optional[tuple[str, ...]] = None,
-                    out_fmt: str = DENSE) -> KernelFn:
+                    out_fmt: str = DENSE, unshard: bool = False) -> KernelFn:
     """Memoized kernel lookup for a HOP node on `device` — kernels depend
     only on (op, attrs, shape, dtype, device, formats), so repeated plan
     executions reuse one closure instead of rebuilding. `in_fmts` None
-    means all-dense operands."""
+    means all-dense operands. `unshard=True` swaps the `shard_*`/`reshard`
+    kernels for their local equivalents (`SHARD_BASE_OPS`) — the
+    interpreter and the no-mesh fallback hold *global* values, for which
+    the per-shard compute + sum is exactly the base op."""
     if in_fmts is None:
         in_fmts = (DENSE,) * len(node.inputs)
     return _kernel_cached(node.op, node.attrs, node.shape, node.dtype,
-                          torch.device(device), tuple(in_fmts), out_fmt)
+                          torch.device(device), tuple(in_fmts), out_fmt,
+                          unshard)
 
 
 def execute_op(op: str, attrs: dict[str, Any], inputs: list,

@@ -1,7 +1,7 @@
 """Plan compiler: HOP DAG -> ordered runtime instructions (SystemDS §3.2).
 
-Port of `repro.core.compiler` for the local, federated and chunked
-lanes: rewrites + size propagation happen on the DAG, memory estimates
+Port of `repro.core.compiler` for every placement (local, federated,
+sharded and chunked): rewrites + size propagation happen on the DAG, memory estimates
 pick an execution target per instruction, and the result is a
 topologically ordered instruction sequence executed by
 `repro_torch.core.runtime.LineageRuntime`. The passes, their order and
@@ -23,27 +23,33 @@ Compile-time physical decisions:
     to `fed_*` instructions when the exchange-aware cost model says
     federation beats collecting, with explicit `collect` boundaries
     otherwise;
+  * mesh placement (`lower_distributed`) — large row-shardable dense
+    leaves propagate `placement='sharded'` over the device mesh's
+    `data` axis; partial reductions lower to per-shard compute + a sum
+    over the shards (`shard_gram`, `shard_xtv`, ...) and row-preserving
+    ops stay inside sharded segments, with cost-gated `reshard`
+    boundaries everywhere else;
   * chunked placement (`lower_chunked`) — row-partitionable reductions
     over leaves exceeding `costmodel.CHUNK_MEM_BUDGET` lower to
     streaming partial aggregates (`chunk_gram`, `chunk_xtv`,
     `chunk_colsums`, `chunk_sum`) closed by an explicit `combine`
     boundary.
-
-A mesh with a `data` axis > 1 (the reference's `lower_distributed`) is
-refused with `NotImplementedError` — never silently compiled as local.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from dataclasses import replace as _dc_replace
 from typing import Optional
 
 from . import costmodel
-from .dag import ELEMENTWISE_BINARY, ELEMENTWISE_UNARY, LTensor, Node, make_node
+from .dag import (ELEMENTWISE_BINARY, ELEMENTWISE_UNARY, SPARSE_THRESHOLD,
+                  LTensor, Node, make_node)
 from .rewrites import run_rewrites
 
 # Default per-operation local memory budget: inputs+output of an op above
 # this threshold are flagged `distributed` (the reference's target name;
-# the port runs them locally, as the reference does without a mesh).
+# the port runs them locally, as the reference does without a mesh; the
+# sharded lane's instructions carry the same target).
 LOCAL_MEM_BUDGET = 2 << 30
 
 
@@ -65,6 +71,11 @@ class Plan:
     roots: list[Node]
     est_bytes_peak: int = 0
     reuse_enabled: bool = False
+    # the device mesh the plan was compiled against (a
+    # `repro_torch.distributed.mesh.MeshSpec`, or None for local-only
+    # plans); the runtime resolves it per run and falls back to
+    # local-equivalent execution when devices are missing
+    mesh_spec: Optional[object] = None
     # streaming metadata from `lower_chunked`: value uid -> total row
     # count, for every input the streaming executor row-slices per
     # chunk; empty for non-chunked plans
@@ -109,6 +120,8 @@ class Plan:
         def ref(uid: int, node: Optional[Node] = None) -> str:
             if node is not None and node.placement == "federated":
                 return f"%{uid}:fed"  # value lives row-partitioned on sites
+            if node is not None and node.placement == "sharded":
+                return f"%{uid}:sh"  # value lives row-sharded on the mesh
             if node is not None and node.placement == "chunked":
                 return f"%{uid}:chunk"  # streamed one row bucket at a time
             f = fmts.get(uid, "dense")
@@ -122,10 +135,14 @@ class Plan:
         tags = f" fmt={fmt}" if fmt != "dense" else ""
         if ins.node.placement == "federated":
             tags += " fed"
+        if ins.node.placement == "sharded":
+            tags += " sharded"
         if ins.node.placement == "chunked":
             tags += " chunked"
         if ins.node.op == "collect":
             tags += " [collect-boundary]"
+        if ins.node.op == "reshard":
+            tags += " [reshard-boundary]"
         if ins.node.op == "combine":
             tags += " [combine-boundary]"
         if reuse_active and ins.probe:
@@ -140,7 +157,9 @@ class Plan:
                 sparse: bool = False) -> str:
         """EXPLAIN-style plan dump (SystemDS -explain) with segment
         annotations, physical formats, federated placement (`[F]`
-        targets, `:fed` values, `[collect-boundary]`) and reuse-probe
+        targets, `:fed` values, `[collect-boundary]`), sharded placement
+        (`:sh` values, ` sharded`, `[reshard-boundary]`, `[sharded]`
+        segments) and reuse-probe
         boundaries — the same text the reference prints for the same plan
         (modulo uids).
         `reuse_active` defaults to the flag the plan was compiled with."""
@@ -152,6 +171,8 @@ class Plan:
             for seg in self.segments_for(reuse_active):
                 outs = ",".join(f"%{u}" for u in seg.output_uids)
                 kind = "fused" if len(seg.instructions) > 1 else "single"
+                if seg.sharded:
+                    kind += " [sharded]"
                 if seg.chunked:
                     kind += " [chunked]"
                 lines.append(
@@ -189,17 +210,6 @@ def assign_formats(plan: "Plan", sparse: bool) -> dict[int, str]:
         if of != backend.DENSE:
             fmt[ins.out_id] = of
     return fmt
-
-
-def _refuse_mesh(mesh) -> None:
-    """Raise for a mesh with a `data` axis: sharded placement
-    (`lower_distributed`) is not ported yet, and its leaves must not be
-    compiled as local values."""
-    if mesh is not None and getattr(mesh, "data", 1) > 1:
-        raise NotImplementedError(
-            f"mesh with data={mesh.data}: sharded placement "
-            "(lower_distributed) is not ported yet (ROADMAP Queue 1 "
-            "item 12)")
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +397,238 @@ def lower_federated(roots: list[Node]) -> list[Node]:
     new_roots = [rec(r) for r in roots]
     # plan outputs must be local: materialize federated roots
     return [collect_of(r) if is_fed(r) else r for r in new_roots]
+
+
+# ---------------------------------------------------------------------------
+# Sharded placement (SystemDS's distributed/Spark lane, here a device
+# mesh): row-shard large dense leaves over the mesh's `data` axis and
+# lower eligible patterns to instructions run per shard
+# ---------------------------------------------------------------------------
+
+# Row-preserving HOPs that stay sharded (run on each row block): the
+# same op class `fed_map` computes, plus row aggregates (each shard owns
+# whole rows, so rowSums needs no collective). `rbind` is excluded — per-shard
+# concatenation would interleave the global row order.
+_SHARD_MAP_OPS = (_FED_MAP_OPS | {"rowSums", "rowMeans"})
+
+# name of the mesh's row axis; mirrors
+# repro_torch.distributed.mesh.DATA_AXIS
+_DATA_AXIS = "data"
+
+
+def lower_distributed(roots: list[Node], d: int) -> list[Node]:
+    """Placement-assignment pass for the device mesh: propagate
+    `placement='sharded'` from large row-shardable dense input leaves
+    over the DAG and lower eligible patterns to shard-exec instructions;
+    insert explicit, cost-modeled `reshard` boundaries everywhere else.
+
+    Mirrors `lower_federated` — the mesh's `data` axis plays the role of
+    the federation's sites. Partial-reduction ops (gram, xtv, colSums,
+    sum) lower to per-shard compute + a sum over the shards
+    (`shard_gram` etc.); row-preserving ops (`_SHARD_MAP_OPS`, matmul
+    with a replicated rhs, row aggregates) keep the sharded placement
+    and run on each row block inside the sharded segment, with per-input
+    specs recorded in the `sin` attr ('s' = split on the data axis, 'r' =
+    replicated). Each lowering is gated by the cost model: the sharded
+    form (per-shard roofline + collective bytes over the interconnect)
+    must beat resharding the operands and running locally
+    (`costmodel.shard_cost_s` vs `costmodel.reshard_cost_s`). A
+    `reshard` (gather back to a replicated value) inserted for one
+    consumer is shared by all of them. Runs after `lower_federated`;
+    federated subgraphs are left untouched (their local `collect`
+    outputs may still feed sharded consumers as replicated operands).
+    A verbatim port of `repro.core.compiler.lower_distributed`.
+    """
+    from repro_torch.distributed.sharding import rows_shardable
+
+    from . import backend
+
+    def leaf_shardable(n: Node) -> bool:
+        return (n.op == "input" and n.placement == "local"
+                and n.attr("batch") is None and len(n.shape) == 2
+                and rows_shardable(n.shape, d)
+                and backend.leaf_format(n) == backend.DENSE
+                and costmodel._dense_bytes(n)
+                >= costmodel.SHARD_MIN_LEAF_BYTES)
+
+    # fast path: no shardable leaves anywhere -> nothing to do
+    seen: set[int] = set()
+    stack = list(roots)
+    any_cand = False
+    while stack and not any_cand:
+        n = stack.pop()
+        if n.uid in seen:
+            continue
+        seen.add(n.uid)
+        any_cand = leaf_shardable(n)
+        stack.extend(n.inputs)
+    if not any_cand:
+        return roots
+
+    memo: dict[int, Node] = {}
+    resharded: dict[int, Node] = {}  # shared reshard boundaries
+    varmemo: dict[int, bool] = {}    # uid -> depends on a batched leaf
+
+    def is_sh(x: Node) -> bool:
+        return x.placement == "sharded"
+
+    def is_var(n: Node) -> bool:
+        got = varmemo.get(n.uid)
+        if got is None:
+            from .dag import is_batched_leaf
+            got = is_batched_leaf(n) or any(is_var(i) for i in n.inputs)
+            varmemo[n.uid] = got
+        return got
+
+    def maybe_bcoo(x: Node) -> bool:
+        # conservatively refuse operands the format pass could pin to
+        # BCOO — the shard specs assume dense global values
+        return (backend.HAS_SPARSE and len(x.shape) == 2
+                and x.sparsity < SPARSE_THRESHOLD
+                and x.numel >= backend.SPARSE_MIN_NUMEL)
+
+    def reshard_of(x: Node) -> Node:
+        got = resharded.get(x.uid)
+        if got is None:
+            got = make_node("reshard", (x,), x.shape, x.dtype, x.sparsity,
+                            axis=_DATA_AXIS, n_dev=d, sin=("s",))
+            resharded[x.uid] = got
+        return got
+
+    def classify(x: Node, m: int) -> Optional[str]:
+        """In-spec tag for one operand of a row-preserving sharded op:
+        's' (split rows on the data axis) or 'r' (replicated)."""
+        if is_sh(x):
+            return "s" if x.shape[0] == m else None
+        if x.shape == ():
+            return "r"
+        if len(x.shape) == 2 and x.shape[0] == 1:
+            return "r"  # broadcast row, replicated on every shard
+        if (len(x.shape) == 2 and x.shape[0] == m
+                and x.shape[0] % d == 0 and not maybe_bcoo(x)):
+            return "s"  # row-aligned local value: split by the in-spec
+        return None
+
+    def _lower_row_op(n: Node, ins: tuple[Node, ...]
+                         ) -> Optional[tuple[Node, Node]]:
+        m = next(x for x in ins if is_sh(x)).shape[0]
+        if len(n.shape) != 2 or n.shape[0] != m:
+            return None  # output must keep the row partitioning
+        if n.op == "slice":
+            idx = n.attr("index")
+            if not idx or idx[0] != (0, m, 0):
+                return None  # only full-row column slices stay sharded
+        if n.op == "cbind" and n.attr("axis") != 1:
+            return None
+        # note: non-scalar generators (`full` row columns etc.) keep
+        # their local placement — segmentation puts them in a local
+        # segment and the global value enters the sharded segment split
+        # by its in-spec, so a shard never builds a global-shaped
+        # generator
+        sin = []
+        for x in ins:
+            tag = classify(x, m)
+            if tag is None:
+                return None
+            sin.append(tag)
+        extra = dict(n.attrs)
+        extra.update(sin=tuple(sin), n_dev=d)
+        core = make_node(n.op, ins, n.shape, n.dtype, n.sparsity,
+                         placement="sharded", **extra)
+        return core, core
+
+    def try_lower(n: Node, ins: tuple[Node, ...]
+                  ) -> Optional[tuple[Node, Node]]:
+        """Return (replacement node, shard core used for the cost gate),
+        or None when no sharded lowering exists for this pattern."""
+        op = n.op
+        if op == "gram" and is_sh(ins[0]):
+            core = make_node("shard_gram", ins, n.shape, n.dtype,
+                             n.sparsity, axis=_DATA_AXIS, n_dev=d,
+                             sin=("s",))
+            return core, core
+        if op == "xtv":
+            m = ins[0].shape[0]
+            if all(classify(x, m) == "s" for x in ins):
+                core = make_node("shard_xtv", ins, n.shape, n.dtype,
+                                 n.sparsity, axis=_DATA_AXIS, n_dev=d,
+                                 sin=("s", "s"))
+                return core, core
+            return None
+        if (op == "matmul" and is_sh(ins[0]) and not is_sh(ins[1])
+                and len(n.shape) == 2 and not maybe_bcoo(ins[1])):
+            # (m,k) @ (k,p) with a replicated rhs is row-preserving
+            core = make_node("matmul", ins, n.shape, n.dtype, n.sparsity,
+                             placement="sharded", n_dev=d, sin=("s", "r"))
+            return core, core
+        if op in ("colSums", "colMeans") and is_sh(ins[0]):
+            cs = make_node("shard_colsums", ins, (1, n.shape[-1]),
+                           n.dtype, 1.0, axis=_DATA_AXIS, n_dev=d,
+                           sin=("s",))
+            if op == "colSums":
+                return cs, cs
+            inv_m = make_node("literal", (), (), n.dtype, 1.0,
+                              value=1.0 / ins[0].shape[0])
+            return (make_node("mul", (cs, inv_m), n.shape, n.dtype, 1.0),
+                    cs)
+        if op in ("sum", "mean") and is_sh(ins[0]):
+            ss = make_node("shard_sum", ins, (), n.dtype, 1.0,
+                           axis=_DATA_AXIS, n_dev=d, sin=("s",))
+            if op == "sum":
+                return ss, ss
+            inv = make_node("literal", (), (), n.dtype, 1.0,
+                            value=1.0 / max(1, ins[0].numel))
+            return (make_node("mul", (ss, inv), n.shape, n.dtype, 1.0),
+                    ss)
+        if op in _SHARD_MAP_OPS:
+            return _lower_row_op(n, ins)
+        return None
+
+    def rec(n: Node) -> Node:
+        got = memo.get(n.uid)
+        if got is not None:
+            return got
+        if not n.inputs:
+            if leaf_shardable(n):
+                n = _dc_replace(n, placement="sharded")  # uid preserved:
+                # the runtime's LEAVES binding is keyed by uid
+            memo[n.uid] = n
+            return n
+        ins = tuple(rec(i) for i in n.inputs)
+        sh_inputs = [x for x in ins if is_sh(x)]
+        if not sh_inputs:
+            if all(a is b for a, b in zip(ins, n.inputs)):
+                out = n
+            else:
+                out = Node(op=n.op, inputs=ins, attrs=n.attrs,
+                           shape=n.shape, dtype=n.dtype,
+                           sparsity=n.sparsity)
+            memo[n.uid] = out
+            return out
+        # config-variant nodes (downstream of a batched leaf) are the
+        # `config` axis's business — keep data sharding to the invariant
+        # prefix so a segment is never both vmapped and row-sharded
+        cand = None if is_var(n) else try_lower(n, ins)
+        if cand is not None:
+            out, core = cand
+            # cost gate: sharded execution vs reshard-then-local
+            resh_s = sum(
+                0.0 if x.uid in resharded else
+                costmodel.reshard_cost_s(x, d)
+                for x in sh_inputs) + costmodel.est_cost_s(n)
+            if costmodel.est_cost_s(core) <= resh_s:
+                memo[n.uid] = out
+                return out
+        # fallback: explicit reshard boundary, then the op runs locally
+        loc = tuple(reshard_of(x) if is_sh(x) else x for x in ins)
+        out = Node(op=n.op, inputs=loc, attrs=n.attrs, shape=n.shape,
+                   dtype=n.dtype, sparsity=n.sparsity)
+        memo[n.uid] = out
+        return out
+
+    new_roots = [rec(r) for r in roots]
+    # plan outputs must be replicated/local: reshard sharded roots
+    return [reshard_of(r) if is_sh(r) else r for r in new_roots]
 
 
 # ---------------------------------------------------------------------------
@@ -683,11 +925,14 @@ def compile_plan(outputs: list[LTensor], *, reuse_enabled: bool = False,
     # placement assignment runs after the rewrites so fused patterns
     # (t(X)@X -> gram) are visible to the federated lowering
     roots = lower_federated(roots)
-    # where the reference runs lower_distributed
-    _refuse_mesh(mesh)
+    if mesh is None:
+        from repro_torch.distributed.mesh import get_mesh
+        mesh = get_mesh()
+    if mesh is not None and getattr(mesh, "data", 1) > 1:
+        roots = lower_distributed(roots, int(mesh.data))
     # out-of-core streaming runs last: it only touches leaves the
-    # federated pass left local, and its budget gate keeps it inert for
-    # in-memory plans
+    # federated/sharded passes left local, and its budget gate keeps it
+    # inert for in-memory plans
     roots, chunk_sliced = lower_chunked(roots)
     order = topo_order(roots)
     if chunk_sliced:
@@ -716,6 +961,9 @@ def compile_plan(outputs: list[LTensor], *, reuse_enabled: bool = False,
         op_bytes = n.est_bytes() + sum(i.est_bytes() for i in n.inputs)
         if n.op == "collect" or n.op.startswith("fed_"):
             target = "federated"
+        elif (n.placement == "sharded" or n.op == "reshard"
+                or n.op.startswith("shard_")):
+            target = "distributed"  # shard-exec lane (mesh-lowered)
         elif _chunk_exec(n):
             target = "chunked"  # streaming lane (budget-lowered)
         else:
@@ -748,4 +996,4 @@ def compile_plan(outputs: list[LTensor], *, reuse_enabled: bool = False,
     return Plan(instructions=instructions,
                 output_ids=[r.uid for r in roots], roots=roots,
                 est_bytes_peak=peak, reuse_enabled=reuse_enabled,
-                chunk_sliced=chunk_sliced)
+                mesh_spec=mesh, chunk_sliced=chunk_sliced)

@@ -22,16 +22,21 @@ metadata alone, *before* anything runs. Consumers:
     (`repro_torch.core.compiler.lower_federated`);
   * the asynchronous pipeline — `pipeline_depth` (auto = 2, as in the
     reference) and `prefetch_depth` set how far the runtime runs ahead
-    of the device.
+    of the device;
+  * sharded placement — `shard_cost_s` / `reshard_cost_s` gate each
+    `lower_distributed` lowering against resharding its operands,
+    `collective_bytes` is the runtime's shard meter, and
+    `config_shard_cost_s` prices a parfor bucket sharded over the
+    mesh's `config` axis.
 
-Port of `repro.core.costmodel` for the lanes this package runs (local,
-chunked, federated, the batched parfor lane, serving, the pipeline and
-the fault policy). The constants, environment names and formulas are
-the reference's, unchanged, so both packages compile identical plans,
-choose the same parfor mode, resolve the same pipeline depth and hold a
-request for the same window; they are NOT tuned for the GPU. The
-sharded section of the reference (`config_shard_cost_s` included) comes
-with that lane.
+Port of `repro.core.costmodel` for every lane of the DSL (local,
+chunked, federated, sharded, the batched parfor lane, serving, the
+pipeline and the fault policy). The constants, environment names and
+formulas are the reference's, unchanged, so both packages compile
+identical plans, choose the same parfor mode, resolve the same pipeline
+depth and hold a request for the same window; they are NOT tuned for the
+GPU (the sharded section's interconnect rate included: the port's
+logical devices share one card).
 """
 from __future__ import annotations
 
@@ -137,6 +142,9 @@ def est_cost_s(n: Node) -> float:
     """Estimated wall-clock seconds to execute one HOP standalone."""
     if n.op == "collect" or n.op.startswith("fed_"):
         return fed_cost_s(n)
+    if n.op.startswith("shard_") or n.op == "reshard" \
+            or n.placement == "sharded":
+        return shard_cost_s(n)
     if n.op.startswith("chunk_") or n.op == "combine":
         return chunk_cost_s(n)
     base = HEAVY_OP_BASE_S if n.op in HEAVY_OPS else LIGHT_OP_BASE_S
@@ -224,6 +232,84 @@ def collect_cost_s(fed_value: Node, n_sites: int) -> float:
     explicit boundary the placement pass inserts for non-lowerable
     consumers, and the baseline every `fed_*` lowering must beat."""
     return n_sites * FED_TRIP_S + _dense_bytes(fed_value) / NET_BW
+
+
+# ---------------------------------------------------------------------------
+# Sharded placement costs: collectives over the device mesh as
+# first-class terms, weighed against the roofline `est_cost_s`
+# ---------------------------------------------------------------------------
+
+# Per-hop device-interconnect bandwidth (the reference's value, kept so
+# plans stay identical). Well above the federation link (NET_BW) and
+# below local memory bandwidth — collectives are cheap but not free,
+# which is what makes small outputs shard and huge ones pay.
+ICI_BW = 1e10          # bytes/s per link
+
+# Sharded segment dispatch overhead: device-collective setup costs more
+# than a plain launch, so tiny plans must not shard.
+SHARD_LAUNCH_S = 50e-6
+
+# Leaves below this dense footprint are never worth row-sharding: the
+# dispatch overhead alone beats any per-shard compute win.
+SHARD_MIN_LEAF_BYTES = 1 << 20
+
+
+def allreduce_bytes(n: Node, d: int) -> int:
+    """Total bytes crossing device links for a ring all-reduce of this
+    node's output over a `d`-device axis: 2·B·(d-1). The compile-time
+    estimate behind the runtime's `ShardLog.collective_bytes` meter."""
+    return int(2.0 * _dense_bytes(n) * max(d - 1, 0))
+
+
+def allgather_bytes(n: Node, d: int) -> int:
+    """Total link bytes to all-gather a value to global size B on every
+    device: B·(d-1) — the `reshard` boundary's meter estimate."""
+    return int(_dense_bytes(n) * max(d - 1, 0))
+
+
+def collective_bytes(n: Node) -> int:
+    """Estimated link bytes one sharded instruction moves (0 for
+    row-preserving sharded ops — they need no collective at all)."""
+    d = int(n.attr("n_dev", 1) or 1)
+    if n.op == "reshard":
+        return allgather_bytes(n, d)
+    if n.op.startswith("shard_"):
+        return allreduce_bytes(n, d)
+    return 0
+
+
+def _shard_flops(n: Node) -> float:
+    """Total flops of the underlying computation of a shard op (the
+    per-device share is this / n_dev — shards work in parallel)."""
+    op = n.op
+    out = _numel(n.shape)
+    if op in ("shard_gram", "shard_xtv"):
+        return 2.0 * out * n.inputs[0].shape[0]
+    if op in ("shard_colsums", "shard_sum"):
+        return float(max((_numel(i.shape) for i in n.inputs), default=out))
+    return node_flops(n)  # row-preserving sharded ops keep their base op
+
+
+def shard_cost_s(n: Node) -> float:
+    """Estimated seconds for one sharded instruction: sharded launch +
+    the per-device roofline share + the collective (ring time over `d`
+    parallel links)."""
+    d = int(n.attr("n_dev", 1) or 1)
+    if n.op == "reshard":
+        return SHARD_LAUNCH_S + allgather_bytes(n, d) / (d * ICI_BW)
+    compute = max(_shard_flops(n) / d / PEAK_FLOPS,
+                  node_bytes(n) / d / PEAK_BW)
+    coll = collective_bytes(n) / (d * ICI_BW)
+    base = SHARD_LAUNCH_S if n.op.startswith("shard_") else LIGHT_OP_BASE_S
+    return base + compute + coll
+
+
+def reshard_cost_s(x: Node, d: int) -> float:
+    """Cost of materializing a row-sharded value as a replicated local
+    one (the all-gather) — the boundary `lower_distributed` inserts for
+    non-lowerable consumers, and the baseline every sharded lowering
+    must beat (the shard-level analogue of `collect_cost_s`)."""
+    return SHARD_LAUNCH_S + _dense_bytes(x) * max(d - 1, 0) / (d * ICI_BW)
 
 
 # ---------------------------------------------------------------------------
@@ -522,6 +608,22 @@ def batched_cost_s(invariant: list[Node], variant: list[Node],
     for n in variant:
         base = HEAVY_OP_BASE_S if n.op in HEAVY_OPS else LIGHT_OP_BASE_S
         total += base + bucket * _work_s(n)
+    return total
+
+
+def config_shard_cost_s(invariant: list[Node], variant: list[Node],
+                        bucket: int, c: int) -> float:
+    """Estimated seconds for the batched grid with the bucket axis
+    sharded over the mesh's `config` axis (`c` devices): the invariant
+    prefix still runs once replicated, each variant instruction pays a
+    sharded launch but only `bucket / c` of the per-config work."""
+    total = PARFOR_DISPATCH_S
+    for n in invariant:
+        total += est_cost_s(n)
+    per_dev = max(bucket // max(c, 1), 1)
+    for n in variant:
+        base = HEAVY_OP_BASE_S if n.op in HEAVY_OPS else LIGHT_OP_BASE_S
+        total += base + SHARD_LAUNCH_S + per_dev * _work_s(n)
     return total
 
 

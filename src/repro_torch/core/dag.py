@@ -60,15 +60,16 @@ class Node:
     dtype: Any
     sparsity: float  # estimated nnz / numel in [0, 1]
     # Where the *value* lives: 'local' (device memory), 'federated'
-    # (row-partitioned across sites, never materialized at the master)
-    # or 'chunked' (row-chunked on host, streamed through device memory
-    # one bucket at a time — only partial aggregates are ever resident).
+    # (row-partitioned across sites, never materialized at the master),
+    # 'sharded' (row-split over the device mesh's `data` axis: row
+    # blocks of one global tensor, one per logical device) or 'chunked'
+    # (row-chunked on host, streamed through device memory one bucket
+    # at a time — only partial aggregates are ever resident).
     # Set on federated input leaves at construction and propagated by
     # the compiler's placement passes (`lower_federated` /
-    # `lower_chunked` in `repro_torch.core.compiler`); the reference's
-    # 'sharded' placement is not ported yet (the compiler refuses a
-    # mesh). Deliberately not part of the lineage hash — placement
-    # describes a physical location, not a value.
+    # `lower_distributed` / `lower_chunked` in
+    # `repro_torch.core.compiler`). Deliberately not part of the lineage
+    # hash — placement describes a physical location, not a value.
     placement: str = "local"
     uid: int = field(default_factory=lambda: next(_counter))
 

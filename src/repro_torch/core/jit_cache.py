@@ -22,8 +22,11 @@ than the plain closure of the same body: the runtime keys it apart with
 the reference's `|don:<positions>` suffix on the segment key, so a
 donating closure can never serve a call whose arguments must stay live,
 and the two are built and counted as separate entries, as the
-reference's donated executables are. CUDA-graph capture of the closures
-waits for a benchmark (ROADMAP).
+reference's donated executables are. A sharded closure keys on the mesh
+shape and its boundary specs (`mesh_key_tag`, the reference's suffix),
+so it never serves the local closure of the same body, nor another mesh
+shape. CUDA-graph capture of the closures waits for a benchmark
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -84,6 +87,20 @@ def arg_signature(args, device: torch.device) -> tuple:
             a = np.asarray(a)
             out.append((tuple(a.shape), str(a.dtype)))
     return tuple(out)
+
+
+def mesh_key_tag(mesh_tag: str, in_tags, out_tags) -> str:
+    """Segment-key suffix for sharded closures.
+
+    A sharded segment closes over a mesh shape and per-arg split specs —
+    none of which appear in the argument signature (global shapes are
+    identical). Suffixing the mesh shape and the 's'/'r' spec tags keeps
+    sharded closures from ever colliding with the local closure of the
+    same segment body, or with the same body sharded over a different
+    mesh shape.
+    """
+    return (f"|mesh:{mesh_tag}|in:{''.join(in_tags)}"
+            f"|out:{''.join(out_tags)}")
 
 
 class JitProgramCache:

@@ -70,9 +70,22 @@ prefetch worker that dies mid-stream (`chunk_io` at `chunk_prefetch`)
 costs the pipeline, never the answer: the stream finishes on the
 synchronous loop.
 
-Not ported yet: sharded execution (ROADMAP Queue 1 item 12), which also
-takes the reference's bucket-axis sharding (`mode="shard"` runs as plain
-vmap, as the reference does without a mesh).
+Sharded lane (a plan compiled under a `MeshSpec` with ``data > 1``, see
+`repro_torch.distributed.mesh`): the run resolves the plan's mesh once
+against this runtime's device. Where it resolves, each sharded segment
+runs as one closure over the mesh's logical devices in lockstep
+(`segments.build_sharded_segment_fn`: per-shard kernels — on the card the
+hand-written gram/xtv, one launch per shard — and fixed-order sums), is
+keyed by mesh shape and specs (`jit_cache.mesh_key_tag`) and is metered
+into `stats.shard` from the compile-time collective formulas; where it
+does not (fewer devices than the mesh), the segment runs its
+local-equivalent `|unshard` closure and meters nothing. A parfor plan in
+`mode="shard"` splits its vmapped bucket axis over the mesh's `config`
+axis the same way (`build_config_sharded_segment_fn`), or runs plain
+vmap where the mesh does not resolve or the bucket does not divide.
+Sharded segments are never donated, never deferred into the pipeline's
+ownership set, and a failed build re-raises (no eager equivalent of the
+same closure), as in the reference.
 
 `PreparedScript` is the JMLC analogue: trace a python function once into
 a DAG with placeholder leaves, then re-execute with new in-memory inputs
@@ -99,6 +112,34 @@ from .federated import ExchangeLog, FederatedTensor, LocalSite
 from .jit_cache import get_jit_cache
 from .reuse import ReuseCache
 from .reuse import nbytes as _reuse_nbytes
+
+
+@dataclass
+class ShardLog:
+    """Shard-level analogue of the federation's `ExchangeLog`: counts
+    sharded segment dispatches and the collectives they carry. Bytes come
+    from the compile-time cost-model formulas (ring all-reduce /
+    all-gather total link bytes over the `data` axis), so the meter is
+    deterministic and auditable against exactly the exchanges the
+    compiler priced when it accepted each lowering."""
+
+    sharded_segments: int = 0         # sharded segment dispatches
+    config_sharded_segments: int = 0  # bucket-axis (config) dispatches
+    reshards: int = 0                 # reshard (gather) boundaries run
+    collectives: int = 0              # summing shard_* reduces run
+    collective_bytes: int = 0         # total link bytes (cost-model est.)
+
+    @property
+    def total(self) -> int:
+        return (self.sharded_segments + self.config_sharded_segments
+                + self.reshards + self.collectives)
+
+    def as_dict(self) -> dict:
+        return dict(sharded_segments=self.sharded_segments,
+                    config_sharded_segments=self.config_sharded_segments,
+                    reshards=self.reshards,
+                    collectives=self.collectives,
+                    collective_bytes=self.collective_bytes)
 
 
 @dataclass
@@ -271,6 +312,9 @@ class RuntimeStats:
     # async-dispatch meter (deferred sync / donation / prefetch /
     # rebatching), populated only at pipeline depth >= 2
     pipeline: PipelineLog = field(default_factory=PipelineLog)
+    # mesh-lowered execution meter (reshards / collective bytes) — the
+    # shard-level analogue of `exchange`
+    shard: ShardLog = field(default_factory=ShardLog)
     # fault-policy meter (`repro_torch.core.faults`): injections
     # observed, retries, timeouts, degradations, serving sheds and
     # restarts, plus the per-site / per-dispatch latency monitors and
@@ -279,8 +323,7 @@ class RuntimeStats:
 
     def as_dict(self):
         """The reference's keys; each meter appears only when non-zero,
-        as there. The shard meter belongs to a lane not ported, so it
-        never appears."""
+        as there."""
         out = dict(instructions=self.instructions, executed=self.executed,
                    reused=self.reused, exec_time_s=round(self.exec_time, 6),
                    segments=self.segments,
@@ -291,6 +334,8 @@ class RuntimeStats:
             out["exchange"] = self.exchange.as_dict()
         if self.serving.total:
             out["serving"] = self.serving.as_dict()
+        if self.shard.total:
+            out["shard"] = self.shard.as_dict()
         if self.streaming.total:
             out["streaming"] = self.streaming.as_dict()
         if self.pipeline.total:
@@ -329,6 +374,8 @@ class _BatchCtx:
     batch: int                 # true number of configurations (k)
     bucket: int                # padded batch width (power-of-two)
     bvals: frozenset           # uids with a leading batch axis
+    cshard: int = 1            # bucket-axis shards (mesh `config` axis);
+                               # 1 = plain vmap, >1 = split over it
 
 
 def _pad_axis0(t: torch.Tensor, bucket: int) -> torch.Tensor:
@@ -481,6 +528,14 @@ class LineageRuntime:
         bctx = _BatchCtx(bplan=bplan, batch=bplan.batch,
                          bucket=bplan.bucket,
                          bvals=bplan.batched_value_uids)
+        ms = plan.mesh_spec
+        if bplan.mode == "shard" and ms is not None:
+            # shard the bucket axis over the mesh's `config` axis;
+            # gracefully degrade to plain vmap when the mesh cannot be
+            # realized (too few devices) or the bucket does not divide
+            if (ms.config > 1 and ms.resolve() is not None
+                    and bplan.bucket % ms.config == 0):
+                bctx.cshard = ms.config
         leaf_values = {
             uid: pad_batch(np.asarray(LEAVES.values[uid]), bplan.bucket)
             for uid in bplan.batched_leaf_uids}
@@ -682,6 +737,11 @@ class LineageRuntime:
         fmts = plan.formats_for(self.sparse_inputs)
         jcache = get_jit_cache()
         lmemo: dict[int, str] = {}
+        # resolve the plan's mesh once per run; None means not enough
+        # devices — sharded segments then run their local-equivalent
+        # (unshard) closures, the same values
+        mesh_spec = plan.mesh_spec
+        lmesh = mesh_spec.resolve() if mesh_spec is not None else None
         for seg in segments:
             batched = bctx is not None and seg.variant
             self.stats.segments += 1
@@ -716,6 +776,22 @@ class LineageRuntime:
                 axes = "".join("0" if u in bctx.bvals else "-"
                                for u in seg.input_uids)
                 seg_key = f"{seg_key}|vmap:{axes}"
+                if bctx.cshard > 1:
+                    # bucket axis split over the mesh's config axis: a
+                    # different closure than plain vmap
+                    seg_key = (f"{seg_key}|cshard:{bctx.cshard}x"
+                               f"{mesh_spec.key_tag()}")
+                    self.stats.shard.config_sharded_segments += 1
+            if seg.sharded:
+                if lmesh is not None:
+                    from .jit_cache import mesh_key_tag
+                    from .segments import shard_specs
+                    in_t, out_t = shard_specs(seg)
+                    seg_key += mesh_key_tag(mesh_spec.key_tag(),
+                                            in_t, out_t)
+                    self._meter_shard_segment(seg)
+                else:
+                    seg_key += "|unshard"  # local-equivalent fallback
             vctx = bctx if batched else None
             # host-path segments (always single-instruction) read their
             # operands themselves: a federated operand never uploads
@@ -735,7 +811,8 @@ class LineageRuntime:
                     if rest:
                         self._run_compensation(seg, seg_key, fmts, args,
                                                rest, last.out_id, jcache,
-                                               values, bctx=vctx, rctx=rctx)
+                                               values, bctx=vctx,
+                                               lmesh=lmesh, rctx=rctx)
                     self._free(values, seg.frees)
                     continue
             if host_op:
@@ -769,21 +846,23 @@ class LineageRuntime:
                 try:
                     outs = self._execute_cached(
                         seg_key, self._seg_builder(seg, fmts, vctx,
-                                                   donate=don),
+                                                   donate=don,
+                                                   lmesh=lmesh),
                         args, jcache, rctx=rctx, donate=don,
                         release=release)
                 except CompileFailedError as e:
                     # degradation ladder: a segment whose closure build
                     # failed runs its instructions eagerly through the
                     # fuse=False kernels (parity by construction);
-                    # vmapped segments have no eager equivalent and
-                    # re-raise
+                    # vmapped/sharded segments have no eager equivalent
+                    # of the same closure and re-raise
                     e.args = (f"{e.args[0]} [{seg.summary()}]",)
-                    if batched:
+                    if batched or seg.sharded:
                         raise
                     outs = self._interpret_segment(seg, values, fmts, e)
                 else:
-                    if rctx.depth >= 2:
+                    if rctx.depth >= 2 and not seg.sharded and not (
+                            batched and bctx.cshard > 1):
                         # closure outputs this run produced and still
                         # owns — donation candidates for their last
                         # consumer
@@ -803,17 +882,52 @@ class LineageRuntime:
     def _seg_builder(self, seg, fmts: dict,
                      bctx: Optional[_BatchCtx] = None,
                      drop_output: Optional[int] = None,
-                     donate: tuple = ()):
+                     donate: tuple = (), lmesh=None):
         """Deferred closure builder, only called on a jit-cache miss:
         plain for invariant segments (donating when `donate` is set),
-        vmap-wrapped for config-variant ones."""
-        from .segments import build_batched_segment_fn, build_segment_fn
-        if bctx is not None:
-            return lambda: build_batched_segment_fn(
-                seg, self.device, fmts, bctx.bvals, drop_output=drop_output)
-        return lambda: build_segment_fn(seg, self.device, fmts,
-                                        drop_output=drop_output,
-                                        donate=donate)
+        vmap-wrapped for config-variant ones, run per shard for
+        mesh-lowered ones (with a local-equivalent closure when the mesh
+        does not resolve), and per bucket slice around the vmap for
+        bucket-sharded batched segments."""
+        from .segments import (build_batched_segment_fn,
+                               build_config_sharded_segment_fn,
+                               build_segment_fn, build_sharded_segment_fn)
+        if seg.sharded:
+            if lmesh is not None:
+                return lambda: build_sharded_segment_fn(
+                    seg, self.device, fmts, lmesh.data,
+                    drop_output=drop_output)
+            return lambda: build_segment_fn(
+                seg, self.device, fmts, drop_output=drop_output,
+                unshard=True)
+        if bctx is None:
+            return lambda: build_segment_fn(seg, self.device, fmts,
+                                            drop_output=drop_output,
+                                            donate=donate)
+        if bctx.cshard > 1:
+            return lambda: build_config_sharded_segment_fn(
+                seg, self.device, fmts, bctx.bvals, bctx.cshard,
+                drop_output=drop_output)
+        return lambda: build_batched_segment_fn(
+            seg, self.device, fmts, bctx.bvals, drop_output=drop_output)
+
+    # ------------------------------------------------------------------
+    def _meter_shard_segment(self, seg) -> None:
+        """Account one mesh dispatch of a sharded segment into
+        `stats.shard` — walked from the compile-time instruction stream,
+        so the meter matches the cost model's collective formulas."""
+        log = self.stats.shard
+        log.sharded_segments += 1
+        for ins in seg.instructions:
+            op = ins.node.op
+            if op == backend.RESHARD_OP:
+                log.reshards += 1
+                log.collective_bytes += costmodel.collective_bytes(
+                    ins.node)
+            elif op in backend.SHARD_REDUCE_OPS:
+                log.collectives += 1
+                log.collective_bytes += costmodel.collective_bytes(
+                    ins.node)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -827,11 +941,13 @@ class LineageRuntime:
         produced by a segment closure THIS run (`_RunCtx.owned` — never a
         bound leaf, reuse-cache hit, or value the cache took a reference
         to) and be dense (BCOO values and federated handles are never
-        donated). Batched (vmap/serving) dispatches are excluded: their
+        donated). Sharded dispatches are excluded wholesale, as in the
+        reference (their inputs enter split into row views). Batched
+        (vmap/serving) dispatches are excluded too: their
         mask would depend on per-request reuse-probe outcomes, and a mask
         flip changes the closure key — a rebuild on a pinned serving hot
         path, which deploy warmup guarantees never happens."""
-        if rctx.depth < 2 or bctx is not None:
+        if rctx.depth < 2 or bctx is not None or seg.sharded:
             return ()
         cand = seg.donatable_positions()
         if not cand:
@@ -889,6 +1005,7 @@ class LineageRuntime:
                           rest: tuple, probe_uid: int, jcache,
                           values: dict[int, Any],
                           bctx: Optional[_BatchCtx] = None,
+                          lmesh=None,
                           rctx: Optional[_RunCtx] = None) -> None:
         """Execute a probe-hit segment's remaining outputs (the segment
         with the cached value dead-code eliminated). Never donates — the
@@ -896,11 +1013,12 @@ class LineageRuntime:
         try:
             outs = self._execute_cached(
                 f"{seg_key}|comp",
-                self._seg_builder(seg, fmts, bctx, drop_output=probe_uid),
+                self._seg_builder(seg, fmts, bctx, drop_output=probe_uid,
+                                  lmesh=lmesh),
                 args, jcache, rctx=rctx)
         except CompileFailedError as e:
             e.args = (f"{e.args[0]} [{seg.summary()}]",)
-            if bctx is not None:
+            if bctx is not None or seg.sharded:
                 raise
             # eager fallback computes ALL segment outputs; deliver only
             # the non-probe ones (the hit already filled probe_uid)
@@ -1413,7 +1531,10 @@ class LineageRuntime:
             node, self.device,
             in_fmts=tuple(fmts.get(u, backend.DENSE)
                           for u in ins.input_ids),
-            out_fmt=fmts.get(ins.out_id, backend.DENSE))
+            out_fmt=fmts.get(ins.out_id, backend.DENSE),
+            # eager execution holds GLOBAL values: shard-exec ops run
+            # their local-equivalent base kernels
+            unshard=node.op in backend.SHARD_EXEC_OPS)
         args = [self._arg(values, u) for u in ins.input_ids]
         if bctx is not None:
             bpos = {i for i, u in enumerate(ins.input_ids)

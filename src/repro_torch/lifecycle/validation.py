@@ -53,9 +53,10 @@ def parfor(configs: Sequence, build_fn: Callable,
       * ``'vmap'`` — force the batched path (raises `BatchingError`
         when no template exists);
       * ``'shard'`` — force the batched path AND split the bucket axis
-        over a device mesh's `config` axis; the port has no mesh yet
-        (ROADMAP Queue 1 item 12), so this runs as plain vmap, as the
-        reference does when no realizable mesh is attached;
+        over the device mesh's `config` axis (one slice of the grid per
+        logical device, vmapped; `repro_torch.distributed.use_mesh`);
+        degrades to plain vmap at run time when no realizable mesh is
+        attached or the bucket does not divide;
       * ``'sequential'`` — force the per-config loop (the sequential path:
         one plan per config, lineage reuse across them).
     """

@@ -13,7 +13,8 @@ dispatch:
 The group sizes slice the sorted replicas on the host, so each MoE layer
 synchronises with the card once per call (once per token in decode).
 Shared experts (DeepSeek) run as a dense MLP on every token. The
-expert-parallel `moe_forward_ep` waits for the sharded placement.
+expert-parallel `moe_forward_ep` waits for the launch layer's (data, model)
+mesh (ROADMAP Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -154,9 +155,9 @@ def moe_forward_local(p: MoE, cfg, x: torch.Tensor):
 
 def moe_forward_ep(p: MoE, cfg, x: torch.Tensor):
     raise NotImplementedError(
-        "moe_forward_ep: the expert-parallel MoE needs the sharded "
-        "placement (ROADMAP Queue 1 item 12); moe_forward runs the local "
-        "path")
+        "moe_forward_ep: the expert-parallel MoE needs the launch layer's "
+        "(data, model) mesh and its sharding hints (ROADMAP Queue 1 item "
+        "16); moe_forward runs the local path")
 
 
 def moe_forward_dense_fallback(p: MoE, cfg, x: torch.Tensor):

@@ -58,6 +58,11 @@ pure-numpy stacking. At depth 1 the dispatcher replays inline.
 A coalesced score is bitwise the same request scored alone
 (`script(x)`), at either depth: the one-row product `x @ beta` is summed
 in a fixed order whatever the bucket (`core.backend._row_product`).
+
+Mesh-aware degradation: a script compiled under a device mesh keeps its
+sharded segment lowering; at replay the runtime runs the local-equivalent
+(unshard) closure wherever the mesh does not resolve on the serving
+device — the runtime's own fallback, no serving-specific handling.
 """
 from __future__ import annotations
 

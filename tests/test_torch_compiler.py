@@ -174,14 +174,17 @@ def test_prepared_script_plans_identical(reuse):
     assert canon(plans["ref"]) == canon(plans["port"])
 
 
-def test_unported_placements_are_refused():
-    xn, _ = _data(64, 3)
-
-    class Mesh:
-        data = 4
-    X = T.input_tensor("X", xn)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        T.compile_plan([T.ops.gram(X)], mesh=Mesh())
+def test_data_mesh_compiles_the_reference_plan():
+    """A `data=4` mesh lowers lmDS's products to the sharded placement, in
+    both packages alike (tests/test_torch_sharded.py holds every program
+    of the reference's sharded tests at d 2, 4 and 8)."""
+    from repro.distributed import MeshSpec as RMeshSpec
+    from repro_torch.distributed import MeshSpec
+    xn, yn = _data(4096, 64)
+    plans = {k: pk.compile_plan(quickstart(pk, xn, yn), mesh=mesh(data=4))
+             for (k, pk), mesh in zip(PKGS.items(), (RMeshSpec, MeshSpec))}
+    assert canon(plans["ref"]) == canon(plans["port"])
+    assert {"shard_gram", "shard_xtv"} <= set(plans["port"].count_ops())
 
 
 @pytest.mark.parametrize("reuse", [False, True])

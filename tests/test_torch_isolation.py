@@ -81,6 +81,21 @@ assert comps.shape == (5, 2) and proj.shape == (200, 2)
 assert np.isfinite(winsorize(input_tensor("Xw", xn), runtime=cpu)).all()
 r = cpu.evaluate([ops.rand((4, 3), seed=1, dist="normal", sparsity=0.5)])[0]
 assert r.shape == (4, 3)
+from repro_torch.distributed import (MeshSpec, logical_devices, safe_spec,
+                                     use_mesh)
+xb = np.vstack([xn] * 160); yb = np.vstack([yn] * 160)  # 1.28 MB
+with logical_devices(8), use_mesh(data=8):
+    sh = LineageRuntime(device="cpu")
+    beta_sh = lmDS(input_tensor("Xsh", xb), input_tensor("ysh", yb),
+                   reg=1e-9, runtime=sh)
+assert sh.stats.shard.sharded_segments > 0
+assert np.allclose(beta_sh.ravel(), np.arange(1.0, 6.0), atol=1e-6)
+with logical_devices(4), use_mesh(config=4):
+    cs = LineageRuntime(device="cpu")
+    b_cs, _ = grid_search_lm(input_tensor("Xgs", xn), input_tensor("ygs", yn),
+                             [0.1, 1.0, 10.0, 100.0], runtime=cs, mode="shard")
+assert cs.stats.shard.config_sharded_segments > 0 and b_cs.shape == (5, 4)
+assert MeshSpec(data=8).resolve() is None
 import os, tempfile, threading
 import torch
 from repro_torch.core import PreparedScript, faults, hetero

@@ -131,7 +131,7 @@ def test_top_k_takes_the_lower_index_among_equals():
 
 def test_expert_parallel_path_waits_for_the_sharded_placement(rng):
     _, _, cfg, mod = _layer("jamba_v0_1_52b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         tmoe.moe_forward_ep(mod, cfg, _x(rng, cfg)[1])
 
 

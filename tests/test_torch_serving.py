@@ -4,9 +4,10 @@ validation and closure-cache pinning it stands on, against the
 reference's `repro.serving` (at pipeline depth 1, the single-dispatcher
 loop, unless a case runs the depth-2 issue/completion split, whose own
 cases are in tests/test_torch_pipeline.py). Mirrors tests/test_serving.py's
-TestPreparedScriptValidation, TestJitCachePinning and TestCoalescer
-(TestMeshDegradation waits for sharded placement, ROADMAP Queue 1 item
-12); the port's server scores within 1e-12 of the reference's, warms
+TestPreparedScriptValidation, TestJitCachePinning, TestCoalescer and
+TestMeshDegradation (a script compiled under `use_mesh(data=8)` serves
+through the unshard closures on one device, and through sharded ones
+over 8 logical devices, with 0 retraces); the port's server scores within 1e-12 of the reference's, warms
 and pins the same buckets, and explains the same plan.
 
 Coalesced-versus-solo parity is bitwise for one-row requests, as in the
@@ -16,6 +17,7 @@ of rows to different kernels on the CPU and under cuBLAS alike.
 Multi-row request blocks are held within 1e-12, as the reference holds
 them.
 """
+import contextlib
 import re
 import threading
 import time
@@ -562,3 +564,85 @@ def test_many_clients_stress(rng, weights):
     log = rt.stats.serving
     assert log.requests == 96 and log.retraces == 0
     assert log.batches <= 96 and log.max_coalesce <= 16
+
+
+# ---------------------------------------------------------------------------
+# Mesh-aware graceful degradation
+# ---------------------------------------------------------------------------
+
+def _ref_scoring(pk, R_, W):
+    """x -> (x W + sum(R_ t(x)) / rows): reads a 1 MiB reference matrix
+    that a data=8 mesh shards (gathered once by a reshard in the
+    invariant prefix, since the request is config-variant)."""
+    def scoring(x):
+        yhat = pk.ops.matmul(x, W)
+        return yhat + pk.ops.sum_(pk.ops.matmul(R_, pk.ops.t(x))) / 8192.0,
+    return scoring
+
+
+class TestMeshDegradation:
+    @pytest.mark.parametrize("logical", [1, 8])
+    def test_unrealizable_mesh_falls_back(self, rng, logical):
+        # compiled under a production mesh spec, served on one device:
+        # the runtime swaps in local-equivalent closures — results match
+        # the no-mesh server bitwise (and the reference's within 1e-12);
+        # laid over 8 logical devices the scores are the same
+        from repro.distributed import use_mesh as ruse_mesh
+        from repro_torch.distributed import (MeshSpec, logical_devices,
+                                             use_mesh)
+        assert MeshSpec(data=8).resolve() is None  # 1 device
+        wn = rng.normal(size=(D, 1))
+        x = np.linspace(0.0, 1.0, D).reshape(1, D)
+        results = []
+        with logical_devices(logical):
+            for mesh in (None, dict(data=8)):
+                W = T.input_tensor("mW", wn)
+                rt = _rt()
+                with use_mesh(**mesh) if mesh else contextlib.nullcontext():
+                    script = PreparedScript(_scoring(T, W), [(1, D)],
+                                            runtime=rt)
+                    srv = _serve(script, rt)
+                    srv.deploy()
+                results.append(srv.score(x))
+                assert rt.stats.serving.retraces == 0
+                srv.shutdown()
+        for a, b in zip(results[0], results[1]):
+            assert (a == b).all()
+        with ruse_mesh(data=8):
+            rt = R.LineageRuntime()
+            script = RScript(_scoring(R, R.input_tensor("mW", wn)),
+                             [(1, D)], runtime=rt)
+            srv = RServer(script, runtime=rt, max_batch=8,
+                          max_wait_us=500.0).deploy()
+        want = srv.score(x)
+        srv.shutdown()
+        for a, b in zip(results[1], want, strict=True):
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
+
+    def test_sharded_prefix_serves_without_retraces(self, rng):
+        from repro_torch.distributed import logical_devices, use_mesh
+        wn = rng.normal(size=(D, 1))
+        rn = rng.normal(size=(8192, D))  # 1 MiB: shardable at data=8
+        xs = [rng.normal(size=(1, D)) for _ in range(5)]
+        got = {}
+        for logical in (1, 8):
+            with logical_devices(logical):
+                rt = _rt()
+                with use_mesh(data=8):
+                    script = PreparedScript(
+                        _ref_scoring(T, T.input_tensor("mR", rn),
+                                     T.input_tensor("mW", wn)),
+                        [(1, D)], runtime=rt)
+                    srv = _serve(script, rt).deploy()
+                assert any(seg.sharded for seg in
+                           script.plan.segments_for(False))
+                got[logical] = _concurrent(srv.score, xs)
+                assert rt.stats.serving.retraces == 0
+                assert (rt.stats.shard.sharded_segments > 0) == (
+                    logical == 8)
+                srv.shutdown()
+        for x, a, b in zip(xs, got[1], got[8]):
+            for u, v in zip(a, b, strict=True):
+                np.testing.assert_allclose(u, v, rtol=1e-12, atol=1e-12)
+            want = x @ wn + (rn @ x.T).sum() / 8192.0
+            np.testing.assert_allclose(a[0], want, rtol=1e-9)
