@@ -59,7 +59,8 @@ card. One JSON line per phase:
                      at 400,000 x 1,000 in 13 bcoo buckets; betas against
                      numpy and the dense lane, launch counts, reuse; each
                      lmDS fit's peak device memory; the kernels' device
-                     time in a traced fit of its own
+                     time in a traced fit of its own (lmCG's: 5
+                     iterations)
  10. lm_serve      — the dense LM family served at qwen3-0.6b's full width
                      (28 layers, bf16, seeded weights): `generate` for a
                      batch of 8 2,048-token prompts and 32 greedy tokens,
@@ -127,7 +128,7 @@ card. One JSON line per phase:
                      classes) at 100,000 x 1,000 float64 on the card, each
                      against the same call on the CPU; pca's lane; wall
                      time per iteration and its host-to-device share
-                     (max_iter cut to 10)
+                     (max_iter cut to 10; a traced fit of 3)
  17. cleaning      — every cleaning builtin on 100,000 x 1,000 with 1 %
                      NaNs against numpy's nan-aware functions (mice_lite
                      on 8 columns, against the CPU)
@@ -211,13 +212,30 @@ card. One JSON line per phase:
  27. moe_serve     — the moe family served at deepseek-moe-16b's full width
                      and depth (28 layers: one dense, 27 MoE of 64 experts
                      top-6 and 2 shared; bf16, seeded weights), lm_serve's
-                     traffic: 28 flash launches in prefill, none in decode;
+                     prompts and 8 greedy tokens (32 before moe_ep_serve
+                     came in): 28 flash launches in prefill, none in decode;
                      teacher-forced decode, the kernel route against the
                      plain attention (over batch slices) and two planted
                      faults, each with the kernel route's MoE routing
                      replayed and the flips counted; experts touched per
                      decode step; tokens/s, peak memory, a traced idle
                      share
+ 27b. moe_ep_serve — on moe_serve's model (no second build): 8 logical
+                     devices laid over the card, make_mesh((2, 4), ("data",
+                     "model")) and hints enabled, so every MoE layer takes
+                     the expert-parallel `moe_forward_ep` (16 experts a
+                     model rank, 960 slots an expert a data rank in
+                     prefill): moe_serve's prompts and 8 greedy tokens, 28
+                     flash launches and 27 EP calls a prefill, 27 EP calls
+                     a decode step; teacher-forced EP decode against the
+                     local path's (its routing replayed); each MoE layer's
+                     EP output on its prefill inputs against the local
+                     algorithm with the dropped replicas weighted 0 (the
+                     capacity rule copied here), and against a planted
+                     fault (the model sum without the last rank); the
+                     dropped replicas; host reads a decode step on both
+                     paths (sync debug mode); prefill and decode ms, peak
+                     memory
  28. mla_serve     — MLA served at deepseek-v2-236b's full width, its depth
                      cut to the dense first layer and 4 MoE layers (160
                      experts top-6), moe_serve's checks: 5 launches of the
@@ -252,14 +270,34 @@ card. One JSON line per phase:
                      idle share and top ops, the FLOPs of a step at the
                      dtype's peak as its bound. No kernel launches: the
                      wrappers refuse a gradient
- 32. kernels       — the summary line of every ported kernel (the
+ 32. fedavg        — FedAvgTrainer over 4 sites of lm-100m at full width
+                     (float32, remat off), each site a TokenPipeline shard
+                     of the train phase's data (batch 8 × 256), a sync
+                     every 8 rounds, 16 rounds, `loss_fn` through
+                     Model.loss by functional_call; int8 compression off
+                     and on: the loss falls in both, the wire bytes' ratio
+                     exactly (n + 4·L) / (4·n); quantize_int8 on the card
+                     bitwise the CPU's on a seeded delta of the model's
+                     size; the error-feedback residual after 50 rounds
+                     under TestCompression's 1e-3 at that size, and beyond
+                     it with the residual not carried (planted); ms a
+                     local step and a sync
+ 33. elastic_restore — the int8 run's anchor saved with store.save and
+                     restored twice with shardings=: onto make_mesh((4,
+                     2)) with 2-D weights over ("data", "model"), onto
+                     make_mesh((2, 4)) over ("model", None), 1-D leaves
+                     replicated; every logical device's shard bitwise the
+                     block of the saved array (a plain copy of jax's
+                     rule); save and restore seconds
+ 34. kernels       — the summary line of every ported kernel (the
                      block-sparse ones at the shape of most of their
                      launches, with launches x (device ms - bound ms) by
                      path; gram and xtv with their launches on the
                      sharded paths and a shard's device ms against its
                      bound, and batched, with their launches on the CV
                      path; flash with its launches
-                     on every serving path and MLA's instantiation)
+                     on every serving path, moe_ep_serve's included, and
+                     MLA's instantiation)
 
 then the card line of `nvidia-smi` and, last, the contract line
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -1334,6 +1372,7 @@ def phase_sharded(peaks: dict, dev=DEVICE, m: int = 100_000, n: int = 1_000,
 ROW_GROUP, COL_GROUP = 1024, 128   # the data's block structure
 BLOCKY = (0.25, 0.2)      # p_block, p_in: density 0.05 (lmDS, streamed)
 BLOCKY_WIDE = (0.1, 0.1)  # density 0.01 (lmCG)
+TRACED_CG_ITERS = 5       # iterations of lmCG's traced fit (the path: 20)
 UNIFORM = (1.0, 0.05)     # every block populated: the mask skips nothing
 
 
@@ -1632,7 +1671,7 @@ def phase_sparse_lm(scale: int = 1) -> dict:
     xh, keep, yh, density = data(m, n, BLOCKY_WIDE)
     xty = xh.T @ yh
 
-    def cg(rt):
+    def cg(rt, its=iters):
         X = input_tensor("X", xh, sparsity=density)
         y = input_tensor("y", yh)
         calls = [0]
@@ -1644,7 +1683,7 @@ def phase_sparse_lm(scale: int = 1) -> dict:
         rt.evaluate = counted
         reset()
         t0 = time.perf_counter()
-        beta = lmCG(X, y, reg=reg, max_iter=iters, runtime=rt)
+        beta = lmCG(X, y, reg=reg, max_iter=its, runtime=rt)
         return beta, dict(wall_s=time.perf_counter() - t0,
                           iterations=calls[0] - 1, launches=launches())
 
@@ -1654,12 +1693,14 @@ def phase_sparse_lm(scale: int = 1) -> dict:
     r0_err = float(np.max(np.abs(r0 - xty)) / np.max(np.abs(xty)))
     beta_s, sparse = cg(rt)              # the path
     beta_d, dense = cg(LineageRuntime())
-    # a traced fit of its own: the kernels' device time
+    # a traced fit of its own, TRACED_CG_ITERS iterations (20 until
+    # moe_ep_serve came in): the kernels' device time
     _, trace_wall, busy, by_name = device_trace(
-        lambda: cg(LineageRuntime(sparse_inputs=True)))
+        lambda: cg(LineageRuntime(sparse_inputs=True), TRACED_CG_ITERS))
     ls = sparse["launches"]
     row = dict(phase="sparse_lm", path="sparse_lmcg", shape=[m, n],
-               density=density, reg=reg, max_iter=iters, sparse=sparse,
+               density=density, reg=reg, max_iter=iters,
+               traced_iterations=TRACED_CG_ITERS, sparse=sparse,
                dense_lane=dense, xty_rel_err=r0_err,
                rel_to_dense_lane=rel(beta_s, beta_d),
                spmm_device_ms=_device_ms(by_name, "spmm_kernel"),
@@ -2373,11 +2414,13 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
     # the timed bf16 model: each layer's WKV kernel call against the plain
     # version on its own served inputs (a measure no depth amplifies), and
     # the routes' split after the first layer (as the float32 checks
-    # below); the end-to-end sound routes are
-    # recorded, not held: 32 bf16 layers of the seeded model amplify
-    # rounding, so the end-to-end checks run in float32
+    # below); 32 bf16 layers of the seeded model amplify rounding, so the
+    # end-to-end checks run in float32 (the bf16 end-to-end routes, which
+    # were recorded, not held, are cut for the script's time since
+    # moe_ep_serve came in)
     bf16_layers = _rwkv_layers(model, tokens, depth=1)
-    bf16_routes = _rwkv_routes(model, tokens, faults=False)
+    bf16_finite = bool(torch.isfinite(
+        model.prefill(tokens, max_len=max_len)[0]).all().item())
     layer_mats = sum(p.numel() for p in model.periods[0].parameters()
                      if p.ndim >= 2)
     weight_bytes = sum(p.numel() * p.element_size()
@@ -2429,13 +2472,9 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
                decode_ms_per_token=decode_ms,
                decode_bound_ms=decode_bound_ms,
                peak_memory_gb=peak_bytes / 1e9,
-               logits_finite=routes["finite"] and bf16_routes["finite"],
+               logits_finite=routes["finite"] and bf16_finite,
                tokens_in_vocab=bool(0 <= toks.min()
                                     and toks.max() < cfg.vocab_size),
-               bf16_sound_routes=dict(
-                   teacher_forced_rel_err=bf16_routes[
-                       "teacher_forced_rel_err"],
-                   kernel_vs_plain=bf16_routes["kernel_vs_plain"]),
                layers=dict(bfloat16=bf16_layers, float32=layers),
                checks_dtype="float32", teacher_forced_rel_err=tf_err,
                kernel_vs_plain=plain, row0_pinned=pinned,
@@ -2754,7 +2793,9 @@ def phase_ssm_kernels(peaks: dict, cases=SSM_CASES) -> dict:
         ms = cuda_ms(kern, iters=10)
         _, _, dev_s, _ = device_trace(lambda: [kern() for _ in range(10)])
         ops.LAUNCHES.update(saved)
-        plain_ms = cuda_ms(lambda: ref.ssm_scan(*args), iters=2, warmup=1)
+        # the check's plain call above is its warm-up (16,384 steps take
+        # ~4 s a call)
+        plain_ms = cuda_ms(lambda: ref.ssm_scan(*args), iters=2, warmup=0)
         bms, by = ssm_bound(B, S, di, ds, dtype, peaks)
         row = dict(phase="ssm_kernel", case=name, B=B, S=S, di=di, ds=ds,
                    dtype=dtype, dt=dt_kind, h0_scale=h0_scale,
@@ -3045,10 +3086,9 @@ def _routes(model, tokens, swap, plain, faults: dict,
     (`swap(plain)`: `_prefill_scan` or `_prefill_attention`) and the
     planted faults (`swap(fn)` for each of `faults`), each with the kernel
     route's routing replayed (`routing_flips`: the tokens of each MoE call
-    that it would have routed otherwise); and, where the model has MoE
-    layers, the plain route with its own routing (`free`), read over every
-    position and over the positions that routed alike in every MoE layer
-    (`alike_rows`)."""
+    that it would have routed otherwise). The plain route with its own
+    routing, recorded but never held, was cut for the script's time
+    when moe_ep_serve came in."""
     import torch
     log = []
     with _moe_routing(_recorded(log)):
@@ -3059,33 +3099,20 @@ def _routes(model, tokens, swap, plain, faults: dict,
         with swap(fn), _moe_routing(_replayed(lambda c: log[c], flips)):
             h = model(tokens, image_embeds=image_embeds)[0]
         return dict(_read(model, h, base), routing_flips=flips)
-    out = dict(finite=bool(torch.isfinite(base).all().item()),
-               kernel_vs_plain=pinned(plain),
-               planted_faults={name: pinned(fn)
-                               for name, fn in faults.items()})
-    if not log:
-        return out
-    own = []
-    with swap(plain), _moe_routing(_recorded(own)):
-        h = model(tokens, image_embeds=image_embeds)[0]
-    flipped = [_flipped(a, b).reshape(tokens.shape[:2])
-               for a, b in zip(own, log)]
-    alike = ~torch.stack(flipped).any(0)
-    out["free"] = dict(_read(model, h, base),
-                       routing_flips=[f.sum().item() for f in flipped],
-                       alike_rows=_read(model, h, base, alike)[
-                           "hidden_rel_err"],
-                       tokens=tokens.shape[0] * tokens.shape[1])
-    return out
+    return dict(finite=bool(torch.isfinite(base).all().item()),
+                kernel_vs_plain=pinned(plain),
+                planted_faults={name: pinned(fn)
+                                for name, fn in faults.items()})
 
 
 def _teacher_forced(model, tokens, n_new: int = 16,
                     image_embeds=None) -> dict:
     """Prefill all but the last `n_new` positions (the kernel), decode
     those one by one (the plain decode paths over the caches), against a
-    full prefill's last logits over max|logit|: with the full prefill's
-    MoE routing replayed (`pinned`) and with the router's own (`free`;
-    the same run where the model has no MoE layer)."""
+    full prefill's last logits over max|logit|, with the full prefill's
+    MoE routing replayed (`pinned`). The same run with the router's own
+    routing, recorded but never held, was cut for the script's time when
+    moe_ep_serve came in."""
     B, S = tokens.shape[:2]
     n0 = S - n_new
     log = []
@@ -3100,9 +3127,8 @@ def _teacher_forced(model, tokens, n_new: int = 16,
         return (logits.float() - full.float()).abs().max().item() \
             / full.float().abs().max().item()
     if not log:
-        err = run()
-        return dict(pinned=dict(logits_rel_err=err, routing_flips=0),
-                    free=dict(logits_rel_err=err), decoded=n_new)
+        return dict(pinned=dict(logits_rel_err=run(), routing_flips=0),
+                    decoded=n_new)
     n_moe, k = len(log), log[0].shape[-1]
     rows = [t.reshape(B, S, k) for t in log]
 
@@ -3115,7 +3141,7 @@ def _teacher_forced(model, tokens, n_new: int = 16,
     with _moe_routing(_replayed(choices, flips)):
         pinned = run()
     return dict(pinned=dict(logits_rel_err=pinned, routing_flips=sum(flips)),
-                free=dict(logits_rel_err=run()), decoded=n_new)
+                decoded=n_new)
 
 
 # ---------------------------------------------------------------------------
@@ -3240,17 +3266,20 @@ def _mla_absorbed(model, tokens) -> dict:
 
 
 def _serve_family(peaks: dict, phase: str, cfg, cut: dict, batch: int,
-                  prompt: int, new: int) -> dict:
+                  prompt: int, new: int, then=None) -> dict:
     """One served family at `cfg` (the cuts listed in `cut`), lm_serve's
     traffic: `generate` for `batch` prompts of `prompt` tokens (MusicGen:
     `encodec_tokens`' 4 codebooks with the delay pattern; the vision
     model: `vision_embeddings`' image, uploaded once in bf16) and `new`
     greedy tokens; its own steps read for flash launches (one per
     attention layer in prefill, none in decode) and times; the same
-    prefill once more, warm; teacher-forced decode against the prefill;
-    the kernel route against the plain attention and two planted faults,
-    MoE routing replayed; tokens/s, peak memory, a traced idle share.
-    Returns the flash launches of the main path, by step."""
+    prefill once more, warm; teacher-forced decode of the last new // 2
+    positions against the prefill; the kernel route against the plain
+    attention and two planted faults, MoE routing replayed; tokens/s,
+    peak memory, a traced idle share;
+    then `then(model, prompts, local)` on the same model, `local` holding
+    the row's prefill and decode times. Returns the flash launches of the
+    main path, by step."""
     import numpy as np
     import torch
     from repro_torch.data.frontends import encodec_tokens, vision_embeddings
@@ -3322,7 +3351,7 @@ def _serve_family(peaks: dict, phase: str, cfg, cut: dict, batch: int,
                          image_embeds=img))
     fops.reset_launches()
 
-    tf = _teacher_forced(model, tokens, image_embeds=img)
+    tf = _teacher_forced(model, tokens, n_new=new // 2, image_embeds=img)
     routes = _routes(model, tokens, _prefill_attention,
                      _sliced(_plain_attention), {
                          "mask_shifted": _sliced(_masked_attention(
@@ -3336,8 +3365,6 @@ def _serve_family(peaks: dict, phase: str, cfg, cut: dict, batch: int,
     prefill_bound_ms, decode_bound_ms = _family_bounds(
         model, cfg, batch, prompt, max_len, touched, peaks)
     n_params = model.n_params()
-    del model
-    torch.cuda.empty_cache()
 
     n_attn = sum(k.startswith("attn") or k == "xattn" for k in kinds)
     shape = (batch, new) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
@@ -3383,18 +3410,34 @@ def _serve_family(peaks: dict, phase: str, cfg, cut: dict, batch: int,
                              absorbed["planted_faults"].values())))
             and (cfg.family != "vlm" or min(gates) > 0)):
         raise AssertionError(f"{phase} failed: {row}")
+    if then is not None:
+        then(model, prompts, dict(
+            prefill_ms=prefill_ms, prefill_warm_ms=prefill_warm_ms,
+            decode_ms_per_token=decode_ms, peak_memory_gb=peak_bytes / 1e9,
+            decode_host_syncs_per_step=n_moe))
+    del model
+    torch.cuda.empty_cache()
     return row["flash_launches"]
 
 
 def phase_moe_serve(peaks: dict, cfg=None, batch: int = 8,
-                    prompt: int = 2048, new: int = 32) -> dict:
+                    prompt: int = 2048, new: int = 8) -> tuple:
     """The moe family served at deepseek-moe-16b's full width and depth
     (28 layers: one dense, d_ff 10,944; 27 MoE of 64 experts top-6 and 2
     shared; 16 heads of 128; `cfg` and the sizes may be cut for a
-    rehearsal): 28 flash launches a prefill."""
+    rehearsal): 28 flash launches a prefill; then, on the same model, the
+    expert-parallel path (`_moe_ep_serve`). 8 greedy tokens (32 until
+    moe_ep_serve came in: a decode step is ~0.47 s, host-bound). Returns
+    (the flash launches of moe_serve's main path, moe_ep_serve's row)."""
     from repro_torch.configs import get_config
     cfg = cfg or get_config("deepseek-moe-16b")
-    return _serve_family(peaks, "moe_serve", cfg, {}, batch, prompt, new)
+    ep = []
+    launches = _serve_family(
+        peaks, "moe_serve", cfg, dict(new_tokens=[32, new]), batch, prompt,
+        new,
+        then=lambda model, prompts, local: ep.append(
+            _moe_ep_serve(peaks, model, prompts, local)))
+    return launches, ep[0]
 
 
 def phase_mla_serve(peaks: dict, cfg=None, batch: int = 8,
@@ -3441,11 +3484,579 @@ def phase_audio_serve(peaks: dict, cfg=None, batch: int = 8,
 
 
 # ---------------------------------------------------------------------------
+# the moe family on the (data, model) mesh: the expert-parallel MoE
+# ---------------------------------------------------------------------------
+
+EP_MESH = (2, 4)          # (data, model): 8 logical devices over the card
+EP_NEW = 8                # the EP path's greedy tokens (moe_serve's 32, cut)
+EP_TEACHER = 8            # teacher-forced decode steps, EP against local
+# each MoE layer's EP output on its served prefill inputs against the plain
+# version (the local algorithm, the dropped replicas' weights zeroed,
+# summed in float32), over max|out|; the planted fault (the model sum
+# without the last rank) must read beyond it
+EP_LAYER_TOL = 2e-2
+
+
+@contextlib.contextmanager
+def _ep_probe(inputs: list | None = None):
+    """Count the calls of `moe.moe_forward_ep` inside the block (a dict
+    {"calls": n}, as the launch counters are), and, when `inputs` is
+    given, keep each call's (MoE module, x)."""
+    from repro_torch.models import moe
+    ep = moe.moe_forward_ep
+    count = {"calls": 0}
+
+    def probe(p, cfg, x):
+        count["calls"] += 1
+        if inputs is not None:
+            inputs.append((p, x))
+        return ep(p, cfg, x)
+    moe.moe_forward_ep = probe
+    try:
+        yield count
+    finally:
+        moe.moe_forward_ep = ep
+
+
+@contextlib.contextmanager
+def _ep_mesh():
+    """The EP path's mesh: 8 logical devices laid over the card,
+    make_mesh(EP_MESH, ("data", "model")), hints enabled on it."""
+    from repro_torch.distributed import logical_devices
+    from repro_torch.distributed.hints import disable_hints, enable_hints
+    from repro_torch.launch.mesh import make_mesh
+    with logical_devices(8):
+        mesh = make_mesh(EP_MESH, ("data", "model"))
+        enable_hints(mesh)
+        try:
+            yield mesh
+        finally:
+            disable_hints()
+
+
+@contextlib.contextmanager
+def _model_sum_without_last_rank():
+    """The planted fault: EP's sum over `model` leaves out the last rank."""
+    from repro_torch.models import moe
+    total = moe._model_sum
+    moe._model_sum = lambda parts: total(parts[:-1])
+    try:
+        yield
+    finally:
+        moe._model_sum = total
+
+
+def _kept(top_idx, n_experts: int, capacity_factor: float):
+    """A plain copy of the reference's capacity rule on one data rank's
+    routing (T, k): a replica (token-major) is kept when fewer than Ce
+    earlier replicas chose its expert, Ce = max(int(T·k / E · cf + 7) //
+    8 · 8, 8) in Python floats."""
+    import torch
+    T, k = top_idx.shape
+    ce = max(int(T * k / n_experts * capacity_factor + 7) // 8 * 8, 8)
+    flat = top_idx.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat, n_experts)
+    pos = (onehot.cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
+    return (pos < ce).reshape(T, k)
+
+
+def _moe_dropped_plain(p, cfg, x, dp: int):
+    """One MoE layer's plain output on x (B, S, D) with `dp` data ranks:
+    each rank's tokens routed by the port's router, the replicas the
+    capacity rule drops weighted 0, every expert's tokens through its
+    products one expert at a time, the weighted rows summed in float32;
+    the shared experts as the layer adds them. Returns (out, dropped
+    replicas)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import mlp, silu
+    B, S, D = x.shape
+    dt = x.dtype
+    xf = x.reshape(B * S, D)
+    t_loc = B * S // dp
+    outs, dropped = [], 0
+    for d in range(dp):
+        xd = xf[d * t_loc:(d + 1) * t_loc]
+        _, top_vals, top_idx = moe.route(p, cfg, xd)
+        weights = top_vals / torch.clamp_min(
+            top_vals.sum(-1, keepdim=True), 1e-9)
+        keep = _kept(top_idx, cfg.n_experts, cfg.capacity_factor)
+        dropped += int((~keep).sum().item())
+        weights = torch.where(keep, weights, 0.0)
+        out = torch.zeros((t_loc, D), dtype=torch.float32, device=x.device)
+        for e in range(cfg.n_experts):
+            sel = top_idx == e
+            rows = sel.any(1).nonzero()[:, 0]
+            if not len(rows):
+                continue
+            w = (weights * sel).sum(1)[rows]
+            xe = xd[rows]
+            h = silu(xe @ p.w_gate[e].to(dt)) * (xe @ p.w_up[e].to(dt))
+            eo = h @ p.w_down[e].to(dt)
+            out.index_add_(0, rows, (eo * w[:, None].to(dt)).float())
+        outs.append(out.to(dt))
+    out = torch.cat(outs)
+    if cfg.n_shared_experts:
+        out = out + mlp(p.shared, xf)
+    return out.reshape(B, S, D), dropped
+
+
+def _ep_layers(model, tokens) -> dict:
+    """One EP prefill of `tokens` with every MoE layer's input kept; then
+    each layer's EP output on its input against `_moe_dropped_plain`, and
+    with the planted fault, over max|out|."""
+    import torch
+    from repro_torch.models import moe
+    cfg = model.cfg
+    inputs = []
+    with _ep_probe(inputs):
+        model(tokens)
+    errs, faults, dropped = [], [], []
+    for p, x in inputs:
+        want, n = _moe_dropped_plain(p, cfg, x, EP_MESH[0])
+        scale = want.float().abs().max().item()
+        got = moe.moe_forward_ep(p, cfg, x)[0]
+        errs.append((got.float() - want.float()).abs().max().item() / scale)
+        with _model_sum_without_last_rank():
+            bad = moe.moe_forward_ep(p, cfg, x)[0]
+        faults.append((bad.float() - want.float()).abs().max().item()
+                      / scale)
+        dropped.append(n)
+    del inputs
+    torch.cuda.empty_cache()
+    return dict(layers=len(errs), rel_err_max=max(errs),
+                rel_err=errs, dropped_replicas=dropped,
+                dropped_total=sum(dropped),
+                replicas_per_layer=tokens.numel() * cfg.moe_top_k,
+                planted_fault=dict(model_sum_without_last_rank=min(faults)))
+
+
+def _host_reads(fn) -> dict:
+    """Host reads (synchronizing CUDA operations: `.item()`, `.tolist()`,
+    a copy to the host) in one call of `fn`, counted by PyTorch's sync
+    debug mode: {"step": all of them, "moe": those made inside the MoE
+    layers' `moe_forward`}."""
+    import warnings
+    import torch
+    from repro_torch.models import moe
+    forward = moe.moe_forward
+    inside = [0]
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+
+        def reads() -> int:
+            return sum("called a synchronizing CUDA operation"
+                   in str(w.message) for w in seen)
+
+        def probe(*args):
+            n0 = reads()
+            out = forward(*args)
+            inside[0] += reads() - n0
+            return out
+        moe.moe_forward = probe
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            moe.moe_forward = forward
+        return dict(step=reads(), moe=inside[0])
+
+
+def _ep_decode(model, tokens, n_new: int) -> dict:
+    """Teacher-forced decode of the last `n_new` positions from one local
+    prefill of the rest: the local path (its routing recorded), then EP
+    from a copy of the same caches with that routing replayed on every
+    data rank, the last step's logits over max|logit|; the host reads of
+    one decode step on each path."""
+    from torch.utils import _pytree as pytree
+    B, S = tokens.shape
+    n0 = S - n_new
+    _, cache = model.prefill(tokens[:, :n0], max_len=S)
+    copy = pytree.tree_map(lambda t: t.clone(), cache)
+    spare = pytree.tree_map(lambda t: t.clone(), cache)
+    log = []
+    with _moe_routing(_recorded(log)):
+        for t in range(n0, S):
+            local, cache = model.decode_step(tokens[:, t:t + 1], cache, t)
+    local_reads = _host_reads(lambda: model.decode_step(
+        tokens[:, n0:n0 + 1], spare, n0))
+    dp = EP_MESH[0]
+    rows = B // dp
+    k = log[0].shape[-1]
+
+    def choices(call):  # EP routes each data rank's tokens in turn
+        return log[call // dp].reshape(B, k)[
+            (call % dp) * rows:(call % dp + 1) * rows]
+    flips = []
+    with _ep_mesh(), _ep_probe() as ep:
+        with _moe_routing(_replayed(choices, flips)):
+            for t in range(n0, S):
+                got, copy = model.decode_step(tokens[:, t:t + 1], copy, t)
+        calls = ep["calls"]
+        ep_reads = _host_reads(lambda: model.decode_step(
+            tokens[:, n0:n0 + 1], spare, n0))
+    return dict(decoded=n_new, ep_calls=calls,
+                logits_rel_err=(got.float() - local.float()).abs().max().item()
+                / local.float().abs().max().item(),
+                routing_flips=sum(flips),
+                host_reads_per_step=dict(local=local_reads, ep=ep_reads))
+
+
+def _moe_ep_serve(peaks: dict, model, prompts, local: dict) -> dict:
+    """moe_ep_serve: the served model of moe_serve (no second build) on
+    8 logical devices, make_mesh(EP_MESH, ("data", "model")) and hints
+    enabled, so every MoE layer takes `moe_forward_ep` (data 2 × model 4:
+    16 of the 64 experts a model rank, Ce 960 slots an expert a data rank
+    in prefill, 8 in decode); `generate` for moe_serve's prompts and
+    EP_NEW greedy tokens, its steps read for flash launches and EP calls;
+    teacher-forced EP decode against the local path's; each MoE layer's
+    EP output on its prefill inputs against the plain version and against
+    a planted fault. `local` holds moe_serve's own prefill and decode
+    times. Returns the row."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.serve import generate
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    batch, prompt = prompts.shape
+    max_len = prompt + EP_NEW
+    tokens = torch.from_numpy(prompts).to(DEVICE)
+    n_moe = sum(k.endswith("+moe") for k in _attn_layers(cfg))
+    with _ep_mesh():
+        # the main path: counts set to 0 just before, read just after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _ep_probe() as ep, _probed_steps(
+                (fops.LAUNCHES, "flash"), (ep, "calls")) as steps:
+            fops.reset_launches()
+            ep["calls"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = generate(model, prompts, max_new=EP_NEW, max_len=max_len)
+            wall = time.perf_counter() - t0
+            launches, calls = fops.LAUNCHES["flash"], ep["calls"]
+        peak_bytes = torch.cuda.max_memory_allocated()
+        prefill_warm_ms = _warm_prefill_ms(model, tokens, max_len)
+        prefills = [st for st in steps if st[0] == "prefill"]
+        decodes = [st for st in steps if st[0] == "decode"]
+        by_step = {kind: {key: sum(st[1][key] for st in sts)
+                          for key in ("flash", "calls")}
+                   for kind, sts in (("prefill", prefills),
+                                     ("decode", decodes))}
+        prefill_ms = prefills[0][2].elapsed_time(prefills[0][3])
+        decode_ms = decodes[0][2].elapsed_time(decodes[-1][3]) \
+            / len(decodes)
+        _, trace_wall, busy, by_name = device_trace(
+            lambda: model.prefill(tokens, max_len=max_len))
+        layers = _ep_layers(model, tokens)
+    fops.reset_launches()
+    tf = _ep_decode(model, tokens, EP_TEACHER)
+    fops.reset_launches()
+    row = dict(phase="moe_ep_serve", arch=cfg.name, mesh=dict(
+        zip(("data", "model"), EP_MESH)), logical_devices=8,
+               experts_per_rank=cfg.n_experts // EP_MESH[1],
+               capacity_factor=cfg.capacity_factor, batch=batch,
+               prompt=prompt, new_tokens=EP_NEW, max_len=max_len,
+               generate_wall_s=wall, tokens_per_s=batch * EP_NEW / wall,
+               flash_launches=dict(generate=launches,
+                                   prefill=by_step["prefill"]["flash"],
+                                   decode=by_step["decode"]["flash"]),
+               ep_calls=dict(generate=calls,
+                             prefill=by_step["prefill"]["calls"],
+                             decode=by_step["decode"]["calls"],
+                             moe_layers=n_moe),
+               steps=dict(prefill=len(prefills), decode=len(decodes)),
+               prefill_ms=prefill_ms, prefill_warm_ms=prefill_warm_ms,
+               decode_ms_per_token=decode_ms, local=local,
+               peak_memory_gb=peak_bytes / 1e9,
+               tokens_in_vocab=bool(0 <= toks.min()
+                                    and toks.max() < cfg.vocab_size),
+               token_shape=list(toks.shape), prefill_layers=layers,
+               prefill_traced=_traced(trace_wall, busy, by_name),
+               teacher_forced=tf, tol=FAMILY_SERVE_TOL,
+               layer_tol=EP_LAYER_TOL,
+               seconds=time.perf_counter() - t_phase)
+    emit(row)
+    reads = tf["host_reads_per_step"]
+    if not (launches == by_step["prefill"]["flash"] == len(_attn_layers(cfg))
+            and by_step["decode"]["flash"] == 0
+            and by_step["prefill"]["calls"] == n_moe
+            and calls == n_moe * (1 + len(decodes))
+            and len(prefills) == 1 and len(decodes) == EP_NEW - 1
+            and row["tokens_in_vocab"] and toks.shape == (batch, EP_NEW)
+            and tf["ep_calls"] == n_moe * EP_TEACHER
+            and tf["logits_rel_err"] <= FAMILY_SERVE_TOL
+            and reads["local"]["moe"] >= n_moe and reads["ep"]["moe"] == 0
+            and reads["ep"]["step"] == reads["local"]["step"]
+            - reads["local"]["moe"]
+            and layers["layers"] == n_moe
+            and layers["rel_err_max"] <= EP_LAYER_TOL
+            and layers["planted_fault"]["model_sum_without_last_rank"]
+            > EP_LAYER_TOL):
+        raise AssertionError(f"moe_ep_serve failed: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# federated training (FedAvg, int8 with error feedback) and elastic restore
+# ---------------------------------------------------------------------------
+
+FED_SITES = 4
+FED_SYNC_EVERY = 8
+FED_ROUNDS = 16           # 2 syncs
+FED_LR = 1e-3             # FedAvgTrainer's default
+# tests/test_substrate.py::TestCompression's bound on the error-feedback
+# residual after 50 rounds of 0.01-scaled normals
+EF_ROUNDS = 50
+EF_BOUND = 1e-3
+
+
+class _LossOf:
+    """`loss_fn(params, batch)` of `model.loss` at `params` (name ->
+    tensor), through `torch.func.functional_call`."""
+
+    def __init__(self, model):
+        import torch
+
+        class Loss(torch.nn.Module):
+            def __init__(self, m):
+                super().__init__()
+                self.m = m
+
+            def forward(self, batch):
+                return self.m.loss(batch)
+        self.module = Loss(model)
+
+    def __call__(self, params, batch):
+        import torch
+        return torch.func.functional_call(
+            self.module, {f"m.{k}": v for k, v in params.items()}, (batch,))
+
+
+def _ef_residual(n: int, carry: bool, dev) -> float:
+    """max|Σ g - Σ dequantize(q)| after EF_ROUNDS rounds of seeded
+    0.01-scaled normals of `n` entries; `carry` False drops the error
+    feedback (the planted fault: the residual is not carried)."""
+    import torch
+    from repro_torch.distributed import compress
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    err = torch.zeros(n, device=dev)
+    true = torch.zeros(n, device=dev)
+    sent = torch.zeros(n, device=dev)
+    for _ in range(EF_ROUNDS):
+        g = torch.randn(n, generator=gen, device=dev) * 0.01
+        q, s, new_err = compress.quantize_int8(g, err)
+        err = new_err if carry else torch.zeros_like(err)
+        sent += compress.dequantize(q, s)
+        true += g
+    return (true - sent).abs().max().item()
+
+
+def phase_fedavg(peaks: dict, cfg=None, batch: int = 8, seq: int = 256,
+                 rounds: int = FED_ROUNDS) -> dict:
+    """FedAvg of lm-100m at full width over FED_SITES sites on the card
+    (`cfg` and the sizes may be cut for a rehearsal): every site a
+    `TokenPipeline` shard of the train phase's data, sync every
+    FED_SYNC_EVERY rounds, `loss_fn` through `Model.loss` by
+    `functional_call`; run with int8 compression off and on. Holds: the
+    loss falls in both, the int8 run's wire bytes over the float32 run's
+    equal (n + 4·L) / (4·n) exactly; `quantize_int8` on the card equals
+    the CPU's bitwise on a seeded delta of the model's size; the error-
+    feedback residual bound at that size, and the planted fault (the
+    residual not carried) beyond it. Returns (row, the int8 run's
+    anchor)."""
+    from fractions import Fraction
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed import compress
+    from repro_torch.distributed.fedavg import FedAvgTrainer
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # remat off: a checkpointed period recomputes after functional_call
+    # has put the model's own weights back, so its gradient would be the
+    # model's, not the site's
+    cfg = (cfg or get_config("lm-100m")).with_(remat=False)
+    model = build_model(cfg, DEVICE, train=True)
+    params, _ = init_train_state(model, seed=SEED)
+    params = {k: v.detach().clone() for k, v in params.items()}
+    model.requires_grad_(False)
+    loss_fn = _LossOf(model)
+    pipes = [TokenPipeline(vocab=cfg.vocab_size, batch=batch, seq_len=seq,
+                           seed=SEED, shard=s, n_shards=FED_SITES)
+             for s in range(FED_SITES)]
+    n = sum(v.numel() for v in params.values())
+    n_leaves = len(params)
+    runs, anchor = {}, None
+    for compressed in (False, True):
+        tr = FedAvgTrainer(loss_fn=loss_fn, n_sites=FED_SITES,
+                           sync_every=FED_SYNC_EVERY, lr=FED_LR,
+                           compress_int8=compressed)
+        tr.init({k: v.clone() for k, v in params.items()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, syncs, sync_s = [], 0, 0.0
+        t0 = time.perf_counter()
+        for r in range(rounds):
+            losses.append([tr.local_step(s, pipes[s].batch_at(r))
+                           for s in range(FED_SITES)])
+            t1 = time.perf_counter()
+            synced = tr.maybe_sync()
+            torch.cuda.synchronize()
+            sync_s += (time.perf_counter() - t1) if synced else 0.0
+            syncs += synced
+        wall = time.perf_counter() - t0
+        runs["int8" if compressed else "float32"] = dict(
+            losses_first=losses[0], losses_last=losses[-1], syncs=syncs,
+            bytes_exchanged=tr.bytes_exchanged,
+            ms_per_local_step=1e3 * (wall - sync_s) / (rounds * FED_SITES),
+            sync_ms=1e3 * sync_s / max(syncs, 1), wall_s=wall,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if compressed:
+            anchor = tr.anchor
+        del tr
+        torch.cuda.empty_cache()
+    ratio = Fraction(runs["int8"]["bytes_exchanged"],
+                     runs["float32"]["bytes_exchanged"])
+
+    # quantize_int8 on the card against the CPU, on a seeded delta and a
+    # seeded residual shaped as the model's parameters
+    gen = torch.Generator().manual_seed(SEED)
+    delta = {k: 1e-3 * torch.randn(v.shape, generator=gen)
+             for k, v in params.items()}
+    err = {k: 1e-5 * torch.randn(v.shape, generator=gen)
+           for k, v in params.items()}
+    want = compress.compress_tree(delta, err)
+    got = compress.compress_tree(
+        {k: v.to(DEVICE) for k, v in delta.items()},
+        {k: v.to(DEVICE) for k, v in err.items()})
+    bitwise = all(torch.equal(g[k].cpu(), w[k]) for g, w in zip(got, want)
+                  for k in delta)
+    del delta, err, want, got
+    ef = _ef_residual(n, True, DEVICE)
+    ef_fault = _ef_residual(n, False, DEVICE)
+    del model, params
+    torch.cuda.empty_cache()
+    row = dict(phase="fedavg", arch=cfg.name, sites=FED_SITES,
+               sync_every=FED_SYNC_EVERY, rounds=rounds, batch=batch,
+               seq=seq, lr=FED_LR, cut=dict(remat=False), params=n,
+               leaves=n_leaves, runs=runs,
+               wire_ratio=float(ratio),
+               wire_ratio_exact=ratio == Fraction(n + 4 * n_leaves, 4 * n),
+               quantize_card_equals_cpu=bitwise,
+               ef_residual=ef, ef_bound=EF_BOUND,
+               planted_fault=dict(error_feedback_dropped=ef_fault))
+    emit(row)
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    if not (all(r["syncs"] == rounds // FED_SYNC_EVERY >= 2
+                and mean(r["losses_last"]) < mean(r["losses_first"])
+                for r in runs.values())
+            and row["wire_ratio_exact"] and bitwise
+            and ef < EF_BOUND < ef_fault):
+        raise AssertionError(f"fedavg failed: {row}")
+    return row, anchor
+
+
+def _block(arr, mesh_shape: tuple, spec: tuple, device: int):
+    """The block of `arr` that logical device `device` holds on a
+    ("data", "model") mesh of `mesh_shape` (device ids row-major over the
+    grid) under `spec` (one axis name or None a dimension): a plain copy of
+    jax's rule, to hold the port's placement against."""
+    import numpy as np
+    axes = ("data", "model")
+    at = dict(zip(axes, np.unravel_index(device, mesh_shape)))
+    idx = []
+    for d, name in zip(arr.shape, tuple(spec) + (None,) * arr.ndim):
+        if name is None:
+            idx.append(slice(None))
+            continue
+        size = d // mesh_shape[axes.index(name)]
+        idx.append(slice(int(at[name]) * size, (int(at[name]) + 1) * size))
+    return arr[tuple(idx)]
+
+
+def phase_elastic_restore(anchor: dict) -> dict:
+    """The int8 FedAvg anchor saved with `store.save`, then restored twice
+    with `shardings=`: onto make_mesh((4, 2)) with each 2-D weight split
+    over ("data", "model"), and onto make_mesh((2, 4)) with ("model",
+    None); 1-D leaves replicated. Every logical device's shard must equal
+    the slice of the saved array bitwise."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.distributed import NamedSharding, logical_devices
+    from repro_torch.launch.mesh import make_mesh
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = store.save(d, FED_ROUNDS, anchor)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        saved = {}
+        for meta in manifest["leaves"]:
+            with np.load(os.path.join(path, f"shard_{meta['shard']}.npz")
+                         ) as npz:
+                saved[meta["index"]] = npz[meta["key"]]
+        names = sorted(anchor)  # the checkpoint's leaf order
+        restores = {}
+        with logical_devices(8):
+            for shape, spec in (((4, 2), ("data", "model")),
+                                ((2, 4), ("model", None))):
+                mesh = make_mesh(shape, ("data", "model"))
+                shardings = {k: NamedSharding(mesh, spec if v.ndim == 2
+                                              else ())
+                             for k, v in anchor.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                back, _ = store.restore(d, anchor, shardings=shardings)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+                equal, checked = True, 0
+                for i, k in enumerate(names):
+                    placed = back[k]
+                    arr = saved[i]
+                    for dev_id, shard in enumerate(placed.shards):
+                        want = _block(arr, shape, placed.sharding.spec,
+                                      dev_id)
+                        got = shard.cpu().numpy()
+                        equal &= (got.shape == want.shape
+                                  and got.tobytes() == want.tobytes())
+                        checked += 1
+                split = sum(placed.shards[0].numel() < placed.value.numel()
+                            for placed in back.values())
+                restores[f"{shape}"] = dict(
+                    spec=list(spec), restore_s=restore_s,
+                    shards_checked=checked, leaves_split=split,
+                    on_device=all(v.value.device.type
+                                  == torch.device(DEVICE).type
+                                  for v in back.values()),
+                    bitwise=equal)
+                del back
+    row = dict(phase="elastic_restore", leaves=len(anchor),
+               checkpoint_bytes=nbytes, save_s=save_s, restores=restores)
+    emit(row)
+    if not all(r["bitwise"] and r["on_device"] and r["leaves_split"] > 0
+               and r["shards_checked"] == 8 * len(anchor)
+               for r in restores.values()):
+        raise AssertionError(f"elastic_restore failed: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # the lifecycle builtins, rand and parfor (grid search, cross validation)
 # ---------------------------------------------------------------------------
 
 LIFE_M, LIFE_N = 100_000, 1_000   # the lmds point
 LIFE_ITERS = 10                   # kmeans / l2svm / mlogreg max_iter (cut)
+TRACED_ITERS = 3                  # iterations of their traced fits
 GRID_K = 70                       # paper_hpo.k_models
 CV_FOLDS = 8                      # paper_hpo.n_folds
 # (batch, rows, cols) of the batched kernel rows at the paper's size (8
@@ -3544,18 +4155,19 @@ def phase_algorithms(dev=DEVICE, m: int = LIFE_M, n: int = LIFE_N,
     lane = "chunked" if cov_plan.chunk_sliced else "in-memory"
 
     runs = {
-        "pca": (lambda rt, a=xn: pca(input_tensor("X", a), 10, runtime=rt),
-                1),
-        "kmeans": (lambda rt: kmeans(input_tensor("X", xk), 8,
-                                     max_iter=iters, seed=1, tol=0.0,
-                                     runtime=rt), iters),
-        "l2svm": (lambda rt: l2svm(input_tensor("X", xn),
-                                   input_tensor("y", y_svm),
-                                   max_iter=iters, tol=0.0, runtime=rt),
+        "pca": (lambda rt, its, a=xn: pca(input_tensor("X", a), 10,
+                                          runtime=rt), 1),
+        "kmeans": (lambda rt, its: kmeans(input_tensor("X", xk), 8,
+                                          max_iter=its, seed=1, tol=0.0,
+                                          runtime=rt), iters),
+        "l2svm": (lambda rt, its: l2svm(input_tensor("X", xn),
+                                        input_tensor("y", y_svm),
+                                        max_iter=its, tol=0.0, runtime=rt),
                   iters),
-        "mlogreg": (lambda rt: mlogreg(input_tensor("X", xn),
-                                       input_tensor("Y", y_oh),
-                                       max_iter=iters, runtime=rt), iters),
+        "mlogreg": (lambda rt, its: mlogreg(input_tensor("X", xn),
+                                            input_tensor("Y", y_oh),
+                                            max_iter=its, runtime=rt),
+                    iters),
     }
     rows, launches = {}, {}
     for name, (fn, its) in runs.items():
@@ -3563,13 +4175,16 @@ def phase_algorithms(dev=DEVICE, m: int = LIFE_M, n: int = LIFE_N,
         gops.reset_launches()
         _sync(dev)
         t0 = time.perf_counter()
-        got = fn(rt)
+        got = fn(rt, its)
         _sync(dev)
         wall = time.perf_counter() - t0
         launches[name] = dict(gops.LAUNCHES)
-        traced = _trace_of(lambda: fn(LineageRuntime(device=dev)), dev)
+        # the traced fit runs TRACED_ITERS iterations (all until
+        # moe_ep_serve came in): its upload share
+        traced = _trace_of(lambda: fn(LineageRuntime(device=dev),
+                                      min(its, TRACED_ITERS)), dev)
         t0 = time.perf_counter()
-        want = fn(LineageRuntime(device="cpu"))
+        want = fn(LineageRuntime(device="cpu"), its)
         cpu_s = time.perf_counter() - t0
         if name == "pca":
             s = np.where(np.sum(got[0] * want[0], axis=0) < 0, -1.0, 1.0)
@@ -3585,6 +4200,7 @@ def phase_algorithms(dev=DEVICE, m: int = LIFE_M, n: int = LIFE_N,
             ok = err["rel"] <= 1e-9
         rows[name] = dict(wall_s=wall, iterations=its,
                           s_per_iteration=wall / its, traced=traced,
+                          traced_iterations=min(its, TRACED_ITERS),
                           cpu_s=cpu_s, err_vs_cpu=err,
                           launches=launches[name], ok=ok)
     kmeans_xtv = _kmeans_xtv(xk, rows["kmeans"], dev) \
@@ -5058,8 +5674,10 @@ def main() -> int:
     def timed(phase, *args):
         t = time.perf_counter()
         out = phase(*args)
-        seconds[phase.__name__.removeprefix("phase_")] = \
-            time.perf_counter() - t
+        name = phase.__name__.removeprefix("phase_")
+        seconds[name] = time.perf_counter() - t
+        emit(dict(timed=name, seconds=seconds[name],
+                  since_build_s=time.perf_counter() - t0))
         return out
 
     shard_launches, per_shard = timed(phase_sharded, peaks)
@@ -5088,11 +5706,17 @@ def main() -> int:
     serve_launches = timed(phase_lm_serve, peaks)
     rwkv_launches = timed(phase_rwkv_serve, peaks)
     hybrid_launches = timed(phase_hybrid_serve, peaks)
-    family_launches = dict(moe_serve=timed(phase_moe_serve, peaks),
+    moe_launches, ep_row = timed(phase_moe_serve, peaks)
+    seconds["moe_ep_serve (in moe_serve)"] = ep_row["seconds"]
+    family_launches = dict(moe_serve=moe_launches,
+                           moe_ep_serve=ep_row["flash_launches"],
                            mla_serve=timed(phase_mla_serve, peaks),
                            vlm_serve=timed(phase_vlm_serve, peaks),
                            audio_serve=timed(phase_audio_serve, peaks))
     train_launches = timed(phase_train, peaks)
+    _, anchor = timed(phase_fedavg, peaks)
+    timed(phase_elastic_restore, anchor)
+    del anchor
     emit(dict(phase="timing", seconds=seconds,
               total_s=time.perf_counter() - t0, profiler=PROFILER))
 

@@ -14,10 +14,17 @@ writer never corrupts the latest checkpoint (restart.py relies on this).
 Leaf order is jax's: a dict's children in sorted key order (within lists,
 tuples and NamedTuples such as `AdamWState` too), so `leaf_i` names the
 same leaf in both packages. Leaves are stored as full host
-arrays (tensors are copied off their device on save); `restore` places
-each leaf on the device of its counterpart in `like`, or on `device=`
-when given, and hands a numpy `like` leaf back as numpy, as the
+arrays (tensors are copied off their device on save; a value placed on
+a mesh, `distributed.sharding.Placed`, writes its whole tensor); `restore`
+places each leaf on the device of its counterpart in `like`, or on
+`device=` when given, and hands a numpy `like` leaf back as numpy, as the
 reference does.
+
+Elasticity: the saved file is mesh-independent. `restore(...,
+shardings=)` places each leaf on its `NamedSharding` of any mesh
+(`distributed.sharding.device_put`: the whole tensor on the device, each
+logical device's shard a view of it), so a checkpoint saved from one
+mesh restores onto another, or onto none.
 
 bfloat16: numpy has no bfloat16 without `ml_dtypes`, which the port does
 not need. A bf16 leaf is stored as its 16-bit pattern (the ``|V2`` raw
@@ -39,6 +46,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+from ..distributed.sharding import Placed, device_put
 
 SHARD_BYTES = 512 << 20
 BF16 = "bfloat16"
@@ -63,6 +72,8 @@ def _flatten(tree) -> tuple[list, Any]:
 
 def _to_host(leaf: Any) -> tuple[np.ndarray, str]:
     """(array to store, manifest dtype) of one leaf."""
+    if isinstance(leaf, Placed):
+        leaf = leaf.value
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -164,11 +175,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
-            device=None) -> tuple[Any, dict]:
+            shardings: Optional[Any] = None, device=None
+            ) -> tuple[Any, dict]:
     """Restore into the structure of `like` (a pytree of tensors or
     numpy arrays). Each leaf goes to the device of its tensor
     counterpart in `like`, or to `device` when given; a numpy `like`
-    leaf gets the stored numpy array back."""
+    leaf gets the stored numpy array back. `shardings`: optional matching
+    pytree of `NamedSharding`s, each leaf placed on its own (a `Placed`
+    tensor; on the CPU where neither `like` nor `device` names a
+    device)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -182,16 +197,29 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
             f"checkpoint {path} holds {len(manifest['leaves'])} leaves, "
             f"`like` has {len(like_leaves)}")
     dev = None if device is None else torch.device(device)
+    placements = [None] * len(like_leaves)
+    if shardings is not None:
+        placements, _ = _flatten(shardings)
+        if len(placements) != len(like_leaves):
+            raise ValueError(f"`shardings` has {len(placements)} leaves, "
+                             f"`like` has {len(like_leaves)}")
     shard_cache: dict[int, Any] = {}
     leaves = []
     try:
-        for meta, like_leaf in zip(manifest["leaves"], like_leaves):
+        for meta, like_leaf, sharding in zip(manifest["leaves"],
+                                             like_leaves, placements):
             sid = meta["shard"]
             if sid not in shard_cache:
                 shard_cache[sid] = np.load(
                     os.path.join(path, f"shard_{sid}.npz"))
-            leaves.append(_place(shard_cache[sid][meta["key"]],
-                                 meta["dtype"], like_leaf, dev))
+            to = dev
+            if sharding is not None and to is None and \
+                    not isinstance(like_leaf, torch.Tensor):
+                to = torch.device("cpu")  # a placed value is a tensor
+            leaf = _place(shard_cache[sid][meta["key"]], meta["dtype"],
+                          like_leaf, to)
+            leaves.append(leaf if sharding is None
+                          else device_put(leaf, sharding))
     finally:
         for npz in shard_cache.values():
             npz.close()

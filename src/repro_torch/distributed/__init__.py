@@ -4,14 +4,26 @@
     parfor buckets), the active-mesh context (`use_mesh`, `get_mesh`,
     `set_mesh`, `auto_mesh`) and the device count a mesh resolves
     against (`device_count`, raised for a block by `logical_devices`);
-  * `sharding` — `safe_spec` and `rows_shardable`;
+  * `sharding` — `safe_spec` and `rows_shardable`; the launch layer's
+    `NamedSharding`, `named` and `device_put` (a `Placed` tensor);
+  * `hints` — the launch layer's (data, model) mesh as the model code
+    reads it (`enable_hints`, `axis_size`, `current_mesh`; the
+    expert-parallel MoE dispatches on it);
+  * `compress` — int8 quantization with error feedback;
+  * `fedavg` — `FedAvgTrainer`, relaxed-sync federated training;
   * `fault` — `StepMonitor`, `HeartbeatTracker`, `simulate_failures`.
 
-The launch layer's named (data, model) mesh, the sharding hints the
-expert-parallel MoE reads, the rule tables, compression and FedAvg are
-not ported yet (ROADMAP Queue 1 items 15 and 16).
+The rule tables of the dry-run tooling (`legacy_rules`) are not ported
+yet (ROADMAP Queue 1 item 15).
 """
+from .compress import (compress_tree, compressed_bytes,  # noqa: F401
+                       crosspod_mean_int8, dequantize, init_error_state,
+                       quantize_int8)
+from .fedavg import FedAvgTrainer, SiteState  # noqa: F401
+from .hints import (axis_size, current_mesh, disable_hints,  # noqa: F401
+                    enable_hints, hint_spec, hints_enabled, shard_hint)
 from .mesh import (CONFIG_AXIS, DATA_AXIS, MeshSpec,  # noqa: F401
                    auto_mesh, device_count, get_mesh,
                    logical_devices, set_mesh, use_mesh)
-from .sharding import rows_shardable, safe_spec  # noqa: F401
+from .sharding import (NamedSharding, Placed, device_put,  # noqa: F401
+                       named, rows_shardable, safe_spec)

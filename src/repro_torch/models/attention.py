@@ -23,7 +23,8 @@ torch (no Pallas kernel backs it in the reference). The cache is
 updated in place at `cur_len` (the reference's functional
 `dynamic_update_slice_in_dim` returns a new cache; the port writes the
 one slot instead of copying the cache). The reference's `shard_hint`s
-are no-ops on one device and are dropped.
+are dropped: on the port's logical devices every value is whole on the
+runtime's device (`distributed.hints.shard_hint` returns its input).
 """
 from __future__ import annotations
 

@@ -129,12 +129,6 @@ def test_top_k_takes_the_lower_index_among_equals():
     assert torch.equal(vals, torch.tensor([[0.3, 0.3], [0.25, 0.25]]))
 
 
-def test_expert_parallel_path_waits_for_the_sharded_placement(rng):
-    _, _, cfg, mod = _layer("jamba_v0_1_52b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        tmoe.moe_forward_ep(mod, cfg, _x(rng, cfg)[1])
-
-
 def test_init_follows_the_reference_shapes():
     from repro.configs import get_config as ref_config
     from repro.models.moe import moe_init
