@@ -69,7 +69,14 @@ card. One JSON line per phase:
                      same prefill once more, warm (each serving phase);
                      teacher-forced decode against prefill logits, kernel
                      against plain attention and against two planted
-                     faults; tokens/s, peak memory, a traced idle share
+                     faults; tokens/s, peak memory, a traced idle share;
+                     its `cost` line: the prefill counted by
+                     `launch.hlocost` on the card and on "meta", FLOPs,
+                     bytes and transcendentals equal, each kernel launched
+                     and charged, FLOPs over model_flops_per_device, the
+                     warm prefill ms over the roofline's t_compute,
+                     t_memory and their max (also rwkv_serve's with wkv6,
+                     hybrid_serve's with the scan and flash)
  11. wkv6_kernel   — (run first after the build) the WKV6 kernel (a
                      state pass and an output pass per
                      call) against its plain version (wkv_chunked)
@@ -267,9 +274,11 @@ card. One JSON line per phase:
                      bitwise, the first step's gradients against the
                      float32 model's (a rolled chunk planted beyond). Each:
                      ms a step, tokens/s, peak memory, a traced step's
-                     idle share and top ops, the FLOPs of a step at the
-                     dtype's peak as its bound. No kernel launches: the
-                     wrappers refuse a gradient
+                     idle share and top ops, a step counted by
+                     `launch.hlocost` (lm-100m's product FLOPs equal to
+                     FlopCounterMode's), its product FLOPs at the dtype's
+                     peak as its bound. No kernel launches: the wrappers
+                     refuse a gradient
  32. fedavg        — FedAvgTrainer over 4 sites of lm-100m at full width
                      (float32, remat off), each site a TokenPipeline shard
                      of the train phase's data (batch 8 × 256), a sync
@@ -289,7 +298,12 @@ card. One JSON line per phase:
                      replicated; every logical device's shard bitwise the
                      block of the saved array (a plain copy of jax's
                      rule); save and restore seconds
- 34. kernels       — the summary line of every ported kernel (the
+ 34. dryrun        — (run first after the build, on "meta": no card
+                     work) one dry-run cell at full width,
+                     `launch.dryrun.lower_cell` for qwen3-0.6b × train_4k
+                     on the production (16, 16) mesh over 256 logical
+                     devices, its RooflineCell at the H100's constants
+ 35. kernels       — the summary line of every ported kernel (the
                      block-sparse ones at the shape of most of their
                      launches, with launches x (device ms - bound ms) by
                      path; gram and xtv with their launches on the
@@ -404,18 +418,6 @@ SSM_TOL = 2.0 ** -14
 HYBRID_SERVE_TOL = 5e-2
 HYBRID_HIDDEN_TOL = 1e-1
 
-# Published dense peaks (NVIDIA data sheets): FLOP/s by input dtype and
-# memory bytes/s. float64 counts the FP64 tensor-core rate; float32 the
-# non-tensor rate (TF32 is off for torch's products); bfloat16 and tf32
-# the tensor-core rates (tf32 half the bf16 one)
-PEAKS = {
-    "H100 PCIe": dict(float64=51.2e12, float32=51.2e12, bfloat16=756e12,
-                      tf32=378e12, bw=2.0e12),
-    "H100 NVL": dict(float64=60e12, float32=60e12, bfloat16=835e12,
-                     tf32=417.5e12, bw=3.9e12),
-    "H100": dict(float64=67e12, float32=67e12, bfloat16=989e12,
-                 tf32=494.7e12, bw=3.35e12),
-}
 
 
 def emit(obj) -> None:
@@ -423,10 +425,17 @@ def emit(obj) -> None:
 
 
 def peaks_for(name: str) -> tuple[str, dict]:
-    for key, p in PEAKS.items():
-        if key in name:
-            return key, p
-    raise RuntimeError(f"no published peaks recorded for {name!r}")
+    """(key, peaks) of the card `name`: NVIDIA's published dense peaks,
+    FLOP/s by input dtype and memory bytes/s (`launch.roofline.PEAKS`)."""
+    from repro_torch.launch.roofline import peaks_for as find
+    return find(name)
+
+
+def _t(work: tuple, rate: float, bw: float) -> tuple[float, str]:
+    """(ms, what bounds it) of (operations, bytes) at `rate` and `bw`."""
+    t_ops, t_bytes = work[0] / rate, work[1] / bw
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -528,16 +537,12 @@ def per_call_ms(fn, calls: int = 10, tries: int = 3):
 def bound(kind: str, m: int, n: int, c: int, dtype: str, peaks: dict
           ) -> tuple[float, str]:
     """Least time the card could take: max(bytes / bandwidth, operations /
-    peak rate), each input read once and each output written once."""
-    size = {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
-    out = 8 if dtype == "float64" else 4
-    if kind == "gram":  # upper triangle incl. the diagonal
-        ops, nbytes = m * n * (n + 1), m * n * size + n * n * out
-    else:
-        ops, nbytes = 2 * m * n * c, (m * n + m * c) * size + n * c * out
-    t_ops, t_bytes = ops / peaks[dtype], nbytes / peaks["bw"]
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    peak rate), each input read once and each output written once
+    (`launch.kernel_model.gram_work` / `xtv_work`)."""
+    from repro_torch.launch import kernel_model as km
+    work = km.gram_work(m, n, dtype) if kind == "gram" \
+        else km.xtv_work(m, n, c, dtype)
+    return _t(work, peaks[dtype], peaks["bw"])
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -1418,36 +1423,20 @@ def sparse_bounds(kind: str, mask, m: int, n: int, c: int, dtype: str,
                   peaks: dict) -> dict:
     """Least times over the dense layout and over the populated blocks
     only (what this data needs): max(bytes / bandwidth, operations / peak),
-    each needed input byte read once, each output byte written once."""
-    import numpy as np
-    from repro_torch.kernels.spmm.ops import ROWS, TILE
-    size = {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
-    out = 8 if dtype == "float64" else 4
-    pop = mask.cpu().numpy() > 0
-    rows = np.minimum(ROWS, m - ROWS * np.arange(pop.shape[0]))
-    width = np.minimum(TILE, n - TILE * np.arange(pop.shape[1]))
-    cols = (pop * width).sum(axis=1)          # populated columns per chunk
-    x_bytes = float((rows * cols).sum()) * size
+    each needed input byte read once, each output byte written once
+    (`launch.kernel_model`'s `*_bs_work`, `spmm_work`, `matmul_work`)."""
+    from repro_torch.launch import kernel_model as km
     if kind == "gram_bs":
-        ops = float((rows * cols * (cols + 1)).sum())
-        nbytes = x_bytes + n * n * out
+        work = km.gram_bs_work(mask, m, n, dtype)
         dense = bound("gram", m, n, 1, dtype, peaks)
     elif kind == "xtv_bs":
-        ops = 2.0 * float((rows * cols).sum()) * c
-        nbytes = (x_bytes + float(rows[pop.any(axis=1)].sum()) * c * size
-                  + n * c * out)
+        work = km.xtv_bs_work(mask, m, n, c, dtype)
         dense = bound("xtv", m, n, c, dtype, peaks)
     else:  # spmm: X (m, n) @ W (n, c)
-        ops = 2.0 * float((rows * cols).sum()) * c
-        used = float(width[pop.any(axis=0)].sum())
-        nbytes = x_bytes + used * c * size + m * c * out
-        t_ops = 2.0 * m * n * c / peaks[dtype]
-        t_bytes = ((m * n + n * c) * size + m * c * out) / peaks["bw"]
-        dense = (1e3 * max(t_ops, t_bytes),
-                 "operations" if t_ops >= t_bytes else "bytes")
-    t_ops, t_bytes = ops / peaks[dtype], nbytes / peaks["bw"]
-    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+        work = km.spmm_work(mask, m, n, c, dtype)
+        dense = _t(km.matmul_work(m, n, c, dtype), peaks[dtype], peaks["bw"])
+    bms, by = _t(work, peaks[dtype], peaks["bw"])
+    return dict(bound_ms=bms, bound_by=by,
                 bound_dense_ms=dense[0], bound_dense_by=dense[1])
 
 
@@ -1838,14 +1827,10 @@ def flash_bound(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
                 ) -> tuple[float, str]:
     """Least time for one attention call: the visible (q, k) pairs each
     take 2·hd operations for QKᵀ and 2·dv for PV; q, k, v read once and
-    the output written once."""
-    size = {"float32": 4, "bfloat16": 2}[dtype]
-    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
-    ops = 2.0 * (hd + dv) * pairs * B * Hq
-    nbytes = (B * Sq * Hq * (hd + dv) + B * Sk * Hkv * (hd + dv)) * size
-    t_ops, t_bytes = ops / peaks[dtype], nbytes / peaks["bw"]
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    the output written once (`launch.kernel_model.flash_work`)."""
+    from repro_torch.launch import kernel_model as km
+    return _t(km.flash_work(B, Sq, Sk, Hq, Hkv, hd, dv, causal, dtype),
+              peaks[dtype], peaks["bw"])
 
 
 def _batch_slices(q, k):
@@ -1966,6 +1951,74 @@ def _probed_steps(*counters):
         serve.make_prefill_step, serve.make_decode_step = makers
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit as `nvidia-smi` reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def cost_reading(path: str, model, cfg, tokens, max_len: int,
+                 prefill_ms: float, **kernels) -> dict:
+    """The path's prefill counted by `launch.hlocost` on the card, then
+    the same prefill on "meta" (the dry run's route: nothing allocated,
+    each hand kernel's meta implementation charged as its launch): FLOPs,
+    bytes and transcendentals must be equal, and each kernel named in
+    `kernels` (charge name -> (its LAUNCHES, key)) launched and charged
+    in the counted prefill. Emits and returns the `cost` line: the card's
+    counts, FLOPs over `model_flops_per_device`, the measured warm
+    prefill ms over the roofline's t_compute, t_memory and their max (at
+    the published peaks of NVIDIA H100 80GB HBM3 at 700 W; the card's
+    name and power limit beside)."""
+    import torch
+    from repro_torch.launch import hlocost, roofline
+    from repro_torch.models import build_model
+    before = {k: d[key] for k, (d, key) in kernels.items()}
+    card = hlocost.count(model.prefill, tokens, max_len=max_len)
+    torch.cuda.synchronize()
+    launched = {k: d[key] - before[k] for k, (d, key) in kernels.items()}
+    meta = hlocost.count(build_model(cfg, "meta").prefill,
+                         torch.empty(tokens.shape, dtype=tokens.dtype,
+                                     device="meta"), max_len=max_len)
+    B, S = tokens.shape[:2]
+    mf, _ = roofline.model_flops_per_device(cfg, "prefill", B, S, 1)
+    cell = roofline.RooflineCell(
+        arch=cfg.name, shape=f"prefill {B}x{S}", mesh="1", n_devices=1,
+        kind="prefill", hlo_flops=card.flops, hlo_bytes=card.bytes,
+        model_flops=mf, tokens=B * S, dtype=cfg.dtype)
+    t_c, t_m = 1e3 * cell.t_compute, 1e3 * cell.t_memory
+    keys = ("flops", "bytes", "transcendentals")
+    charged = {k: card.by_op[k] for k in kernels}
+    row = dict(cost=path, arch=cfg.name, batch=B, prompt=S,
+               card={k: getattr(card, k) for k in keys},
+               meta={k: getattr(meta, k) for k in keys},
+               card_equals_meta=all(getattr(card, k) == getattr(meta, k)
+                                    for k in keys),
+               product_flops=card.product_flops,
+               peak_live_bytes=card.peak_bytes,
+               kernels={k: dict(launches=launched[k], charges=charged[k][0],
+                                flops=charged[k][1], bytes=charged[k][2])
+                        for k in kernels},
+               model_flops=mf, flops_over_model_flops=card.flops / mf,
+               prefill_ms=prefill_ms, t_compute_ms=t_c, t_memory_ms=t_m,
+               prefill_over_t_compute=prefill_ms / t_c,
+               prefill_over_t_memory=prefill_ms / t_m,
+               prefill_over_max=prefill_ms / max(t_c, t_m),
+               peaks_of=roofline.CARD, card_now=nvidia_smi())
+    if not row["card_equals_meta"]:
+        row["by_op_differs"] = {
+            op: [card.by_op.get(op), meta.by_op.get(op)]
+            for op in sorted(set(card.by_op) | set(meta.by_op))
+            if card.by_op.get(op) != meta.by_op.get(op)}
+    emit(row)
+    if not (row["card_equals_meta"]
+            and all(v["launches"] > 0 and v["charges"] == v["launches"]
+                    for v in row["kernels"].values())):
+        raise AssertionError(f"{path}: the cost counts failed: {row}")
+    return row
+
+
 def _warm_prefill_ms(model, tokens, max_len: int, image_embeds=None
                      ) -> float:
     """The main path's prefill is the first at its size and pays the
@@ -2077,6 +2130,8 @@ def phase_lm_serve(peaks: dict, cfg=None, batch: int = 8, prompt: int = 2048,
     peak_bytes = torch.cuda.max_memory_allocated()
     tokens = torch.from_numpy(prompts).to(dev)
     prefill_warm_ms = _warm_prefill_ms(model, tokens, max_len)
+    cost_reading("lm_serve", model, cfg, tokens, max_len, prefill_warm_ms,
+                 flash=(fops.LAUNCHES, "flash"))
     prefills = [st for st in steps if st[0] == "prefill"]
     decodes = [st for st in steps if st[0] == "decode"]
     prefill_launches = sum(st[1]["flash"] for st in prefills)
@@ -2205,16 +2260,13 @@ def wkv6_bound(B: int, S: int, H: int, dh: int, dtype: str, peaks: dict
     operations) and S = w ⊙ S + k vᵀ (3·dh²), at the TF32 tensor-core rate
     that the kernel's products meet their limit on (WKV6_RATE: a third of
     it for float32's 3xTF32); r, k, v read and y written once in `dtype`,
-    logw, u and the state in and out in float32. Returns (ms, what bounds
-    it, the rate used)."""
-    size = {"float32": 4, "bfloat16": 2}[dtype]
+    logw, u and the state in and out in float32
+    (`launch.kernel_model.wkv6_work`). Returns (ms, what bounds it, the
+    rate used)."""
+    from repro_torch.launch import kernel_model as km
     rate, products = WKV6_RATE[dtype]
-    ops = 5.0 * dh * dh * B * S * H
-    nbytes = (4 * size + 4) * B * S * H * dh + 4 * H * dh \
-        + 2 * 4 * B * H * dh * dh
-    t_ops, t_bytes = ops * products / peaks["tf32"], nbytes / peaks["bw"]
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", rate)
+    ops, nbytes = km.wkv6_work(B, S, H, dh, dtype)
+    return _t((ops * products, nbytes), peaks["tf32"], peaks["bw"]) + (rate,)
 
 
 def _wkv6_inputs(gen, B, S, H, dh, dtype, decay, state_scale):
@@ -2400,6 +2452,8 @@ def phase_rwkv_serve(peaks: dict, cfg=None, batch: int = 8,
     peak_bytes = torch.cuda.max_memory_allocated()
     tokens = torch.from_numpy(prompts).to(dev)
     prefill_warm_ms = _warm_prefill_ms(model, tokens, max_len)
+    cost_reading("rwkv_serve", model, cfg, tokens, max_len, prefill_warm_ms,
+                 wkv6=(wops.LAUNCHES, "wkv6"))
     prefills = [st for st in steps if st[0] == "prefill"]
     decodes = [st for st in steps if st[0] == "decode"]
     prefill_launches = sum(st[1]["wkv6"] for st in prefills)
@@ -2725,14 +2779,10 @@ def ssm_bound(B: int, S: int, di: int, ds: int, dtype: str, peaks: dict
     dA·h, u·B, their sum, h·C and its sum), per (b, t, d) three (u = dt·x,
     D·x and its sum); x read in `dtype`, dt read and y written in float32
     once, B and C read once per (b, t), A, D and h0 in and h out in
-    float32."""
-    size = {"float32": 4, "bfloat16": 2}[dtype]
-    ops = 7.0 * B * S * di * ds + 3.0 * B * S * di
-    nbytes = (size + 8) * B * S * di + 2 * size * B * S * ds \
-        + 4 * (di * ds + di) + 2 * 4 * B * di * ds
-    t_ops, t_bytes = ops / peaks["float32"], nbytes / peaks["bw"]
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    float32 (`launch.kernel_model.ssm_work`)."""
+    from repro_torch.launch import kernel_model as km
+    return _t(km.ssm_work(B, S, di, ds, dtype), peaks["float32"],
+              peaks["bw"])
 
 
 def _ssm_inputs(gen, B, S, di, ds, dtype, dt_kind, h0_scale):
@@ -2950,6 +3000,9 @@ def phase_hybrid_serve(peaks: dict, cfg=None, batch: int = 8,
     peak_bytes = torch.cuda.max_memory_allocated()
     tokens = torch.from_numpy(prompts).to(dev)
     prefill_warm_ms = _warm_prefill_ms(model, tokens, max_len)
+    cost_reading("hybrid_serve", model, cfg, tokens, max_len,
+                 prefill_warm_ms, ssm=(sops.LAUNCHES, "ssm_scan"),
+                 flash=(fops.LAUNCHES, "flash"))
     prefills = [st for st in steps if st[0] == "prefill"]
     decodes = [st for st in steps if st[0] == "decode"]
     by_step = {kind: {key: sum(st[1][key] for st in sts) for key in launches}
@@ -3184,33 +3237,18 @@ def _family_bounds(model, cfg, batch: int, prompt: int, max_len: int,
     weight a token uses once per token (an xattn layer's wk, wv once per
     image token), the visible attention pairs at 2·(d_qk + d_v) each, the
     head at the last position. Decode: every weight but the embedding and
-    the experts no token chose, read once a step, and the caches."""
-    D, V, K = cfg.d_model, cfg.vocab_size, cfg.n_codebooks or 1
-    counts = cfg.param_counts()
-    kinds = _attn_layers(cfg)
-    dqk = cfg.head_dim + (cfg.rope_head_dim if cfg.attn_type == "mla"
-                          else 0)
-    pair_ops = 2.0 * (dqk + cfg.vdim) * cfg.n_heads * batch
-    attn_ops = sum(pair_ops * (prompt * cfg.n_image_tokens if k == "xattn"
-                               else prompt * (prompt + 1) / 2)
-                   for k in kinds if k.startswith("attn") or k == "xattn")
-    n_x = kinds.count("xattn")
-    kv_w = 2 * D * cfg.kv_heads * cfg.head_dim
-    per_token = cfg.active_params() - counts["embed"] - counts["head"]
-    products = 2.0 * batch * (per_token * prompt
-                              + n_x * kv_w * (cfg.n_image_tokens - prompt))
-    prefill_ms = 1e3 * (products + attn_ops + 2.0 * D * V * K * batch) \
-        / peaks["bfloat16"]
+    the experts no token chose, read once a step, and the caches
+    (`launch.roofline.serve_work`)."""
+    from repro_torch.launch import roofline
     embed = sum(p.numel() * p.element_size()
                 for p in model.embed.parameters())
     weights = sum(p.numel() * p.element_size()
                   for p in model.parameters()) - embed
     caches = sum(t.numel() * t.element_size()
                  for t in _leaves(model.init_cache(batch, max_len)))
-    n_moe = sum(k.endswith("+moe") for k in kinds)
-    untouched = n_moe * (cfg.n_experts - touched) * 3 * D \
-        * (cfg.d_expert or cfg.d_ff) * 2
-    return prefill_ms, 1e3 * (weights + caches - untouched) / peaks["bw"]
+    ops, nbytes = roofline.serve_work(cfg, batch, prompt, weights, caches,
+                                      touched)
+    return 1e3 * ops / peaks["bfloat16"], 1e3 * nbytes / peaks["bw"]
 
 
 @contextlib.contextmanager
@@ -4580,18 +4618,12 @@ def batched_bound(kind: str, k: int, m: int, n: int, c: int, dtype: str,
                   peaks: dict, v_batched: bool = True,
                   x_batched: bool = True) -> tuple[float, str]:
     """`bound` for a batch of k products: every input read once (a shared
-    X or v once for the batch), every output written once."""
-    size = {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
-    out = 8 if dtype == "float64" else 4
-    if kind == "gram":
-        ops_, nbytes = k * m * n * (n + 1), k * (m * n * size + n * n * out)
-    else:
-        ops_ = 2 * k * m * n * c
-        nbytes = ((k if x_batched else 1) * m * n * size
-                  + (k if v_batched else 1) * m * c * size + k * n * c * out)
-    t_ops, t_bytes = ops_ / peaks[dtype], nbytes / peaks["bw"]
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    X or v once for the batch), every output written once
+    (`launch.kernel_model`'s `gram_batched_work` / `xtv_batched_work`)."""
+    from repro_torch.launch import kernel_model as km
+    work = km.gram_batched_work(k, m, n, dtype) if kind == "gram" \
+        else km.xtv_batched_work(k, m, n, c, dtype, v_batched, x_batched)
+    return _t(work, peaks[dtype], peaks["bw"])
 
 
 def phase_batched_kernels(peaks: dict, stack=CV_STACK,
@@ -5255,19 +5287,60 @@ def _peeking_attention():
         attn_mod.attention_core = orig
 
 
-def _step_flops(step_fn, opt, batch) -> float:
-    """FLOPs of one train step on `batch`: what `torch.utils.flop_counter`
-    counts over a step on its first row (its products in the forward, the
-    checkpointed recompute and the backward), times the rows. Every
-    product's FLOPs are linear in the batch; counted at full size, the
-    counter's mode kept the checkpointed activations alive (4.3x a plain
-    step's live memory on the CPU) and ran a qwen3-0.6b step out of
-    memory."""
+def _step_cost(step_fn, opt, batch, against_flop_counter: bool = False
+               ) -> dict:
+    """One train step on `batch` counted by `launch.hlocost` (its products
+    in the forward, the checkpointed recompute and the backward, every
+    other op, the optimizer's): the counter holds no tensor, so the step
+    runs in a plain step's memory. With `against_flop_counter` the step
+    runs inside `torch.utils.flop_counter.FlopCounterMode` as well, whose
+    count must equal the counter's product FLOPs (that mode keeps the
+    checkpointed activations alive: 4.3x a plain step's live memory, so
+    it counts small models only)."""
+    from repro_torch.launch import hlocost
     from torch.utils.flop_counter import FlopCounterMode
-    rows = len(batch["tokens"])
-    with FlopCounterMode(display=False) as counter:
-        step_fn(opt, {k: v[:1] for k, v in batch.items()})
-    return float(counter.get_total_flops()) * rows
+    fc = FlopCounterMode(display=False) if against_flop_counter \
+        else contextlib.nullcontext()
+    with fc:
+        totals = hlocost.count(step_fn, opt, batch)
+    out = dict(flops=totals.flops, bytes=totals.bytes,
+               transcendentals=totals.transcendentals,
+               product_flops=totals.product_flops,
+               peak_live_bytes=totals.peak_bytes)
+    if against_flop_counter:
+        out["flop_counter_flops"] = float(fc.get_total_flops())
+        if out["flop_counter_flops"] != totals.product_flops:
+            raise AssertionError(f"the counter's product FLOPs differ "
+                                 f"from FlopCounterMode's: {out}")
+    return out
+
+
+def phase_dryrun(arch: str = "qwen3-0.6b", shape: str = "train_4k") -> dict:
+    """One dry-run cell at full width: `launch.dryrun.lower_cell` for
+    `arch` × `shape` on the production (16, 16) mesh over 256 logical
+    devices, counted on "meta" (nothing allocated, no card work); its
+    `RooflineCell` at the published peaks of NVIDIA H100 80GB HBM3 at
+    700 W."""
+    import math
+    from repro_torch.distributed import logical_devices
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_production_mesh
+    with logical_devices(256):
+        _, totals, cell = lower_cell(arch, shape, make_production_mesh(),
+                                     verbose=False)
+    row = dict(phase="dryrun", cell=cell.to_dict(),
+               table=roofline.format_table([cell]).splitlines(),
+               peaks_of=roofline.CARD)
+    emit(row)
+    if not (cell.n_devices == 256 and cell.tokens > 0
+            and all(math.isfinite(v) and v > 0 for v in (
+                cell.hlo_flops, cell.hlo_bytes, cell.coll_wire_bytes,
+                cell.model_flops, cell.arg_bytes, cell.temp_bytes))
+            and totals.unknown_trip_counts == 0
+            and 0.5 < cell.flops_ratio <= 1.0):
+        raise AssertionError(f"the dry-run cell failed: {row}")
+    return row
 
 
 def _ckpt_leaves(path: str) -> list:
@@ -5388,7 +5461,8 @@ def _lm_train(peaks: dict, flags: list) -> dict:
     nxt = pipe.batch_at(args.steps)
     opt = run_a["opt_state"]
     _, trace_wall, busy, by_name = device_trace(lambda: step_fn(opt, nxt))
-    flops = _step_flops(step_fn, opt, nxt)
+    cost = _step_cost(step_fn, opt, nxt, against_flop_counter=True)
+    flops = cost["product_flops"]
     del run_a, run_b, step_fn, opt
     torch.cuda.empty_cache()
     return dict(
@@ -5397,7 +5471,7 @@ def _lm_train(peaks: dict, flags: list) -> dict:
         wall_s=wall, loss_first5=float(np.mean(losses[:5])),
         loss_last5=float(np.mean(losses[-5:])), step_ms=step_ms,
         tokens_per_s=args.batch * args.seq_len / (step_ms / 1e3),
-        peak_memory_gb=peak_bytes / 1e9, flops_per_step=flops,
+        peak_memory_gb=peak_bytes / 1e9, flops_per_step=flops, cost=cost,
         bound_ms=1e3 * flops / peaks["float32"], bound_by="operations",
         first_step=first, planted_faults=faults, resumed_bitwise=resumed,
         traced=_traced(trace_wall, busy, by_name))
@@ -5459,7 +5533,8 @@ def _bf16_train(peaks: dict, cfg, batch: int, seq: int, steps: int) -> dict:
     masters = all(p.dtype == torch.float32 for p in params.values())
     nxt = pipe.batch_at(steps)
     _, trace_wall, busy, by_name = device_trace(lambda: step_fn(opt, nxt))
-    flops = _step_flops(step_fn, opt, nxt)
+    cost = _step_cost(step_fn, opt, nxt)
+    flops = cost["product_flops"]
     step_ms = float(np.median(times[1:] or times))
     del model, serve, params, opt, step_fn
     torch.cuda.empty_cache()
@@ -5468,8 +5543,9 @@ def _bf16_train(peaks: dict, cfg, batch: int, seq: int, steps: int) -> dict:
         losses=losses, step_ms=step_ms, step_ms_each=times,
         tokens_per_s=batch * seq / (step_ms / 1e3),
         peak_memory_gb=peak_bytes / 1e9, serving_copy_gb=serve_gb,
-        flops_per_step=flops, bound_ms=1e3 * flops / peaks["bfloat16"],
-        bound_by="operations", first_step_vs_float32=grad,
+        flops_per_step=flops, cost=cost,
+        bound_ms=1e3 * flops / peaks["bfloat16"], bound_by="operations",
+        first_step_vs_float32=grad,
         planted_fault=fault, masters_float32=masters,
         masters_off_bf16_grid=off_grid, weights_are_masters_cast=cast_ok,
         traced=_traced(trace_wall, busy, by_name))
@@ -5604,10 +5680,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import build
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     key, peaks = peaks_for(name)
     emit(dict(phase="device", name=name, count=torch.cuda.device_count(),
               nvidia_smi=smi, peaks_of=key, peaks=peaks,
@@ -5680,6 +5753,7 @@ def main() -> int:
                   since_build_s=time.perf_counter() - t0))
         return out
 
+    timed(phase_dryrun)
     shard_launches, per_shard = timed(phase_sharded, peaks)
     wkv6_row = timed(phase_wkv6_kernels, peaks)
     main_rows = timed(phase_kernels, peaks)

@@ -55,6 +55,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..launch import hlocost
 from .dag import SPARSE_THRESHOLD, Node
 from .sparse import BCOO as SparseMatrix  # the value; BCOO below is the name
 
@@ -520,6 +521,10 @@ def register_sparse_kernel(op: str, in_fmts: tuple[str, ...],
     return deco
 
 
+def has_kernel(op: str) -> bool:
+    return op in _KERNEL_BUILDERS
+
+
 def _densifying(kern: KernelFn) -> KernelFn:
     return lambda *xs: kern(*[densify(x) for x in xs])
 
@@ -683,15 +688,34 @@ def _lockstep_reduce(base: KernelFn) -> KernelFn:
     """A shard reduce: `base` on every shard's operands (a `Shards`
     operand gives its block, a replicated one itself), the partials
     summed in ascending shard order — a fixed order, so a sharded run is
-    bitwise repeatable."""
+    bitwise repeatable. A cost counter is charged the all-reduce of the
+    result over the shards (`launch.hlocost.collective`)."""
     def run(*xs):
         d = next(len(x) for x in xs if isinstance(x, Shards))
         acc = None
         for i in range(d):
             part = base(*[x[i] if isinstance(x, Shards) else x for x in xs])
             acc = part if acc is None else acc + part
+        if hlocost.active():
+            hlocost.collective("all-reduce", _value_bytes(acc), d)
         return acc
     return run
+
+
+def _value_bytes(x) -> int:
+    """Bytes of a dense value (a tensor or a Python scalar's 8)."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return 8
+
+
+def _reshard(blocks) -> torch.Tensor:
+    """The gather: the blocks concatenated in shard order; a cost counter
+    is charged its all-gather."""
+    out = torch.cat([densify(b) for b in blocks])
+    if hlocost.active():
+        hlocost.collective("all-gather", _value_bytes(out), len(blocks))
+    return out
 
 
 for _op, _base in SHARD_BASE_OPS.items():
@@ -699,9 +723,7 @@ for _op, _base in SHARD_BASE_OPS.items():
         register_kernel(_op)(
             (lambda b: lambda attrs: _lockstep_reduce(
                 _KERNEL_BUILDERS[b](attrs)))(_base))
-# the gather: the blocks concatenated in shard order
-register_kernel(RESHARD_OP)(
-    lambda attrs: lambda x: torch.cat([densify(b) for b in x]))
+register_kernel(RESHARD_OP)(lambda attrs: _reshard)
 
 for _op, _fn in _ZERO_PRESERVING_FNS.items():
     register_sparse_kernel(_op, (BCOO,), BCOO)(

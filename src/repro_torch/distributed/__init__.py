@@ -5,16 +5,15 @@
     `set_mesh`, `auto_mesh`) and the device count a mesh resolves
     against (`device_count`, raised for a block by `logical_devices`);
   * `sharding` — `safe_spec` and `rows_shardable`; the launch layer's
-    `NamedSharding`, `named` and `device_put` (a `Placed` tensor);
+    `NamedSharding`, `named` and `device_put` (a `Placed` tensor); the
+    dry run's rule tables (`param_specs`, `batch_specs`, `cache_specs`,
+    from `legacy_rules`);
   * `hints` — the launch layer's (data, model) mesh as the model code
     reads it (`enable_hints`, `axis_size`, `current_mesh`; the
     expert-parallel MoE dispatches on it);
   * `compress` — int8 quantization with error feedback;
   * `fedavg` — `FedAvgTrainer`, relaxed-sync federated training;
   * `fault` — `StepMonitor`, `HeartbeatTracker`, `simulate_failures`.
-
-The rule tables of the dry-run tooling (`legacy_rules`) are not ported
-yet (ROADMAP Queue 1 item 15).
 """
 from .compress import (compress_tree, compressed_bytes,  # noqa: F401
                        crosspod_mean_int8, dequantize, init_error_state,
@@ -25,5 +24,6 @@ from .hints import (axis_size, current_mesh, disable_hints,  # noqa: F401
 from .mesh import (CONFIG_AXIS, DATA_AXIS, MeshSpec,  # noqa: F401
                    auto_mesh, device_count, get_mesh,
                    logical_devices, set_mesh, use_mesh)
-from .sharding import (NamedSharding, Placed, device_put,  # noqa: F401
-                       named, rows_shardable, safe_spec)
+from .sharding import (NamedSharding, Placed, batch_specs,  # noqa: F401
+                       cache_specs, device_put, named, param_specs,
+                       rows_shardable, safe_spec)

@@ -24,6 +24,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..launch import hlocost
 from ..optim.adamw import AdamWState, adamw_init, adamw_update
 from . import compress
 
@@ -93,6 +94,10 @@ class FedAvgTrainer:
             else:
                 self.bytes_exchanged += compress.compressed_bytes(delta)[1]
             deltas.append(delta)
+        if hlocost.active():  # one site's view: its delta averaged
+            hlocost.collective("all-reduce", compress.compressed_bytes(
+                deltas[-1])[0 if self.compress_int8 else 1],
+                len(self.sites))
         mean_delta = {k: sum(d[k] for d in deltas) / len(deltas)
                       for k in deltas[0]}
         self.anchor = {k: (a.to(torch.float32) + mean_delta[k]).to(a.dtype)

@@ -22,8 +22,10 @@ The launch layer's placement of values on a named mesh
 
 A spec is a tuple with one entry per dimension: an axis name, a tuple of
 axis names, or None (replicated); the mesh is anything with a `shape`
-mapping of axis name to size. The rule tables of the dry-run tooling
-are not ported yet.
+mapping of axis name to size. The transformer-era rule tables of the
+dry-run tooling (`param_specs`, `batch_specs`, `cache_specs`) live in
+`repro_torch.distributed.legacy_rules` and are re-exported below, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -150,3 +152,9 @@ def device_put(value: torch.Tensor, sharding: NamedSharding) -> Placed:
     return Placed(value=value, sharding=sharding, shards=tuple(
         value[sharding.index(shape, i)]
         for i in range(sharding.mesh.size)))
+
+
+# The transformer-era builders of the dry-run tooling (consumed by
+# repro_torch.launch.dryrun), re-exported as the reference does.
+from .legacy_rules import (batch_specs, cache_specs,  # noqa: E402,F401
+                           param_specs)

@@ -7,13 +7,17 @@ a 64-wide RoPE part), 128, and picks the path from the tensors' device:
            (bfloat16 on tensor cores, float32 on FMA pipes), or an
            exception; there is no fallback to the plain version
   * CPU  — the plain torch version in `ref`
+  * meta — `flash_attention_meta`: the kernel's output shape, nothing
+           computed (the dry run's route, which is the card's)
 
 Port of `repro.kernels.flash_attention.ops`. The kernel reads q, k, v
 and writes the output through their (B, S, H, hd) strides, so the
 reference's transpose to (B·H, S, hd) is skipped, and it masks ragged
 sequence lengths itself, so any S ≥ 1 runs without padding. The CUDA
 wrapper counts its launches in `LAUNCHES`, so a run can show that its
-main path went through the kernel.
+main path went through the kernel; it and the meta implementation charge
+the kernel's work (`launch.kernel_model.flash_work`) to an active
+`launch.hlocost` counter, which cannot see a `ctypes` launch.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import math
 
 import torch
 
+from ...launch import hlocost, kernel_model
 from .. import no_backward
 from . import ref
 
@@ -55,11 +60,12 @@ def _library():
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool) -> None:
+           causal: bool, device: str = "cuda") -> None:
+    kind = "CUDA" if device == "cuda" else device
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"flash_attention: expected a CUDA tensor for "
-                             f"{name}, got {t.device}")
+        if t.device.type != device:
+            raise ValueError(f"flash_attention: expected a {kind} tensor "
+                             f"for {name}, got {t.device}")
         if t.dtype not in _DTYPE_CODE:
             raise TypeError(f"flash_attention: unsupported dtype {t.dtype}")
         if t.ndim != 4:
@@ -120,7 +126,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise RuntimeError(f"flash_attention: CUDA launch failed with "
                                f"error {rc}")
         LAUNCHES["flash"] += 1
+    hlocost.charge(kernel_model.flash_work, B, Sq, Sk, Hq, Hkv, hd, dv,
+                   causal, q.dtype)
     return out
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """The kernel's output on "meta" tensors (every check the CUDA
+    wrapper makes but the device's), its work charged as a launch's."""
+    _check(q, k, v, causal, device="meta")
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    hlocost.charge(kernel_model.flash_work, B, Sq, Sk, Hq, Hkv, hd, dv,
+                   causal, q.dtype)
+    return torch.empty((B, Sq, Hq, dv), dtype=q.dtype, device="meta")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -129,4 +149,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Sq, Hq, dv)."""
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal)
+    if q.device.type == "meta":
+        return flash_attention_meta(q, k, v, causal=causal)
     return flash_attention_cuda(q, k, v, causal=causal)

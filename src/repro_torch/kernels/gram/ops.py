@@ -5,10 +5,16 @@
            (a split-K partial pass plus a fixed-order reduce pass), or an
            exception; there is no fallback to the plain version
   * CPU  — the plain torch version in `ref`
+  * meta — the kernel's output shape, nothing computed (`gram_meta`,
+           `xtv_meta` and their batched forms)
 
 Port of `repro.kernels.gram.ops`. Each CUDA wrapper counts its launches
 in `LAUNCHES` (the partial pass under the op's name, the reduce pass
 apart), so a run can show that its main path went through the kernels.
+The CUDA wrappers and the meta implementations charge the kernel's work
+(`launch.kernel_model`) to an active `launch.hlocost` counter, which
+cannot see a `ctypes` launch; so do the custom ops `gram_op` and
+`xtv_op` on the CPU, whose plain body runs below the counter.
 
 Under `torch.func.vmap` (the parfor lane's config-variant segments),
 `gram_op` and `xtv_op` — `torch.library` custom ops with a vmap rule —
@@ -37,6 +43,7 @@ from functools import lru_cache
 
 import torch
 
+from ...launch import hlocost, kernel_model
 from . import ref
 
 # One count per launched kernel pass; reset with `reset_launches()`.
@@ -253,6 +260,7 @@ def gram_cuda(x: torch.Tensor) -> torch.Tensor:
             "gram")
     LAUNCHES["gram"] += 1
     LAUNCHES["gram_reduce"] += 1
+    hlocost.charge(kernel_model.gram_work, m, n, x.dtype)
     return out
 
 
@@ -287,13 +295,30 @@ def xtv_cuda(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     LAUNCHES["xtv"] += 1
     if splits > 1:
         LAUNCHES["xtv_reduce"] += 1
+    hlocost.charge(kernel_model.xtv_work, m, n, c, x.dtype)
     return out
+
+
+def gram_meta(x: torch.Tensor) -> torch.Tensor:
+    """gram's output for a "meta" X, its work charged as a launch's."""
+    m, n = x.shape
+    hlocost.charge(kernel_model.gram_work, m, n, x.dtype)
+    return x.new_empty((n, n), dtype=ref.acc_dtype(x.dtype))
+
+
+def xtv_meta(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """xtv's output for a "meta" X and a 2-D v, charged as a launch's."""
+    m, n = x.shape
+    hlocost.charge(kernel_model.xtv_work, m, n, v.shape[1], x.dtype)
+    return x.new_empty((n, v.shape[1]), dtype=ref.acc_dtype(x.dtype))
 
 
 def gram(x: torch.Tensor) -> torch.Tensor:
     """G = X^T X (bfloat16 accumulates and returns float32)."""
     if x.device.type == "cpu":
         return ref.gram(x)
+    if x.device.type == "meta":
+        return gram_meta(x)
     return gram_cuda(x)
 
 
@@ -302,8 +327,18 @@ def xtv(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return ref.xtv(x, v)
     squeeze = v.ndim == 1
-    out = xtv_cuda(x, v[:, None] if squeeze else v)
+    fn = xtv_meta if x.device.type == "meta" else xtv_cuda
+    out = fn(x, v[:, None] if squeeze else v)
     return out[:, 0] if squeeze else out
+
+
+def gram_aug(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """One-pass sufficient statistics for lmDS: gram([X | y]) = [[XᵀX,
+    Xᵀy], [yᵀX, yᵀy]], one gram launch over the augmented matrix (a 1-D
+    y is one column)."""
+    if y.ndim == 1:
+        y = y[:, None]
+    return gram(torch.cat([x, y.to(x.dtype)], dim=1))
 
 
 def rows(x: torch.Tensor) -> torch.Tensor:
@@ -374,6 +409,7 @@ def gram_batched_cuda(x: torch.Tensor) -> torch.Tensor:
             ws.data_ptr(), out.data_ptr(), st), "gram_batched")
     LAUNCHES["gram_batched"] += 1
     LAUNCHES["gram_batched_reduce"] += 1
+    hlocost.charge(kernel_model.gram_batched_work, k, m, n, x.dtype)
     return out
 
 
@@ -413,13 +449,31 @@ def xtv_batched_cuda(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     LAUNCHES["xtv_batched"] += 1
     if splits > 1:
         LAUNCHES["xtv_batched_reduce"] += 1
+    hlocost.charge(kernel_model.xtv_batched_work, k, m, n, c, x.dtype,
+                   v.stride(0) != 0)
     return out
+
+
+def _batched_meta(x: torch.Tensor, v=None) -> torch.Tensor:
+    """gram_batched's (v None) or xtv_batched's output for "meta"
+    stacks, charged as a launch's."""
+    k, m, n = x.shape
+    acc = ref.acc_dtype(x.dtype)
+    if v is None:
+        hlocost.charge(kernel_model.gram_batched_work, k, m, n, x.dtype)
+        return x.new_empty((k, n, n), dtype=acc)
+    c = v.shape[-1]
+    hlocost.charge(kernel_model.xtv_batched_work, k, m, n, c, x.dtype,
+                   v.ndim == 3)
+    return x.new_empty((k, n, c), dtype=acc)
 
 
 def gram_batched(x: torch.Tensor) -> torch.Tensor:
     """G_b = X_bᵀ X_b over a (batch, m, n) stack."""
     if x.device.type == "cpu":
         return ref.gram_batched(x)
+    if x.device.type == "meta":
+        return _batched_meta(x)
     return gram_batched_cuda(rows(x))
 
 
@@ -428,6 +482,8 @@ def xtv_batched(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     one (m, c) matrix for every element."""
     if x.device.type == "cpu":
         return ref.xtv_batched(x, v)
+    if x.device.type == "meta":
+        return _batched_meta(x, v)
     return xtv_batched_cuda(rows(x), rows(v))
 
 
@@ -440,13 +496,14 @@ def xtv_batched(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 @torch.library.custom_op("repro_torch::gram", mutates_args=())
 def gram_op(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":  # the plain body, unseen by a counter
+        hlocost.charge(kernel_model.gram_work, *x.shape, x.dtype)
     return gram(rows(x))
 
 
 @gram_op.register_fake
 def _(x):
-    return x.new_empty((x.shape[1], x.shape[1]),
-                       dtype=ref.acc_dtype(x.dtype))
+    return gram_meta(x)
 
 
 @gram_op.register_vmap
@@ -458,13 +515,15 @@ def _(info, in_dims, x):
 @torch.library.custom_op("repro_torch::xtv", mutates_args=())
 def xtv_op(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """X^T v for a 2-D v (the backend gives a 1-D v one column)."""
+    if x.device.type == "cpu":  # the plain body, unseen by a counter
+        hlocost.charge(kernel_model.xtv_work, *x.shape, v.shape[1],
+                       x.dtype)
     return xtv(rows(x), rows(v))
 
 
 @xtv_op.register_fake
 def _(x, v):
-    return x.new_empty((x.shape[1], v.shape[1]),
-                       dtype=ref.acc_dtype(x.dtype))
+    return xtv_meta(x, v)
 
 
 @xtv_op.register_vmap

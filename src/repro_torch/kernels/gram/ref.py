@@ -32,6 +32,12 @@ def xtv(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(acc).mT, v.to(acc))
 
 
+def gram_aug(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Gram of the augmented matrix [X | y]: one pass yields [[XᵀX, Xᵀy],
+    [yᵀX, yᵀy]], the whole lmDS sufficient statistic."""
+    return gram(torch.cat([x, y], dim=1))
+
+
 def gram_batched(x: torch.Tensor) -> torch.Tensor:
     """X_bᵀ X_b over a (batch, m, n) stack, each mirrored like `gram`."""
     xa = x.to(acc_dtype(x.dtype))

@@ -6,6 +6,8 @@ from the tensors' device:
   * CUDA — the hand-written sm_90a kernel of `repro_torch/csrc/wkv6.cu`,
            or an exception; there is no fallback to the plain version
   * CPU  — `ref.wkv_chunked`, the reference's own off-TPU route
+  * meta — `wkv6_meta`: the kernel's output shapes, nothing computed
+           (the dry run's route, which is the card's)
 
 Port of `repro.kernels.rwkv6.ops`. The kernel reads and writes the
 model layout through its strides, so the reference's transpose to
@@ -24,6 +26,7 @@ import ctypes
 
 import torch
 
+from ...launch import hlocost, kernel_model
 from .. import no_backward
 from .ref import SUB, chunk_rows, wkv_chunked
 
@@ -56,13 +59,15 @@ def _library():
     return _lib
 
 
-def _check(r, k, v, logw, u, state, chunk: int) -> None:
+def _check(r, k, v, logw, u, state, chunk: int,
+           device: str = "cuda") -> None:
     named = (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u),
              ("state", state))
+    kind = "CUDA" if device == "cuda" else device
     for name, t in named:
-        if t.device.type != "cuda":
-            raise ValueError(f"wkv6: expected a CUDA tensor for {name}, got "
-                             f"{t.device}")
+        if t.device.type != device:
+            raise ValueError(f"wkv6: expected a {kind} tensor for {name}, "
+                             f"got {t.device}")
         if t.device != r.device:
             raise ValueError("wkv6: every tensor must lie on one card")
     for name, t in named[:3]:
@@ -131,7 +136,18 @@ def wkv6_cuda(r, k, v, logw, u, state, *, chunk: int = 128):
         if rc != 0:
             raise RuntimeError(f"wkv6: CUDA launch failed with error {rc}")
         LAUNCHES["wkv6"] += 1
+    hlocost.charge(kernel_model.wkv6_work, B, S, H, dh, r.dtype)
     return y, s_out
+
+
+def wkv6_meta(r, k, v, logw, u, state, *, chunk: int = 128):
+    """The kernel's outputs on "meta" tensors (every check the CUDA
+    wrapper makes but the device's), its work charged as a call's."""
+    _check(r, k, v, logw, u, state, chunk, device="meta")
+    B, S, H, dh = r.shape
+    hlocost.charge(kernel_model.wkv6_work, B, S, H, dh, r.dtype)
+    return (torch.empty((B, S, H, dh), dtype=r.dtype, device="meta"),
+            torch.empty((B, H, dh, dh), dtype=torch.float32, device="meta"))
 
 
 def wkv6(r, k, v, logw, u, state, *, chunk: int = 128):
@@ -139,4 +155,6 @@ def wkv6(r, k, v, logw, u, state, *, chunk: int = 128):
     dh). Returns (y (B,S,H,dh), state')."""
     if r.device.type == "cpu":
         return wkv_chunked(r, k, v, logw, u, state, chunk)
+    if r.device.type == "meta":
+        return wkv6_meta(r, k, v, logw, u, state, chunk=chunk)
     return wkv6_cuda(r, k, v, logw, u, state, chunk=chunk)

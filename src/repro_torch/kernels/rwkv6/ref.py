@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...launch import hlocost
+
 SUB = 16            # intra-chunk sub-block for the stable factorization
 
 
@@ -55,7 +57,14 @@ def wkv_chunked(r, k, v, logw, u, state, chunk: int):
     cumulative exp over a 128-row chunk would reach e^640). The chunk is
     `chunk_rows(S, chunk)`; a ragged S is zero-padded (zero r/k/v with
     zero log-decay is an exact no-op for the outputs kept and the carried
-    state)."""
+    state). A cost counter charges its bytes to the "scan" region as well
+    (the kernel-replaceable traffic,
+    `launch.kernel_model.scan_region_bytes`)."""
+    with hlocost.region("scan"):
+        return _wkv_chunked(r, k, v, logw, u, state, chunk)
+
+
+def _wkv_chunked(r, k, v, logw, u, state, chunk: int):
     B, S, H, dh = r.shape
     C = chunk_rows(S, chunk)
     pad = (-S) % C

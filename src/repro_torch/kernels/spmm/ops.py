@@ -10,12 +10,18 @@ These are the kernels behind the `bcoo` physical format in
   * `*_dense_masked` run that product: on a CUDA tensor the hand-written
     sm_90a kernels of `repro_torch/csrc/spmm.cu` (through the `*_cuda`
     entry points, raising on anything they do not take; there is no
-    fallback), on a CPU tensor the plain torch version in `ref`.
+    fallback), on a CPU tensor the plain torch version in `ref`, on a
+    "meta" tensor the kernel's output shape with its work charged
+    (`*_meta`).
 
 The blocks are the card's (`ROWS` x `TILE`, the kernels' row chunk and
 gram tile edge), not the TPU's (512, 256), and nothing is padded. Each
 CUDA wrapper counts its launches in `LAUNCHES`, one count per kernel pass
-it launches (the reduce passes apart).
+it launches (the reduce passes apart). The CUDA wrappers and the meta
+implementations charge the kernel's work over the populated blocks
+(`launch.kernel_model`) to an active `launch.hlocost` counter, which
+cannot see a `ctypes` launch (a meta mask holds no data: every block
+counts).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.gram import ops as gram_ops
+from repro_torch.launch import hlocost, kernel_model
 from repro_torch.kernels.gram import ref as gram_ref
 from repro_torch.kernels.gram.ops import (_DTYPE_CODE, _MAX_SPLITS, _BM,
                                           _check_matrix, _check_rc, _on,
@@ -181,6 +188,7 @@ def gram_bs_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
             "gram_bs")
     LAUNCHES["gram_bs"] += 1
     LAUNCHES["gram_bs_reduce"] += 1
+    hlocost.charge(kernel_model.gram_bs_work, mask, m, n, x.dtype)
     return out
 
 
@@ -217,6 +225,7 @@ def xtv_bs_cuda(x: torch.Tensor, v: torch.Tensor,
     LAUNCHES["xtv_bs"] += 1
     if splits > 1:
         LAUNCHES["xtv_bs_reduce"] += 1
+    hlocost.charge(kernel_model.xtv_bs_work, mask, m, n, c, x.dtype)
     return out
 
 
@@ -246,7 +255,25 @@ def spmm_cuda(x: torch.Tensor, w: torch.Tensor,
             m, k, c, x.stride(0), w.stride(0), mask.data_ptr(),
             mask.shape[1], out.data_ptr(), _raw_stream(dev)), "spmm")
     LAUNCHES["spmm"] += 1
+    hlocost.charge(kernel_model.spmm_work, mask, m, k, c, x.dtype)
     return out
+
+
+def _masked_meta(kind: str, xd: torch.Tensor, mask: torch.Tensor,
+                 v=None) -> torch.Tensor:
+    """gram_bs's, xtv_bs's or spmm's output for a "meta" X, charged as
+    a launch's over every block."""
+    m, n = xd.shape
+    acc = gram_ref.acc_dtype(xd.dtype)
+    if kind == "gram_bs":
+        hlocost.charge(kernel_model.gram_bs_work, mask, m, n, xd.dtype)
+        return xd.new_empty((n, n), dtype=acc)
+    c = v.shape[1]
+    if kind == "xtv_bs":
+        hlocost.charge(kernel_model.xtv_bs_work, mask, m, n, c, xd.dtype)
+        return xd.new_empty((n, c), dtype=acc)
+    hlocost.charge(kernel_model.spmm_work, mask, m, n, c, xd.dtype)
+    return xd.new_empty((m, c), dtype=acc)
 
 
 # -- dense layout + mask -----------------------------------------------------
@@ -265,6 +292,8 @@ def gram_dense_masked(xd: torch.Tensor, mask: Optional[torch.Tensor] = None,
         mask = ref.block_mask(xd, bm, bn)
     if xd.device.type == "cpu":
         return ref.gram(xd, mask, bm, bn)
+    if xd.device.type == "meta":
+        return _masked_meta("gram_bs", xd, mask)
     _cuda_blocks(bm, bn, "gram_bs")
     return gram_bs_cuda(xd, mask)
 
@@ -277,6 +306,8 @@ def spmm_dense_masked(xd: torch.Tensor, w: torch.Tensor,
         mask = ref.block_mask(xd, bm, bk)
     if xd.device.type == "cpu":
         return ref.spmm(xd, w, mask, bm, bk)
+    if xd.device.type == "meta":
+        return _masked_meta("spmm", xd, mask, w)
     _cuda_blocks(bm, bk, "spmm")
     return spmm_cuda(xd, w, mask)
 
@@ -289,6 +320,8 @@ def xtv_dense_masked(xd: torch.Tensor, v: torch.Tensor,
         mask = ref.block_mask(xd, bm, bn)
     if xd.device.type == "cpu":
         return ref.xtv(xd, v, mask, bm, bn)
+    if xd.device.type == "meta":
+        return _masked_meta("xtv_bs", xd, mask, v)
     _cuda_blocks(bm, bn, "xtv_bs")
     return xtv_bs_cuda(xd, v, mask)
 

@@ -6,14 +6,19 @@ It picks the path from the tensors' device:
   * CUDA — the hand-written sm_90a kernel of `repro_torch/csrc/ssd.cu`,
            or an exception; there is no fallback to the plain version
   * CPU  — `ref.ssm_scan`, the reference's oracle (its own off-TPU route)
+  * meta — `ssm_scan_meta`: the kernel's output shapes, nothing computed
+           (the dry run's route, which is the card's)
 
 Port of `repro.kernels.ssd.ops`. The kernel reads x, dt, B and C through
 their (batch, sequence) strides, so B and C may be the column views that
 `split` cuts from the model's `dbc`; it takes any S ≥ 1 and any di (the
 Pallas kernel wants S and di divisible by its blocks). Its exps are
 2^(dt · A log2 e + 1) / 2 on the MUFU, which `ref.kernel_decay`
-emulates around the MUFU itself. The CUDA wrapper counts its launches in `LAUNCHES`, so a run can show that
-its main path went through the kernel.
+emulates around the MUFU itself. The CUDA wrapper counts its launches in
+`LAUNCHES`, so a run can show that its main path went through the kernel;
+it and the meta implementation charge the kernel's work
+(`launch.kernel_model.ssm_work`) to an active `launch.hlocost` counter,
+which cannot see a `ctypes` launch.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import ctypes
 
 import torch
 
+from ...launch import hlocost, kernel_model
 from .. import no_backward
 from .ref import ssm_scan as ssm_scan_plain
 
@@ -51,13 +57,14 @@ def _library():
     return _lib
 
 
-def _check(x, dt, A, B, C, D_skip, h0) -> None:
+def _check(x, dt, A, B, C, D_skip, h0, device: str = "cuda") -> None:
     named = (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C),
              ("D_skip", D_skip), ("h0", h0))
+    kind = "CUDA" if device == "cuda" else device
     for name, t in named:
-        if t.device.type != "cuda":
-            raise ValueError(f"ssm_scan: expected a CUDA tensor for {name}, "
-                             f"got {t.device}")
+        if t.device.type != device:
+            raise ValueError(f"ssm_scan: expected a {kind} tensor for "
+                             f"{name}, got {t.device}")
         if t.device != x.device:
             raise ValueError("ssm_scan: every tensor must lie on one card")
     for name, t in (("x", x), ("B", B), ("C", C)):
@@ -130,7 +137,19 @@ def ssm_scan_cuda(x, dt, A, B, C, D_skip, h0):
             raise RuntimeError(f"ssm_scan: CUDA launch failed with error "
                                f"{rc}")
         LAUNCHES["ssm_scan"] += 1
+    hlocost.charge(kernel_model.ssm_work, Bt, S, di, ds, x.dtype)
     return y, h_out
+
+
+def ssm_scan_meta(x, dt, A, B, C, D_skip, h0):
+    """The kernel's outputs on "meta" tensors (every check the CUDA
+    wrapper makes but the device's), its work charged as a launch's."""
+    _check(x, dt, A, B, C, D_skip, h0, device="meta")
+    Bt, S, di = x.shape
+    ds = A.shape[1]
+    hlocost.charge(kernel_model.ssm_work, Bt, S, di, ds, x.dtype)
+    return (torch.empty((Bt, S, di), dtype=torch.float32, device="meta"),
+            torch.empty((Bt, di, ds), dtype=torch.float32, device="meta"))
 
 
 def ssm_scan(x, dt, A, B, C, D_skip, h0):
@@ -138,4 +157,6 @@ def ssm_scan(x, dt, A, B, C, D_skip, h0):
     h0: (Bt, di, ds). Returns (y (Bt, S, di) float32, h_final float32)."""
     if x.device.type == "cpu":
         return ssm_scan_plain(x, dt, A, B, C, D_skip, h0)
+    if x.device.type == "meta":
+        return ssm_scan_meta(x, dt, A, B, C, D_skip, h0)
     return ssm_scan_cuda(x, dt, A, B, C, D_skip, h0)

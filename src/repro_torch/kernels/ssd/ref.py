@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ...launch import hlocost
+
 # csrc/ssd.cu's exp: 2^z = 2^(z + 1) / 2, z + 1 = dt · A' + 1 in one fma,
 # A' = float32(A · log2 e)
 LOG2E = 1.4426950408889634
@@ -69,8 +71,11 @@ def selective_scan(xin, dt, A, Bv, Cv, D_skip, h0, chunk: int = 256):
 
     The reference scans chunks of `chunk` steps (a `jax.checkpoint` per
     chunk, for training's memory) and asserts S % chunk == 0; the chunks
-    change no arithmetic, so here any S runs, as the per-step scan."""
-    return ssm_scan(xin, dt, A, Bv, Cv, D_skip, h0)
+    change no arithmetic, so here any S runs, as the per-step scan. A
+    cost counter charges its bytes to the "scan" region as well (the
+    kernel-replaceable traffic, `launch.kernel_model.scan_region_bytes`)."""
+    with hlocost.region("scan"):
+        return ssm_scan(xin, dt, A, Bv, Cv, D_skip, h0)
 
 
 def scaled_err(got, want, x, dt, A, B, C, D_skip, h0) -> float:

@@ -9,7 +9,9 @@ attention:
   * "chunked" — q-chunk / kv-chunk online softmax in plain torch, the
     reference's CPU path for S > cfg.attn_chunk
   * "ref"     — full S² materialisation (small shapes / oracle)
-On CUDA, prefill runs "flash" unless the caller names another path. On
+On CUDA and on "meta" (the dry run's count, which takes the card's
+route: `flash_attention_meta` gives the kernel's output shape and charges
+its work), prefill runs "flash" unless the caller names another path. On
 the CPU the reference's own choice stands: "flash" (its plain version)
 when `cfg.use_pallas`, else "chunked" for S > cfg.attn_chunk and "ref"
 otherwise, so the CPU parity tests compare like with like. Training
@@ -135,8 +137,8 @@ def decode_attention(q, k_cache, v_cache, cur_len: int) -> torch.Tensor:
 def attention_core(q, k, v, *, causal: bool, cfg, impl: Optional[str] = None,
                    q_offset: int = 0) -> torch.Tensor:
     if impl is None:
-        impl = "flash" if q.device.type == "cuda" or cfg.use_pallas \
-            else "chunked"
+        impl = "flash" if q.device.type in ("cuda", "meta") \
+            or cfg.use_pallas else "chunked"
     if impl == "flash":
         return fops.flash_attention(q, k, v, causal=causal)
     if impl == "chunked" and q.shape[1] > cfg.attn_chunk:

@@ -124,6 +124,14 @@ class Model(nn.Module):
                 blk.reset_parameters(gen, cfg)
         return self
 
+    def param_shapes(self) -> dict:
+        """{name: (shape, dtype)} of every parameter (the reference's
+        `jax.eval_shape` of `init`): read from the module, allocating
+        nothing; a model on "meta" gives a config's without holding any
+        weight."""
+        return {n: (tuple(p.shape), p.dtype)
+                for n, p in self.named_parameters()}
+
     def n_params(self) -> int:
         """Every parameter, norm scales included (the reference's
         `Model.n_params`; `cfg.total_params()` leaves the scales out)."""

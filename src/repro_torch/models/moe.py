@@ -11,7 +11,11 @@ dispatch:
      dtype, each token's in ascending expert id (the reference's
      scatter-add order).
 The group sizes slice the sorted replicas on the host, so each MoE layer
-synchronises with the card once per call (once per token in decode).
+synchronises with the card once per call (once per token in decode). On
+"meta" (the dry run's count) there are no values to read: the T·k
+replicas are split evenly over the experts (`even_sizes`), which gives
+every routing's FLOPs exactly (each product's are linear in its rows,
+and the rows sum to T·k) and its bytes wherever every expert is chosen.
 Shared experts (DeepSeek) run as a dense MLP on every token.
 
 On the launch layer's (data, model) mesh with hints enabled
@@ -28,6 +32,7 @@ import torch
 from torch import nn
 
 from ..distributed.hints import _STATE, axis_size, hints_enabled
+from ..launch import hlocost
 from .layers import (MLP, _normal, cdtype, dense_init, frozen, load_, mlp,
                      silu)
 
@@ -137,7 +142,14 @@ def moe_forward_local(p: MoE, cfg, x: torch.Tensor):
     # token's k replicas in a fixed order on the CPU, where indexing's
     # index_put_ does not
     xs = xf.index_select(0, token_of)                          # (T·k, D)
-    sizes = torch.bincount(flat_expert, minlength=E).tolist()  # host sync
+    # each expert's group size by a count of static shape (the ops a count
+    # on "meta" runs too), then read to the host
+    counts = torch.zeros((E,), dtype=torch.int64, device=x.device) \
+        .index_add_(0, flat_expert, torch.ones_like(flat_expert))
+    if x.device.type == "meta":
+        sizes = even_sizes(T * k, E)
+    else:
+        sizes = counts.tolist()  # host sync
 
     w_gate, w_up, w_down = (w.to(dt) for w in (p.w_gate, p.w_up, p.w_down))
     eo = torch.empty_like(xs)
@@ -167,6 +179,14 @@ def moe_forward_local(p: MoE, cfg, x: torch.Tensor):
     if cfg.n_shared_experts:
         out = out + mlp(p.shared, xf)
     return out.reshape(B, S, D), aux
+
+
+def even_sizes(replicas: int, n_experts: int) -> list[int]:
+    """`replicas` split over `n_experts` groups as evenly as whole rows
+    allow (the first groups one row more): the group sizes a count on
+    "meta" takes for the host read it cannot make."""
+    base, extra = divmod(replicas, n_experts)
+    return [base + (e < extra) for e in range(n_experts)]
 
 
 def capacity(tokens_k: int, n_experts: int, capacity_factor: float) -> int:
@@ -300,6 +320,9 @@ def moe_forward_ep(p: MoE, cfg, x: torch.Tensor):
                           r, e_local, ce)
             for r in range(n_ranks)]))
     aux = E * torch.sum((counts / (T * k)) * (probs_sum / T))
+    # a device's view of the model sum: its (T_loc, D) partial all-reduced
+    # over the model ranks (a cost counter's collective)
+    hlocost.collective("all-reduce", T_loc * D * xf.element_size(), n_ranks)
 
     out = torch.cat(outs)
     if cfg.n_shared_experts:
