@@ -10,11 +10,13 @@ card. One JSON line per phase:
   1. device        — the card (and `nvidia-smi`'s name and power limit)
   2. build         — compile `src/repro_torch/csrc/*.cu` (gram, spmm,
                      flash, wkv6, ssd; gram and spmm share
-                     gram_mainloop.cuh) for sm_90a, one `nvcc` per source,
+                     gram_mainloop.cuh, which with flash includes
+                     sm90.cuh) for sm_90a, one `nvcc` per source,
                      all started together; the bf16 flash instantiations
                      (hd 32, 64, 128 and MLA's q/k 192 with v 128) and
                      MLA's float32 one,
-                     gram's float64 and bf16 partial kernels, every WKV6
+                     gram's float64 partial kernels, its bf16 wgmma
+                     kernels and xtv tile products, every WKV6
                      state and output kernel, every selective-scan kernel
                      and every kernel of spmm.cu (gram_bs, xtv_bs, spmm
                      and their reduce passes) must spill nothing
@@ -24,7 +26,14 @@ card. One JSON line per phase:
                      at an offset, an odd width), bitwise repeatable, gram
                      bitwise symmetric, with kernel, plain, library (one
                      torch.matmul, a yardstick the port never calls) and
-                     bound times and the wrapper's host time (`host_us`)
+                     bound times, the wrapper's host time (`host_us`), the
+                     plan or route and one launch of the routed kernel a
+                     call; then xtv of two or more columns on the tile
+                     product (`WIDE_XTV`): kmeans' AᵀX (100,000 x 8
+                     against 1,000 columns) and mlogreg's c 10 in float64,
+                     the CV fold's 12,500 x 1,000 against 8 columns and a
+                     ragged c of 9 and 129 (odd width, offset slice) in
+                     every dtype
   4. sparse_kernel — the block-sparse gram_bs/xtv_bs/spmm kernels against
                      their plain version at the bcoo paths' shapes (blocky,
                      uniform, a sparse_stream bucket and its ragged tail),
@@ -309,7 +318,10 @@ card. One JSON line per phase:
                      path; gram and xtv with their launches on the
                      sharded paths and a shard's device ms against its
                      bound, and batched, with their launches on the CV
-                     path; flash with its launches
+                     path; the xtv tile product at kmeans' AᵀX with its
+                     launches on every path (kmeans and mlogreg in
+                     algorithms) and mlogreg's and the fold's rows; flash
+                     with its launches
                      on every serving path, moe_ep_serve's included, and
                      MLA's instantiation)
 
@@ -559,11 +571,93 @@ def host_us(fn, calls: int = 200) -> float:
     return us
 
 
+# the wide xtv rows of the kernel phase (two or more columns of v: the tile
+# product), (name, m, n, c, offset, dtypes): kmeans' per-cluster sums AᵀX
+# (A 8 columns, X 1,000) and mlogreg's gradient (10 classes) at the lmds
+# point in float64, CV's fold (one 12,500 x 1,000 X against 8 v's folded
+# into columns) in every dtype, a ragged c of 9 and 129 on the odd width
+# and on steplm's offset slice
+WIDE_XTV = [("kmeans", 100_000, 8, 1000, 0, ("float64",)),
+            ("mlogreg", 100_000, 1000, 10, 0, ("float64",)),
+            ("fold", 12_500, 1000, 8, 0, None),
+            ("ragged", 3000, 1001, 9, 0, None),
+            ("ragged", 3000, 1001, 129, 0, None),
+            ("ragged", 20000, 34, 9, 1, None),
+            ("ragged", 20000, 34, 129, 1, None)]
+
+
+def _kernel_row(kind: str, x, v, name: str, peaks: dict, m: int, n: int,
+                c: int, offset: int, **extra) -> dict:
+    """One kernel row: gram or xtv on (x, v) against the plain version
+    within TOL, bitwise on a second call (gram bitwise symmetric), its
+    launches a call by kernel, ms, device ms, the wrapper's and the
+    custom op's host time, plain, library (one torch.matmul) and bound
+    times. Raises if it fails."""
+    import torch
+    from repro_torch.kernels.gram import ops, ref
+    if kind == "gram":
+        args, kern, plain = (x,), ops.gram_cuda, ref.gram
+        lib = (lambda: torch.matmul(x.mT, x))
+    else:
+        args, kern, plain = (x, v), ops.xtv_cuda, ref.xtv
+        lib = (lambda: torch.matmul(x.mT, v))
+    saved = dict(ops.LAUNCHES)
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    counts = {k: ops.LAUNCHES[k] - saved[k] for k in saved
+              if ops.LAUNCHES[k] != saved[k]}
+    err = (got.double() - want.double()).abs().max().item()
+    scaled = ref.scaled_err(got, want, x, args[-1])
+    ok = scaled <= TOL[name]
+    if kind == "gram" and not torch.equal(got, got.mT):
+        ok = False
+    bitwise = torch.equal(got, kern(*args))  # fixed-order reduction
+    ok = ok and bitwise
+    ms = cuda_ms(lambda: kern(*args))
+    plain_ms = cuda_ms(lambda: plain(*args))
+    library_ms = cuda_ms(lib)
+    bms, by = bound(kind, m, n, max(c, 1), name, peaks)
+    # the card's own time for the kernel passes (no host work)
+    _, _, dev_s, _ = device_trace(lambda: [kern(*args) for _ in range(10)])
+    us = host_us(lambda: kern(*args))
+    # the same call through the torch.library custom op the backend takes
+    # under vmap (the dispatcher's cost on top)
+    op_us = host_us(lambda: (ops.gram_op if kind == "gram"
+                             else ops.xtv_op)(*args))
+    ops.LAUNCHES.update(saved)  # timing launches are not the path's
+    sms = ops._sm_count(x.device)
+    plan = ops.gram_plan(m, n, x.dtype, sms, ops.GRAM_TILE_N) \
+        if kind == "gram" else ops.xtv_route(m, n, max(c, 1), x.dtype, sms)
+    row = dict(phase="kernel", kernel=kind, **extra, m=m, n=n, c=c or None,
+               offset=offset or None, aligned16=ops.aligned16(x),
+               dtype=name, plan=plan, launches_per_call=counts,
+               max_abs_err=err, scaled_err=scaled, tol=TOL[name],
+               bitwise_repeat=bitwise, ok=ok, ms=ms,
+               device_ms=None if dev_s is None else 100 * dev_s,
+               host_us=us, op_host_us=op_us, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bms, bound_by=by)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"{kind} {m}x{n} {name} disagrees with its "
+                             f"plain version: {row}")
+    # one launch of the routed kernel (and at most one of its reduce)
+    one = "gram" if kind == "gram" else \
+        ("xtv_tile" if plan[0] == "tile" else "xtv")
+    if counts.get(one) != 1 or any(k not in (one, f"{one}_reduce")
+                                   or cnt != 1 for k, cnt in counts.items()):
+        raise AssertionError(f"{kind} {m}x{n} {name}: launches per call "
+                             f"{counts}, not one {one} launch")
+    return row
+
+
 def phase_kernels(peaks: dict) -> dict:
+    """gram/xtv against the plain version at the paths' shapes (`cases`,
+    from the numpy seed), then the wide xtv rows (`WIDE_XTV`, drawn on the
+    card). Returns the lmds bucket's rows by kernel and the wide rows by
+    name ("xtv_tile:<name>", float64 where the row has it)."""
     import numpy as np
     import torch
     from repro_torch.interop import from_reference
-    from repro_torch.kernels.gram import ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dt = {"float64": torch.float64, "float32": torch.float32,
@@ -594,51 +688,26 @@ def phase_kernels(peaks: dict) -> dict:
             if dtypes is not None and name not in dtypes:
                 continue
             x = host["x"].to(dtype)[:, offset:]
-            if kind == "gram":
-                args, kern, plain = (x,), ops.gram_cuda, ref.gram
-                lib = (lambda x=x: torch.matmul(x.mT, x))
-            else:
-                v = host["v"].to(dtype)
-                args, kern, plain = (x, v), ops.xtv_cuda, ref.xtv
-                lib = (lambda x=x, v=v: torch.matmul(x.mT, v))
-            got, want = kern(*args), plain(*args)
-            torch.cuda.synchronize()
-            err = (got.double() - want.double()).abs().max().item()
-            scaled = ref.scaled_err(got, want, x, args[-1])
-            ok = scaled <= TOL[name]
-            if kind == "gram" and not torch.equal(got, got.mT):
-                ok = False
-            if not torch.equal(got, kern(*args)):  # fixed-order reduction
-                ok = False
-            saved = dict(ops.LAUNCHES)
-            ms = cuda_ms(lambda: kern(*args))
-            ops.LAUNCHES.update(saved)  # timing launches are not the path's
-            plain_ms = cuda_ms(lambda: plain(*args))
-            library_ms = cuda_ms(lib)
-            bms, by = bound(kind, m, n, max(c, 1), name, peaks)
-            # the card's own time for the kernel passes (no host work)
-            _, _, dev_s, _ = device_trace(
-                lambda: [kern(*args) for _ in range(10)])
-            us = host_us(lambda: kern(*args))
-            # the same call through the torch.library custom op the
-            # backend takes under vmap (the dispatcher's cost on top)
-            op_us = host_us(lambda: (ops.gram_op if kind == "gram"
-                                     else ops.xtv_op)(*args))
-            ops.LAUNCHES.update(saved)
-            row = dict(phase="kernel", kernel=kind, m=m, n=n, c=c or None,
-                       offset=offset or None, aligned16=ops.aligned16(x),
-                       dtype=name, max_abs_err=err, scaled_err=scaled,
-                       tol=TOL[name], ok=ok, ms=ms,
-                       device_ms=None if dev_s is None else 100 * dev_s,
-                       host_us=us, op_host_us=op_us, plain_ms=plain_ms,
-                       library_ms=library_ms,
-                       bound_ms=bms, bound_by=by)
-            emit(row)
-            if not ok:
-                raise AssertionError(f"{kind} {m}x{n} {name} disagrees with "
-                                     f"its plain version: {row}")
+            v = host["v"].to(dtype)
+            row = _kernel_row(kind, x, v, name, peaks, m, n, c, offset)
             if (m, n, name) == (8192, 1000, "float64") and c in (0, 1):
                 main[kind] = row
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for label, m, n, c, offset, dtypes in WIDE_XTV:
+        x64 = torch.randn((m, n + offset), generator=gen, device="cuda",
+                          dtype=torch.float64)
+        v64 = torch.randn((m, c), generator=gen, device="cuda",
+                          dtype=torch.float64)
+        for name, dtype in dt.items():
+            if dtypes is not None and name not in dtypes:
+                continue
+            row = _kernel_row("xtv", x64.to(dtype)[:, offset:],
+                              v64.to(dtype), name, peaks, m, n, c, offset,
+                              case=label)
+            if name == "float64" and label != "ragged":
+                main[f"xtv_tile:{label}"] = row
+        del x64, v64
+    torch.cuda.empty_cache()
     return main
 
 
@@ -4137,9 +4206,10 @@ def _trace_of(fn, dev):
 
 def _kmeans_xtv(xk, run: dict, dev) -> dict:
     """kmeans' per-cluster sums AᵀX (A one-hot, 8 columns; X 1,000) as one
-    xtv at the lmds point: a narrow X and a wide v, where the xtv plan was
-    tuned for one column of v. Against the plain version (float64) with
-    the kernel's plan, its split workspace and torch.matmul's time."""
+    xtv at the lmds point: a narrow X and a wide v, the tile product with
+    v in the 128-wide tiles and A in 8-wide ones. Against the plain
+    version (float64) with the kernel's route and plan, its split
+    workspace and torch.matmul's time."""
     import numpy as np
     import torch
     from repro_torch.kernels.gram import ops, ref
@@ -4152,16 +4222,16 @@ def _kmeans_xtv(xk, run: dict, dev) -> dict:
     err = ref.scaled_err(got, ref.xtv(a, x), a, x)
     ms = cuda_ms(lambda: ops.xtv_cuda(a, x))
     ops.LAUNCHES.update(saved)  # timing launches are not the path's
-    splits, rows = ops.xtv_plan(m, 8, n, torch.float64,
-                                ops._sm_count(x.device))
+    route = ops.xtv_route(m, 8, n, torch.float64, ops._sm_count(x.device))
+    splits, rows = route[-2:]
     bms, by = bound("xtv", m, 8, n, "float64",
                     peaks_for(torch.cuda.get_device_name(0))[1])
     return dict(shape=[m, 8, n], scaled_err=err, ok=err <= TOL["float64"],
                 ms=ms, library_ms=cuda_ms(lambda: torch.matmul(a.mT, x)),
-                bound_ms=bms, bound_by=by, splits=splits,
+                bound_ms=bms, bound_by=by, route=route, splits=splits,
                 rows_per_split=rows,
-                workspace_mb=splits * 8 * n * 8 / 2**20,
-                path_launches=run["launches"]["xtv"])
+                workspace_mb=(splits > 1) * splits * 8 * n * 8 / 2**20,
+                path_launches=run["launches"]["xtv_tile"])
 
 
 def phase_algorithms(dev=DEVICE, m: int = LIFE_M, n: int = LIFE_N,
@@ -4253,8 +4323,10 @@ def phase_algorithms(dev=DEVICE, m: int = LIFE_M, n: int = LIFE_N,
     if not all(r["ok"] for r in rows.values()) or (
             kmeans_xtv is not None and not kmeans_xtv["ok"]):
         raise AssertionError(f"algorithms disagree with the CPU: {row}")
-    if not (launches["pca"]["gram"] and launches["kmeans"]["xtv"]
-            and launches["l2svm"]["xtv"] and launches["mlogreg"]["xtv"]):
+    # kmeans' AᵀX (8 x 1,000 columns) and mlogreg's gradient (10 classes)
+    # on the tile product, l2svm's one column on the slab kernel
+    if not (launches["pca"]["gram"] and launches["kmeans"]["xtv_tile"]
+            and launches["l2svm"]["xtv"] and launches["mlogreg"]["xtv_tile"]):
         raise AssertionError(f"algorithms missed gram/xtv: {launches}")
     return launches
 
@@ -4669,8 +4741,8 @@ def phase_batched_kernels(peaks: dict, stack=CV_STACK,
         if kind == "gram":
             return ops.gram_plan(m, n, x.dtype, sms, ops.GRAM_TILE_N, k)
         if route == "fold":  # one xtv of k columns
-            return ops.xtv_plan(m, n, k, x.dtype, sms)
-        return ops.xtv_plan(m, n, 1, x.dtype, sms, k)
+            return ops.xtv_route(m, n, k, x.dtype, sms)
+        return ops.xtv_route(m, n, 1, x.dtype, sms, k)
 
     main = {}
     for shape, kind, route, name in cases:
@@ -4757,9 +4829,9 @@ def phase_batched_kernels(peaks: dict, stack=CV_STACK,
         emit(row)
         if not ok:
             raise AssertionError(f"{kind} {route} {name} failed: {row}")
-        # one launch of the batched kernel (the fold: of the lone xtv)
-        # and at most one of its reduce, nothing else
-        one = ("xtv" if route == "fold" else f"{kind}_batched")
+        # one launch of the batched kernel (the fold: of the lone tile
+        # product, k columns) and at most one of its reduce, nothing else
+        one = ("xtv_tile" if route == "fold" else f"{kind}_batched")
         if counts.get(one) != 1 or any(
                 key not in (one, f"{one}_reduce") or c != 1
                 for key, c in counts.items()):
@@ -5629,9 +5701,11 @@ def flash_spills(log: str, dtype: str) -> dict:
 
 
 def gram_spills(log: str) -> dict:
-    """Spill bytes of each float64 and bfloat16 gram partial kernel, by
-    dtype and template arguments (tile width, copy width)."""
-    return ptxas_spills(log, r"gram_(f64|bf16)_partial_kernelI(\w+?)EE")
+    """Spill bytes of each float64 gram partial kernel (tile width, copy
+    width), bfloat16 wgmma gram kernel (tile width) and xtv tile product
+    (dtype, W's tile width), by kernel and template arguments."""
+    return ptxas_spills(log, r"(gram_f64_partial_kernel|gram_bf16_wgmma_kernel"
+                             r"|xtv_tile_kernel)I(\w+?)EE")
 
 
 def wkv6_spills(log: str) -> dict:
@@ -5714,9 +5788,14 @@ def main() -> int:
     if sorted(fspills) != pairs or fspills["192:128"]:
         raise AssertionError(f"the float32 (192, 128) flash instantiation "
                              f"spills (or is not built): {fspills}")
-    # 2 tile widths x 2 copy widths of each
-    if len(gspills) != 8 or any(gspills.values()):
-        raise AssertionError(f"gram f64/bf16 partial kernels spill: "
+    # float64 partial: 2 tile widths x 2 copy widths; the bf16 wgmma
+    # gram: 2 tile widths; the xtv tile product: 3 dtypes x 4 widths of W
+    want = {"gram_f64_partial_kernel": 4, "gram_bf16_wgmma_kernel": 2,
+            "xtv_tile_kernel": 12}
+    if any(len([k for k in gspills if k.startswith(name)]) != n
+           for name, n in want.items()) or any(gspills.values()):
+        raise AssertionError(f"gram.cu's float64 partial, bf16 wgmma or xtv "
+                             f"tile kernels spill (or are not all built): "
                              f"{gspills}")
     # 2 passes x 2 dtypes x 2 head dims x (the unrolled chunk, any chunk)
     if len(wspills) != 16 or any(wspills.values()):
@@ -5818,6 +5897,37 @@ def main() -> int:
             device_ms=r["device_ms"], host_us=r["host_us"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # xtv of two or more columns: the tile product (lone, folded and
+    # batched launches), at kmeans' AᵀX with mlogreg's and the fold's rows
+    # beside it; its launches by path (a path's dict may lack the keys:
+    # then 0)
+    paths = dict(lmds=launches, **algo_launches, grid_search_vmap=grid_launches,
+                 cv_vmap=cv_launches, lifecycle_pipeline=life_launches,
+                 csv_stream=csv_launches, serve_plan_train=plan_launches,
+                 **pipe_launches, **fed_launches, **shard_launches)
+    tile_rows = {k.split(":")[1]: r for k, r in main_rows.items()
+                 if k.startswith("xtv_tile:")}
+    r = tile_rows["kmeans"]
+    kernels.append(dict(
+        name="xtv_tile", route="cuda", source="src/repro_torch/csrc/gram.cu",
+        replaces="src/repro/kernels/gram/kernel.py:83",
+        launches=sum(v.get("xtv_tile", 0) + v.get("xtv_tile_batched", 0)
+                     for v in paths.values()),
+        reduce_launches=sum(v.get("xtv_tile_reduce", 0)
+                            + v.get("xtv_tile_batched_reduce", 0)
+                            for v in paths.values()),
+        launches_by_path={p: v.get("xtv_tile", 0) + v.get("xtv_tile_batched", 0)
+                          for p, v in paths.items()},
+        shape=[r["m"], r["n"], r["c"]], plan=r["plan"],
+        max_abs_err=r["max_abs_err"], ms=r["ms"],
+        device_ms=r["device_ms"], host_us=r["host_us"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        rows={name: dict(shape=[q["m"], q["n"], q["c"]], plan=q["plan"],
+                         ms=q["ms"], device_ms=q["device_ms"],
+                         host_us=q["host_us"], bound_ms=q["bound_ms"],
+                         library_ms=q["library_ms"])
+              for name, q in tile_rows.items()}))
     # the same kernels under torch.func.vmap: one launch over a batch, at
     # the CV path's training stacks (8, 87,500, 1,000) float64; per path,
     # launches x (device ms - bound ms) at that shape

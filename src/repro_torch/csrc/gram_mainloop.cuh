@@ -12,9 +12,14 @@
 //     a warp's fragment loads hit distinct banks.
 //   * bfloat16 runs on mma.sync m16n8k16 with float32 accumulation; both
 //     operands are MN-major column tiles, loaded with ldmatrix.trans
-//     (rows padded by 16 bytes: conflict-free).
+//     (rows padded by 16 bytes: conflict-free). spmm.cu's block-sparse
+//     gram runs this loop; gram.cu's dense bfloat16 gram (lone and
+//     batched) runs its own wgmma + TMA mainloop (gram_bf16_wgmma_kernel).
 //   * float32 stays on the FMA pipes (TF32 is off for the tolerance and
 //     the library yardstick): an 8 x 8 (or 8 x 4) register tile a thread.
+// The float64 and bfloat16 fragment steps of one stage (mma_f64_stage,
+// mma_bf16_stage) also serve gram.cu's xtv tile product, whose warps own
+// other blocks of its narrower tiles.
 // Each stage holds BK rows of both column tiles; a 3-stage cp.async ring
 // issues the next stage's copies before the current stage is computed.
 // Which rows a stage holds is the caller's: gram.cu walks its row range in
@@ -35,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -58,10 +65,6 @@ __device__ __forceinline__ float madd(float a, float b, float c) { return fmaf(a
 __host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
 // ---- cp.async --------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 // Copy BYTES (4, 8 or 16) to shared memory; bytes past src_bytes are zero.
 template <int BYTES>
@@ -143,35 +146,43 @@ __device__ __forceinline__ void load_tile(T* s, const T* __restrict__ x, int64_t
   }
 }
 
-// The ring: stage `it` (of niter) holds rows [row_of(it), row_of(it) + BK)
-// of the i tile (BK x LD) and, unless the j tile lies inside it, of the j
-// tile after it; rows at or past r1 are zero. compute(stage pointer) runs
-// on each in order.
+// A cp.async ring of NS stages of STAGE elements: load(stage pointer, it)
+// issues stage it's copies (of niter), and compute(stage pointer) runs on
+// each stage in order while the next NS - 1 stages' copies are in flight.
+template <int NS, int STAGE, typename T, typename Load, typename Compute>
+__device__ __forceinline__ void cp_ring(T* smem, int niter, Load&& load, Compute&& compute) {
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < niter) load(smem + s * STAGE, s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < niter; ++it) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    if (it + NS - 1 < niter) load(smem + ((it + NS - 1) % NS) * STAGE, it + NS - 1);
+    cp_async_commit();
+    compute(smem + (it % NS) * STAGE);
+  }
+}
+
+// The gram ring: stage `it` (of niter) holds rows [row_of(it), row_of(it) +
+// BK) of the i tile (BK x LD) and, unless the j tile lies inside it, of the
+// j tile after it; rows at or past r1 are zero. compute(stage pointer)
+// runs on each in order.
 template <typename T, int BN, int VEC, int BK, int LD, typename RowOf, typename Compute>
 __device__ __forceinline__ void gram_ring(T* smem, const T* __restrict__ x, int64_t ldx,
                                           int niter, RowOf&& row_of, int64_t r1, int64_t i0,
                                           int64_t j0, int64_t n, bool share,
                                           Compute&& compute) {
-  constexpr int STAGE = 2 * BK * LD;
   const int tid = threadIdx.x;
-  auto load = [&](int it) {
-    T* s = smem + (it % STAGES) * STAGE;
-    const int64_t k0 = row_of(it);
-    load_tile<T, VEC, BK, BM, LD>(s, x, ldx, k0, r1, i0, n, tid);
-    if (!share) load_tile<T, VEC, BK, BN, LD>(s + BK * LD, x, ldx, k0, r1, j0, n, tid);
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < niter) load(s);
-    cp_async_commit();
-  }
-  for (int it = 0; it < niter; ++it) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (it + STAGES - 1 < niter) load(it + STAGES - 1);
-    cp_async_commit();
-    compute(smem + (it % STAGES) * STAGE);
-  }
+  cp_ring<STAGES, 2 * BK * LD>(
+      smem, niter,
+      [&](T* s, int it) {
+        const int64_t k0 = row_of(it);
+        load_tile<T, VEC, BK, BM, LD>(s, x, ldx, k0, r1, i0, n, tid);
+        if (!share) load_tile<T, VEC, BK, BN, LD>(s + BK * LD, x, ldx, k0, r1, j0, n, tid);
+      },
+      compute);
 }
 
 // D += A B on the FP64 tensor cores: one m16n8k4 f64 product (m16n8k8 and
@@ -192,10 +203,38 @@ template <int BN> struct WarpGrid {
 
 // Fragments of mma.m16n8k4.f64 (lane = 4 g + t; CuTe's
 // SM90_16x8x4_F64F64F64F64_TN): a = {A(g, t), A(g + 8, t)}, b = B(t, g),
-// c = {C(g, 2t), C(g, 2t+1), C(g+8, 2t), C(g+8, 2t+1)}. A(m, k) =
-// X(k, i0 + m) and B(k, n) = X(k, j0 + n): both are read from row k of a
-// stage. The tile functions below take the ring's rows and write the
-// BM x BN partial to w.
+// c = {C(g, 2t), C(g, 2t+1), C(g+8, 2t), C(g+8, 2t+1)}. A stage holds
+// rows k of both operands' column tiles: A(m, k) = sa[k LDA + m0 + m] and
+// B(k, n) = sb[k LDB + n0 + n]. One stage's products of a warp's MI x NI
+// fragments, added into acc (the warp's block of the output tile, its
+// origin (m0, n0)); the gram tiles below and gram.cu's xtv tile product
+// run it, with their own warp blocks.
+template <int BK, int LDA, int LDB, int MI, int NI>
+__device__ __forceinline__ void mma_f64_stage(double (&acc)[MI][NI][4],
+                                              const double* sa, const double* sb, int m0,
+                                              int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 4) {
+    const double* ra = sa + (ks + t) * LDA + m0 + g;
+    const double* rb = sb + (ks + t) * LDB + n0 + g;
+    double a[MI][2], b[NI][1];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      a[mi][0] = ra[mi * 16];
+      a[mi][1] = ra[mi * 16 + 8];
+    }
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) b[ni][0] = rb[ni * 8];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) mma_f64(acc[mi][ni], a[mi], b[ni]);
+  }
+}
+
+// The tile functions below take the ring's rows (A(m, k) = X(k, i0 + m),
+// B(k, n) = X(k, j0 + n)) and write the BM x BN partial to w.
 template <int BN, int VEC, typename RowOf>
 __device__ __forceinline__ void gram_f64_tile(const double* __restrict__ x, int64_t ldx,
                                               int64_t n, int64_t i0, int64_t j0, int niter,
@@ -221,24 +260,7 @@ __device__ __forceinline__ void gram_f64_tile(const double* __restrict__ x, int6
 
   gram_ring<double, BN, VEC, BK, LD>(
       smem, x, ldx, niter, row_of, r1, i0, j0, n, share, [&](const double* sa) {
-        const double* sb = sa + boff;
-#pragma unroll
-        for (int ks = 0; ks < BK; ks += 4) {
-          const double* ra = sa + (ks + t) * LD + wm0 + g;
-          const double* rb = sb + (ks + t) * LD + wn0 + g;
-          double a[G::MI][2], b[G::NI][1];
-#pragma unroll
-          for (int mi = 0; mi < G::MI; ++mi) {
-            a[mi][0] = ra[mi * 16];
-            a[mi][1] = ra[mi * 16 + 8];
-          }
-#pragma unroll
-          for (int ni = 0; ni < G::NI; ++ni) b[ni][0] = rb[ni * 8];
-#pragma unroll
-          for (int mi = 0; mi < G::MI; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < G::NI; ++ni) mma_f64(acc[mi][ni], a[mi], b[ni]);
-        }
+        mma_f64_stage<BK, LD, LD>(acc, sa, sa + boff, wm0, wn0);
       });
 
 #pragma unroll
@@ -257,11 +279,58 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
 
 // mma.m16n8k16 bf16 -> f32: a = {A(g, 2t..), A(g+8, 2t..), A(g, 2t+8..),
 // A(g+8, 2t+8..)}, b = {B(2t.., g), B(2t+8.., g)}, c as for f64. A stage
 // row is k, so ldmatrix.trans of the 8 x 8 blocks (k, m) gives A's and
-// (k, n) gives B's fragments.
+// (k, n) gives B's fragments. One stage's products of a warp's MI x NI
+// fragments (NI one, or even: B's fragments come two at a time), as
+// mma_f64_stage.
+template <int BK, int LDA, int LDB, int MI, int NI>
+__device__ __forceinline__ void mma_bf16_stage(float (&acc)[MI][NI][4],
+                                               const __nv_bfloat16* sa,
+                                               const __nv_bfloat16* sb, int m0, int n0) {
+  static_assert(NI == 1 || NI % 2 == 0, "B's fragments two at a time");
+  const int lane = threadIdx.x & 31, li = lane >> 3, lr = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 16) {
+    uint32_t a[MI][4], b[NI][2];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+      ldsm_x4_trans(a[mi], sa + (ks + lr + 8 * (li >> 1)) * LDA + m0 + mi * 16 + 8 * (li & 1));
+    if constexpr (NI == 1) {
+      ldsm_x2_trans(b[0], sb + (ks + lr + 8 * (li & 1)) * LDB + n0);
+    } else {
+#pragma unroll
+      for (int np = 0; np < NI / 2; ++np) {
+        uint32_t r4[4];
+        ldsm_x4_trans(r4, sb + (ks + lr + 8 * (li & 1)) * LDB + n0 + np * 16 + 8 * (li >> 1));
+        b[2 * np][0] = r4[0];
+        b[2 * np][1] = r4[1];
+        b[2 * np + 1][0] = r4[2];
+        b[2 * np + 1][1] = r4[3];
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        float* c = acc[mi][ni];
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+            : "r"(a[mi][0]), "r"(a[mi][1]), "r"(a[mi][2]), "r"(a[mi][3]), "r"(b[ni][0]),
+              "r"(b[ni][1]));
+      }
+  }
+}
+
 template <int BN, int VEC, typename RowOf>
 __device__ __forceinline__ void gram_bf16_tile(const __nv_bfloat16* __restrict__ x, int64_t ldx,
                                                int64_t n, int64_t i0, int64_t j0, int niter,
@@ -273,7 +342,7 @@ __device__ __forceinline__ void gram_bf16_tile(const __nv_bfloat16* __restrict__
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const bool share = j0 + BN <= i0 + BM;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, li = lane >> 3, lr = lane & 7;
+  const int g = lane >> 2, t = lane & 3;
   const int wm0 = (warp / G::WARPS_N) * G::WM, wn0 = (warp % G::WARPS_N) * 32;
   const int boff = share ? (int)(j0 - i0) : BK * LD;
 
@@ -287,37 +356,7 @@ __device__ __forceinline__ void gram_bf16_tile(const __nv_bfloat16* __restrict__
 
   gram_ring<__nv_bfloat16, BN, VEC, BK, LD>(
       smem, x, ldx, niter, row_of, r1, i0, j0, n, share, [&](const __nv_bfloat16* sa) {
-        const __nv_bfloat16* sb = sa + boff;
-#pragma unroll
-        for (int ks = 0; ks < BK; ks += 16) {
-          uint32_t a[G::MI][4], b[G::NI][2];
-#pragma unroll
-          for (int mi = 0; mi < G::MI; ++mi)
-            ldsm_x4_trans(a[mi], sa + (ks + lr + 8 * (li >> 1)) * LD + wm0 + mi * 16 +
-                                     8 * (li & 1));
-#pragma unroll
-          for (int np = 0; np < G::NI / 2; ++np) {
-            uint32_t r4[4];
-            ldsm_x4_trans(r4, sb + (ks + lr + 8 * (li & 1)) * LD + wn0 + np * 16 +
-                                  8 * (li >> 1));
-            b[2 * np][0] = r4[0];
-            b[2 * np][1] = r4[1];
-            b[2 * np + 1][0] = r4[2];
-            b[2 * np + 1][1] = r4[3];
-          }
-#pragma unroll
-          for (int mi = 0; mi < G::MI; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < G::NI; ++ni) {
-              float* c = acc[mi][ni];
-              asm volatile(
-                  "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                  "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-                  : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-                  : "r"(a[mi][0]), "r"(a[mi][1]), "r"(a[mi][2]), "r"(a[mi][3]),
-                    "r"(b[ni][0]), "r"(b[ni][1]));
-            }
-        }
+        mma_bf16_stage<BK, LD, LD>(acc, sa, sa + boff, wm0, wn0);
       });
 
 #pragma unroll

@@ -231,8 +231,7 @@ def test_gram_and_xtv_plans(m, n, dtype, sms):
         assert xs <= -(-m // 256)
         # never more blocks than fit on the card at once
         slabs = -(-n // (512 // dtype.itemsize))
-        assert xs == 1 or xs * slabs <= tops._XTV_BLOCKS_PER_SM[
-            1 if c == 1 else 4] * sms
+        assert xs == 1 or xs * slabs <= tops._XTV_BLOCKS_PER_SM * sms
 
 
 def test_gram_plan_at_the_lmds_bucket():
@@ -293,7 +292,8 @@ def test_cuda_kernels_match_plain_version(cuda_device, m, n, c, offset,
     xv = tops.xtv(x, v)
     torch.cuda.synchronize()
     assert tops.LAUNCHES["gram"] == before["gram"] + 1
-    assert tops.LAUNCHES["xtv"] == before["xtv"] + 1
+    key = "xtv" if c == 1 else "xtv_tile"
+    assert tops.LAUNCHES[key] == before[key] + 1
     assert torch.equal(g, g.mT)
     assert tref.scaled_err(g, tref.gram(x), x, x) <= KERNEL_RTOL[dtype]
     assert tref.scaled_err(xv, tref.xtv(x, v), x, v) <= KERNEL_RTOL[dtype]
@@ -340,7 +340,8 @@ def test_cuda_batched_kernels_match_lone_calls(cuda_device, k, m, n, c,
     xv = torch.func.vmap(tops.xtv_op)(x, v)
     torch.cuda.synchronize()
     assert tops.LAUNCHES["gram_batched"] == before["gram_batched"] + 1
-    assert tops.LAUNCHES["xtv_batched"] == before["xtv_batched"] + 1
+    key = "xtv_batched" if c == 1 else "xtv_tile_batched"
+    assert tops.LAUNCHES[key] == before[key] + 1
     assert tops.LAUNCHES["gram"] == before["gram"]
     assert torch.equal(g, g.mT)
     for i in range(k):
@@ -361,3 +362,306 @@ def test_cuda_batched_kernels_match_lone_calls(cuda_device, k, m, n, c,
         assert tref.scaled_err(folded[i], tref.xtv(x[0].double(),
                                                    v[i].double()),
                                x[0], v[i]) <= tol
+
+
+# -- the xtv tile product (two or more columns of v) and the bf16 wgmma gram --
+
+# (m, n, c) of the paths' wide xtv launches and the odd shapes the card's
+# cases run: kmeans' per-cluster sums AᵀX (A one-hot, 8 columns), mlogreg's
+# gradient (10 classes), the CV fold's 8 v's folded into columns, ragged c
+# on an odd width and on steplm's 34 columns, tiny and wide-by-wide cases
+TILE_SHAPES = [(100_000, 8, 1000), (100_000, 1000, 10), (12_500, 1000, 8),
+               (3000, 1001, 9), (3000, 1001, 129), (20_000, 34, 9),
+               (20_000, 34, 129), (7, 130, 3), (1, 257, 3), (300, 12, 3),
+               (4096, 64, 2), (2048, 300, 300)]
+
+
+def _tile_cover(n, c, bn, trans):
+    """How many output tiles of the tile product cover each entry of the
+    (n, c) output: the wider side (c when trans) in tiles of 128, the
+    narrower in tiles of bn."""
+    wide, narrow = (c, n) if trans else (n, c)
+    seen = np.zeros((wide, narrow), dtype=int)
+    for i0 in range(0, wide, 128):
+        for j0 in range(0, narrow, bn):
+            seen[i0:i0 + 128, j0:j0 + bn] += 1
+    return seen
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("m,n,c", TILE_SHAPES)
+def test_xtv_tile_plan(m, n, c, dtype, sms, batch):
+    """The tile plan covers every output entry with one tile and every row
+    with one split (no empty split, at most 65,535), orients the wider
+    operand into the 128-wide tiles, pads the narrow side to the next of
+    8, 16, 32 and 64 only, fills the card's resident slots at most once
+    unless one split a tile already exceeds them, splits no finer than
+    64 rows, and is a pure function of its arguments."""
+    bn, trans, splits, rows = tops.xtv_tile_plan(m, n, c, dtype, sms, batch)
+    assert trans == (n < c)
+    narrow = min(n, c)
+    assert bn == next((b for b in (8, 16, 32) if narrow <= b), 64)
+    assert (splits - 1) * rows < m <= splits * rows
+    assert 1 <= splits <= 65535
+    tiles = batch * -(-max(n, c) // 128) * -(-narrow // bn)
+    assert splits == 1 or tiles * splits <= 2 * sms
+    assert splits <= -(-m // 64)  # never finer than 64 rows a split
+    assert np.array_equal(_tile_cover(n, c, bn, trans),
+                          np.ones((max(n, c), narrow), dtype=int))
+    assert tops.xtv_tile_plan.__wrapped__(m, n, c, dtype, sms, batch) == \
+        (bn, trans, splits, rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("m,n,c", TILE_SHAPES + [(8192, 1000, 1),
+                                                 (100_000, 1000, 1)])
+def test_xtv_route_by_columns(m, n, c, dtype):
+    """One column of v takes the slab kernel under its own plan; two or
+    more, the tile product under its plan; the route is a pure function of
+    the shape, dtype, card and batch."""
+    for batch in (1, 8):
+        route = tops.xtv_route(m, n, c, dtype, 132, batch)
+        if c == 1:
+            assert route == ("slab",) + tops.xtv_plan(m, n, c, dtype, 132,
+                                                      batch)
+        else:
+            assert route == ("tile",) + tops.xtv_tile_plan(
+                m, n, c, dtype, 132, batch)
+        assert tops.xtv_route.__wrapped__(m, n, c, dtype, 132, batch) == \
+            route
+        assert route[0] == ("slab" if c == 1 else "tile")
+
+
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 12_500, 100_000])
+@pytest.mark.parametrize("n", [12, 64, 1000, 1001])
+def test_bf16_gram_splits_are_whole_stages(m, n):
+    """The bfloat16 gram's TMA ring loads 64 rows a stage: every split but
+    the last holds whole stages, so no stage reads into the next split."""
+    for batch in (1, 8):
+        tile_n, splits, rows = tops.gram_plan(m, n, torch.bfloat16, 132,
+                                              128, batch)
+        assert rows % 64 == 0
+        assert (splits - 1) * rows < m <= splits * rows
+
+
+@pytest.mark.parametrize("route", ["fold", "shared_v", "batched"])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vmapped_xtv_op_matches_reference(reference, route, c, dtype):
+    """`xtv_op` under torch.func.vmap on the CPU (one X with a batch of v,
+    a batch of X with one v, both batched) against the reference's
+    `ops.xtv` under jax.vmap, its jnp oracle and its Pallas kernel in
+    interpret mode."""
+    import functools
+    import jax
+    jnp, gops, gref = reference
+    k, m, n = 4, 256, 96
+    x3 = _data(k * m, n, dtype, seed=11).reshape(k, m, n)
+    v3 = _data(k * m, c, dtype, seed=12).reshape(k, m, c)
+    xs, vs = {"fold": (x3[0], v3), "shared_v": (x3, v3[0]),
+              "batched": (x3, v3)}[route]
+    axes = (None if xs.ndim == 2 else 0, None if vs.ndim == 2 else 0)
+    t = from_reference({"x": xs, "v": vs}, "cpu")
+    got = torch.func.vmap(tops.xtv_op, in_dims=axes)(t["x"], t["v"])
+    assert tuple(got.shape) == (k, n, c)
+    with jax.enable_x64(False):
+        oracle = jax.vmap(gref.xtv, in_axes=axes)(jnp.asarray(xs),
+                                                  jnp.asarray(vs))
+        pallas = jax.vmap(functools.partial(gops.xtv, interpret=True, bm=128,
+                                            bn=32), in_axes=axes)(
+            jnp.asarray(xs), jnp.asarray(vs))
+    for want in (oracle, pallas):
+        assert _rel(got.numpy(), np.asarray(want)) <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,c,offset", [
+    pytest.param(4096, 8, 1000, 0, id="kmeans-like-4096-8-1000"),
+    pytest.param(8192, 1000, 10, 0, id="mlogreg-like-8192-1000-10"),
+    pytest.param(12_500, 1000, 8, 0, id="fold-12500-1000-8"),
+    pytest.param(3000, 1001, 9, 0, id="ragged-c9-3000-1001"),
+    pytest.param(3000, 1001, 129, 0, id="ragged-c129-3000-1001"),
+    pytest.param(20000, 34, 9, 1, id="offset-slice-c9-20000-34"),
+    pytest.param(20000, 34, 129, 1, id="offset-slice-c129-20000-34"),
+    pytest.param(7, 130, 3, 0, id="m-below-a-stage-7-130-3"),
+    pytest.param(2048, 300, 300, 3, id="wide-by-wide-2048-300-300"),
+])
+def test_cuda_xtv_tile_matches_plain_version(cuda_device, m, n, c, offset,
+                                             dtype):
+    """Every xtv of two or more columns launches the tile product once
+    (and its reduce), within KERNEL_RTOL of the plain version, bitwise on
+    a second call; for a narrow X the wider v takes the 128-wide tiles."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, v = _cuda_case(m, n, c, offset, dtype, cuda_device)
+    before = dict(tops.LAUNCHES)
+    got = tops.xtv(x, v)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["xtv_tile"] == before["xtv_tile"] + 1
+    assert tops.LAUNCHES["xtv"] == before["xtv"]
+    assert got.dtype == tref.acc_dtype(x.dtype) and got.shape == (n, c)
+    assert tref.scaled_err(got, tref.xtv(x, v), x, v) <= KERNEL_RTOL[dtype]
+    assert tref.scaled_err(got, tref.xtv(x.double(), v.double()), x, v) \
+        <= KERNEL_RTOL[dtype]
+    assert torch.equal(got, tops.xtv(x, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("k,m,n,c", [
+    pytest.param(8, 12_500, 1000, 1, id="cv-fold-8-12500-1000-1"),
+    pytest.param(4, 3000, 1001, 3, id="odd-n-4-3000-1001-3"),
+    pytest.param(3, 777, 8, 40, id="narrow-x-3-777-8-40"),
+    pytest.param(2, 100, 5, 2, id="tiny-2-100-5-2"),
+])
+def test_cuda_xtv_tile_batched_and_folded(cuda_device, k, m, n, c, dtype):
+    """Batched xtv of two or more columns with X and v batched, with one v
+    (batch stride 0) and with one X (the batch read in place as k·c
+    columns: one lone tile launch, no copy of v), each element within
+    KERNEL_RTOL of the plain version in float64, bitwise on repeat."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = TORCH_DTYPE[dtype]
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(k, m, n))).to(cuda_device, dt)
+    v = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(k, m, c))).to(cuda_device, dt)
+    tol = KERNEL_RTOL[dtype]
+    runs = {"batched": ((0, 0), x, v), "shared_v": ((0, None), x, v[0]),
+            "fold": ((None, 0), x[0], v)}
+    for name, (axes, xs, vs) in runs.items():
+        fn = torch.func.vmap(tops.xtv_op, in_dims=axes)
+        before = dict(tops.LAUNCHES)
+        got = fn(xs, vs)
+        torch.cuda.synchronize()
+        cols = k * c if name == "fold" else c
+        tile = cols >= 2
+        key = {("fold", True): "xtv_tile", ("fold", False): "xtv"}.get(
+            (name, tile), "xtv_tile_batched" if tile else "xtv_batched")
+        assert tops.LAUNCHES[key] == before[key] + 1, name
+        assert got.shape == (k, n, c)
+        for i in range(k):
+            xi = xs if axes[0] is None else xs[i]
+            vi = vs if axes[1] is None else vs[i]
+            want = tref.xtv(xi.double(), vi.double())
+            assert tref.scaled_err(got[i], want, xi, vi) <= tol, name
+        assert torch.equal(got, fn(xs, vs)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [12, 64, 1000, 1001])
+@pytest.mark.parametrize("m", [100, 12_500])
+def test_cuda_bf16_gram_on_wgmma(cuda_device, m, n):
+    """The bfloat16 gram (lone and batched; a misaligned width through an
+    aligned copy) within KERNEL_RTOL of the plain version in float64,
+    bitwise symmetric and bitwise on repeat."""
+    x = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(3, m, n))).to(cuda_device, torch.bfloat16)
+    tol = KERNEL_RTOL["bfloat16"]
+    before = dict(tops.LAUNCHES)
+    g = tops.gram(x[1])
+    gb = torch.func.vmap(tops.gram_op)(x)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["gram"] == before["gram"] + 1
+    assert tops.LAUNCHES["gram_batched"] == before["gram_batched"] + 1
+    assert g.dtype == gb.dtype == torch.float32
+    assert torch.equal(g, g.mT) and torch.equal(gb, gb.mT)
+    assert tref.scaled_err(g, tref.gram(x[1].double()), x[1], x[1]) <= tol
+    for i in range(3):
+        assert tref.scaled_err(gb[i], tref.gram(x[i].double()), x[i],
+                               x[i]) <= tol
+    assert torch.equal(g, tops.gram(x[1]))
+    assert torch.equal(gb, torch.func.vmap(tops.gram_op)(x))
+
+
+# -- the cost counter: a count on "meta" is the card's, op for op -------------
+
+def _meta(shape, dtype, offset=0):
+    """A "meta" tensor of `shape` whose last axis starts `offset` columns
+    into wider rows (a column slice at an offset), as `_strided` on the
+    host."""
+    *lead, n = shape
+    return torch.empty((*lead, n + offset), dtype=dtype,
+                       device="meta")[..., offset:]
+
+
+def _strided(shape, dtype, offset=0, device="cpu"):
+    *lead, n = shape
+    return torch.zeros((*lead, n + offset), dtype=dtype,
+                       device=device)[..., offset:]
+
+
+@pytest.mark.parametrize("k,c", [(8, 1), (3, 4), (1, 1), (1, 3)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_folded_xtv_counts_on_meta_as_on_the_card(k, c, dtype):
+    """vmap of `xtv_op` over a batch of v with one X, on "meta": the
+    kernel's work for k·c columns and no other op, as on the card (the
+    tile product reads the v's in place; a one-column fold's v is a
+    view), and the card's output shape and dtype."""
+    from repro_torch.launch import hlocost, kernel_model
+    m, n = 300, 20
+    x, v = _meta((m, n), dtype), _meta((k, m, c), dtype)
+    fn = torch.func.vmap(tops.xtv_op, in_dims=(None, 0))
+    t = hlocost.count(fn, x, v)
+    assert (t.flops, t.bytes) == kernel_model.xtv_work(m, n, k * c, dtype)
+    assert set(t.by_op) == {"xtv"} and t.by_op["xtv"][0] == 1
+    out = fn(x, v)
+    assert out.shape == (k, n, c) and out.dtype == tref.acc_dtype(dtype)
+
+
+@pytest.mark.parametrize("k", [None, 3])
+@pytest.mark.parametrize("n,offset", [(13, 0), (16, 0), (16, 1), (64, 0)])
+def test_bf16_gram_counts_its_aligned_copy_on_meta(n, offset, k):
+    """The bfloat16 gram on "meta" (lone, and a vmapped stack) charges the
+    copy that the card makes of an X whose base or row stride is not
+    16-byte aligned (`_tma_ready`, counted on the host) beside the
+    kernel's work, and nothing more where X is aligned."""
+    from repro_torch.launch import hlocost, kernel_model
+    m, dt = 100, torch.bfloat16
+    shape = (m, n) if k is None else (k, m, n)
+    host = _strided(shape, dt, offset)
+    copy = hlocost.count(tops._tma_ready, host)
+    aligned = offset == 0 and n % 8 == 0
+    assert (copy.bytes == 0) == aligned
+    if k is None:
+        t = hlocost.count(tops.gram, _meta(shape, dt, offset))
+        work = kernel_model.gram_work(m, n, dt)
+    else:
+        t = hlocost.count(torch.func.vmap(tops.gram_op),
+                          _meta(shape, dt, offset))
+        work = kernel_model.gram_batched_work(k, m, n, dt)
+    assert (t.flops, t.bytes) == (copy.flops + work[0],
+                                  copy.bytes + work[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fold", "fold_c1", "batched",
+                                  "gram_bf16_odd", "gram_bf16_odd_stack",
+                                  "gram_bf16_slice"])
+def test_cuda_count_equals_meta(cuda_device, case):
+    """The cost counter's totals of a gram/xtv call on the card equal those
+    of the same call on "meta" (FLOPs, bytes and ops)."""
+    from repro_torch.launch import hlocost
+    f64, bf16 = torch.float64, torch.bfloat16
+    fold = torch.func.vmap(tops.xtv_op, in_dims=(None, 0))
+    calls = {
+        "fold": (fold, [((3000, 40), f64, 0), ((8, 3000, 2), f64, 0)]),
+        "fold_c1": (fold, [((3000, 40), f64, 0), ((8, 3000, 1), f64, 0)]),
+        "batched": (torch.func.vmap(tops.xtv_op),
+                    [((4, 3000, 40), f64, 0), ((4, 3000, 3), f64, 0)]),
+        "gram_bf16_odd": (tops.gram, [((3000, 13), bf16, 0)]),
+        "gram_bf16_odd_stack": (torch.func.vmap(tops.gram_op),
+                                [((4, 3000, 13), bf16, 0)]),
+        "gram_bf16_slice": (tops.gram, [((3000, 64), bf16, 1)]),
+    }
+    fn, specs = calls[case]
+    card_args = [_strided(s, d, o, cuda_device) for s, d, o in specs]
+    meta_args = [_meta(s, d, o) for s, d, o in specs]
+    card = hlocost.count(fn, *card_args)
+    meta = hlocost.count(fn, *meta_args)
+    assert card.flops == meta.flops > 0
+    assert card.bytes == meta.bytes
+    assert dict(card.by_op) == dict(meta.by_op)
