@@ -1524,23 +1524,34 @@ def phase_sparse_kernels(peaks: dict, scale: int = 1) -> dict:
           "bfloat16": torch.bfloat16}
     m, tail = 100_000 // scale, 6784 // scale
     bucket = 32_768 // scale  # a sparse_stream bucket (12 of them, + tail)
-    # (kernel, rows, cols, v/W columns, pattern); every case draws its data
-    # from one generator in list order, so a case added later goes last and
-    # the earlier cases keep their data
+    # (kernel, rows, cols, v/W columns, pattern[, column offset]); every
+    # case draws its data from one generator in list order, so a case added
+    # later goes last and the earlier cases keep their data. Two or more
+    # columns take the tile products: mlogreg's 10 classes at the lmds
+    # point, ragged c on the stream's tail, a slice at an odd offset
+    # (element copies)
     cases = [("gram_bs", m, 1000, 0, BLOCKY), ("gram_bs", m, 1000, 0, UNIFORM),
              ("gram_bs", tail, 1000, 0, BLOCKY),
              ("xtv_bs", m, 1000, 1, BLOCKY), ("xtv_bs", m, 2000, 1, BLOCKY_WIDE),
              ("xtv_bs", tail, 1000, 1, BLOCKY),
              ("spmm", m, 2000, 1, BLOCKY_WIDE), ("spmm", tail, 1000, 1, BLOCKY),
              ("gram_bs", bucket, 1000, 0, BLOCKY),
-             ("xtv_bs", bucket, 1000, 1, BLOCKY)]
+             ("xtv_bs", bucket, 1000, 1, BLOCKY),
+             ("spmm", m, 1000, 10, BLOCKY), ("xtv_bs", m, 1000, 10, BLOCKY),
+             ("spmm", tail, 1000, 9, BLOCKY), ("xtv_bs", tail, 1000, 9, BLOCKY),
+             ("spmm", tail, 1000, 129, BLOCKY),
+             ("xtv_bs", tail, 1000, 129, BLOCKY),
+             ("spmm", tail, 1000, 9, BLOCKY, 1),
+             ("xtv_bs", tail, 1000, 9, BLOCKY, 1)]
     main = {}
     rng = np.random.default_rng(SEED)
-    for kind, rows, cols, c, pattern in cases:
-        xh, _ = blocky(rng, rows, cols, *pattern)
-        xs = to_device(sparsify(xh), DEVICE)
+    for kind, rows, cols, c, pattern, *off in cases:
+        off = off[0] if off else 0
+        xh, _ = blocky(rng, rows, cols + off, *pattern)
+        xs = to_device(sparsify(xh[:, off:]), DEVICE)
+        xd = to_device(sparsify(xh), DEVICE).todense()[:, off:] if off \
+            else xs.todense()
         del xh
-        xd = xs.todense()
         mask = ops.block_mask_from_indices(xs)
         if not torch.equal(mask, ref.block_mask(xd, ops.ROWS, ops.TILE)):
             raise AssertionError(f"{kind}: the mask from the indices "
@@ -1585,6 +1596,8 @@ def phase_sparse_kernels(peaks: dict, scale: int = 1) -> dict:
             saved = dict(ops.LAUNCHES), dict(gops.LAUNCHES)
             got, want = kern(mask), plain()
             torch.cuda.synchronize()
+            per_call = {k: v - saved[0][k] for k, v in ops.LAUNCHES.items()
+                        if v != saved[0][k]}
             err = (got.double() - want.double()).abs().max().item()
             scaled = scaled_err(got, want, a, b)
             checks = dict(tol=scaled <= TOL[name],
@@ -1602,8 +1615,8 @@ def phase_sparse_kernels(peaks: dict, scale: int = 1) -> dict:
             plain_ms = cuda_ms(plain)
             library_ms = cuda_ms(lib)
             row = dict(phase="sparse_kernel", kernel=kind, m=rows, n=cols,
-                       c=c or None, pattern=dict(p_block=pattern[0],
-                                                 p_in=pattern[1]),
+                       c=c or None, offset=off,
+                       pattern=dict(p_block=pattern[0], p_in=pattern[1]),
                        density=nnz / (rows * cols),
                        dtype=name, max_abs_err=err, scaled_err=scaled,
                        tol=TOL[name], checks=checks, ok=all(checks.values()),
@@ -1612,6 +1625,7 @@ def phase_sparse_kernels(peaks: dict, scale: int = 1) -> dict:
                        device_ms=None if dev_s is None else 100 * dev_s,
                        plain_ms=plain_ms, library_ms=library_ms,
                        unmasked_kernel_ms=unmasked_ms,
+                       launches_per_call=per_call,
                        **sparse_bounds(kind, mask, rows, cols, max(c, 1),
                                        name, peaks))
             if name == "float64":
@@ -1622,15 +1636,16 @@ def phase_sparse_kernels(peaks: dict, scale: int = 1) -> dict:
             else:  # the wrapper's host time a call
                 row["host_us"] = host_us(lambda: kern(mask))
                 ops.LAUNCHES.update(saved[0])
-            if kind == "xtv_bs":  # splits
-                row["plan"] = ops.xtv_bs_plan(rows, cols, max(c, 1), dtype,
-                                              sms)
+            if kind == "xtv_bs":  # the kernel and its plan
+                row["plan"] = ops.xtv_bs_route(rows, cols, c, dtype, sms)
+            elif kind == "spmm":
+                row["plan"] = ops.spmm_route(rows, cols, c, dtype, sms)
             emit(row)
             if not row["ok"]:
-                raise AssertionError(f"{kind} {rows}x{cols} {name} failed "
-                                     f"its checks: {row}")
-            if name == "float64" and pattern != UNIFORM:
-                main[(kind, rows, cols)] = row
+                raise AssertionError(f"{kind} {rows}x{cols} c {c} {name} "
+                                     f"failed its checks: {row}")
+            if name == "float64" and pattern != UNIFORM and not off:
+                main[(kind, rows, cols, max(c, 1))] = row
         del xs, xd, mask, ones, other
         torch.cuda.empty_cache()
     return main
@@ -1855,6 +1870,82 @@ def phase_sparse_lm(scale: int = 1) -> dict:
     by_path["sparse_stream"] = lc
     by_path["sparse_stream_depth1"] = depth1["launches"]
     return by_path
+
+
+SPARSE_MLR_ITERS = 5      # sparse mlogreg's max_iter (the algorithms' 10, cut)
+SPARSE_MLR_CLASSES = 10
+
+
+def phase_sparse_mlogreg(dev=DEVICE, m: int = 100_000, n: int = 1_000,
+                         iters: int = SPARSE_MLR_ITERS) -> dict:
+    """mlogreg on the bcoo lane (`LineageRuntime(sparse_inputs=True)`) on
+    the sparse_lmds data (m x n float64 blocky, density 0.05), 10 classes
+    from a seeded linear model: every iteration's X @ W and Xᵀ(P - Y) are
+    spmm and xtv_bs of 10 columns, the tile products. W against the dense
+    lane's mlogreg on the same data (rtol 1e-9), with the walls, the
+    launches by kernel, and what the bind's sparsify and the wrapper's
+    densify cost an iteration. Returns the path's sparse launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import LineageRuntime, input_tensor
+    from repro_torch.core.backend import sparsify, to_device
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.lifecycle import mlogreg
+    rng = np.random.default_rng(SEED + 8)
+    xh, _ = blocky(rng, m, n, *BLOCKY)
+    labels = np.argmax(xh @ rng.standard_normal((n, SPARSE_MLR_CLASSES)),
+                       axis=1)
+    y_oh = np.eye(SPARSE_MLR_CLASSES)[labels]
+    density = float(np.count_nonzero(xh)) / xh.size
+
+    def fit(rt, its):
+        gops.reset_launches()
+        sops.reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        w = mlogreg(input_tensor("X", xh, sparsity=density),
+                    input_tensor("Y", y_oh), max_iter=its, runtime=rt)
+        _sync(dev)
+        return w, dict(wall_s=time.perf_counter() - t0,
+                       s_per_iteration=(time.perf_counter() - t0) / its,
+                       launches={**sops.LAUNCHES, **gops.LAUNCHES})
+
+    w_sparse, sparse = fit(LineageRuntime(sparse_inputs=True, device=dev),
+                           iters)                       # the path
+    w_dense, dense = fit(LineageRuntime(device=dev), iters)
+    traced = _trace_of(lambda: fit(LineageRuntime(sparse_inputs=True,
+                                                  device=dev),
+                                   min(iters, TRACED_ITERS)), dev)
+    t0 = time.perf_counter()
+    xs = sparsify(xh)  # the host conversion every bind of X repeats
+    sparsify_s = time.perf_counter() - t0
+    xs = to_device(xs, dev)
+    on_card = torch.device(dev).type == "cuda"
+    densify_ms = cuda_ms(xs.todense, iters=5) if on_card else None
+    mask_ms = cuda_ms(lambda: sops.block_mask_from_indices(xs),
+                      iters=5) if on_card else None
+    del xs, xh
+    rel = float(np.max(np.abs(w_sparse - w_dense)) / np.max(np.abs(w_dense)))
+    row = dict(phase="sparse_mlogreg", path="sparse_mlogreg", shape=[m, n],
+               density=density, classes=SPARSE_MLR_CLASSES, sparse=sparse,
+               dense_lane=dense, rel_to_dense_lane=rel,
+               sparsify_s=sparsify_s, densify_ms=densify_ms, mask_ms=mask_ms,
+               traced=traced, traced_iterations=min(iters, TRACED_ITERS),
+               cut=dict(max_iter=iters, note=f"mlogreg stops after {iters} "
+                        "iterations (its gradient never reaches the 1e-7 "
+                        "stop at this size)"))
+    emit(row)
+    ls = sparse["launches"]
+    dense_kernels = ("gram", "xtv", "xtv_tile", "gram_batched",
+                     "xtv_batched", "xtv_tile_batched")
+    if not (rel <= 1e-9 and ls["spmm_tile"] == iters
+            and ls["xtv_bs_tile"] == iters
+            and ls["spmm"] == ls["xtv_bs"] == ls["gram_bs"] == 0
+            and not any(ls[k] for k in dense_kernels)
+            and dense["launches"]["xtv_tile"] >= iters):
+        raise AssertionError(f"sparse mlogreg failed: {row}")
+    return {k: ls[k] for k in sops.LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
@@ -4504,9 +4595,10 @@ def phase_grid_search(dev=DEVICE, m: int = LIFE_M, n: int = LIFE_N,
 def _sparse_fold_row(kind, xd, mask, w, peaks) -> dict:
     """One masked product under torch.func.vmap over a batch of w (the
     sparse grid's X @ β over the λs): the batch folds into one launch of
-    the hand kernel with k·c columns. Against k lone calls and the plain
-    version (float64, within TOL), bitwise against a second call, with
-    device, bound, the lone calls' summed and the library's times."""
+    the tile product with k·c columns, which reads each w where it lies.
+    Against k lone calls and the plain version (float64, within TOL),
+    bitwise against a second call, with device, bound, the lone calls'
+    summed and the library's times and the launch's plan."""
     import torch
     from repro_torch.kernels.gram.ref import scaled_err
     from repro_torch.kernels.spmm import ops, ref
@@ -4539,8 +4631,12 @@ def _sparse_fold_row(kind, xd, mask, w, peaks) -> dict:
     ops.LAUNCHES.update(saved)  # timing launches are not the path's
     plain_ms = cuda_ms(lambda: [plain(xd, w[b], mask, ops.ROWS, ops.TILE)
                                 for b in range(k)], iters=5)
+    sms = ops._sm_count(xd.device)
+    plan = (ops.spmm_route(m, n, k * c, xd.dtype, sms) if kind == "spmm"
+            else ops.xtv_bs_route(m, n, k * c, xd.dtype, sms))
+    tile = f"{kind}_tile"
     row = dict(phase="sparse_kernel", kernel=kind, route="fold", batch=k,
-               m=m, n=n, c=c, dtype="float64",
+               m=m, n=n, c=c, dtype="float64", plan=plan,
                launches_per_call=counts, max_abs_err=max_abs,
                scaled_err_lone=err_lone, scaled_err_plain=err_plain,
                tol=TOL["float64"], bitwise_repeat=bitwise, ms=ms,
@@ -4549,8 +4645,8 @@ def _sparse_fold_row(kind, xd, mask, w, peaks) -> dict:
                library_ms=cuda_ms(lib),
                **sparse_bounds(kind, mask, m, n, k * c, "float64", peaks))
     row["ok"] = (err_lone <= TOL["float64"] and err_plain <= TOL["float64"]
-                 and bitwise and counts.get(kind) == 1
-                 and set(counts) <= {kind, f"{kind}_reduce"})
+                 and bitwise and plan[0] == "tile" and counts.get(tile) == 1
+                 and set(counts) <= {tile, f"{tile}_reduce"})
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"{kind} under vmap failed: {row}")
@@ -4561,8 +4657,8 @@ def phase_sparse_grid(peaks: dict, m: int = LIFE_M, n: int = LIFE_N,
                       k: int = GRID_K) -> dict:
     """grid_search_lm over k λs on the bcoo lane (sparse_inputs, the lmds
     point's blocky X of density 0.05), forced vmap: the λ-invariant
-    gram_bs/xtv_bs once, the variant suffix's X @ β one spmm launch over
-    the λs folded into columns. Against the dense lane's vmap grid on the
+    gram_bs/xtv_bs once, the variant suffix's X @ β one spmm_tile launch
+    over the λs folded into columns. Against the dense lane's vmap grid on the
     same data and numpy's solve over the populated blocks; and the fold
     of spmm and xtv_bs at this shape against lone calls and the plain
     version. Returns the sparse kernels' launches in the grid run and the
@@ -4619,7 +4715,8 @@ def phase_sparse_grid(peaks: dict, m: int = LIFE_M, n: int = LIFE_N,
     ok = (diff <= 1e-8
           and all(r["rel_err_vs_numpy"] <= 1e-9 for r in runs.values())
           and runs["sparse"]["batched_segments"] > 0
-          and ls["spmm"] == 1 and ls["gram_bs"] == 1 and ls["xtv_bs"] == 1
+          and ls["spmm_tile"] == 1 and ls["spmm"] == 0
+          and ls["gram_bs"] == 1 and ls["xtv_bs"] == 1
           and ls["gram"] == 0 and ls["xtv"] == 0)
     if not ok:
         raise AssertionError(f"sparse grid search failed: {row}")
@@ -5722,10 +5819,12 @@ def ssd_spills(log: str) -> dict:
 
 def spmm_spills(log: str) -> dict:
     """Spill bytes of each kernel of spmm.cu (the gram_bs partial and
-    reduce passes, the xtv_bs partial and reduce passes, spmm), by kernel
-    and template arguments."""
+    reduce passes, the one-column xtv_bs partial pass and spmm, the tile
+    products xtv_bs_tile and spmm_tile, the xtv reduce pass), by kernel and
+    template arguments."""
     return ptxas_spills(log, r"(gram_bs_partial_kernel|xtv_bs_partial_kernel"
                              r"|spmm_kernel|gram_tile_reduce_kernel"
+                             r"|xtv_bs_tile_kernel|spmm_tile_kernel"
                              r"|xtv_reduce_kernel)I(\w+?)EE")
 
 
@@ -5804,10 +5903,12 @@ def main() -> int:
     if len(sspills) != 12 or any(sspills.values()):
         raise AssertionError(f"selective-scan kernels spill: {sspills}")
     # gram_bs: the partial pass at 3 dtypes x 2 tile widths x 2 copy
-    # widths, the filled reduce at 2 accumulation dtypes x 2 widths; xtv_bs
-    # and spmm at 3 dtypes x 2 load widths x (c = 1, XC columns a pass),
+    # widths, the filled reduce at 2 accumulation dtypes x 2 widths; the
+    # one-column xtv_bs and spmm at 3 dtypes x 2 load widths; the tile
+    # products at 3 dtypes x 2 widths of v or W (16, 128) and float64's 80;
     # the xtv reduce at 2 accumulation dtypes
-    count = {"gram_": 16, "xtv_bs_": 12, "spmm_": 12, "xtv_reduce": 2}
+    count = {"gram_": 16, "xtv_bs_partial": 6, "spmm_kernel": 6,
+             "xtv_bs_tile": 7, "spmm_tile": 7, "xtv_reduce": 2}
     for prefix, want in count.items():
         got = {k: v for k, v in mspills.items() if k.startswith(prefix)}
         if len(got) != want or any(got.values()):
@@ -5847,6 +5948,7 @@ def main() -> int:
     fed_launches = timed(phase_federated)
     _LMDS_POINT.clear()
     sparse_launches = timed(phase_sparse_lm)
+    sparse_mlr_launches = timed(phase_sparse_mlogreg)
     algo_launches = timed(phase_algorithms)
     timed(phase_cleaning)
     timed(phase_rand)
@@ -5960,38 +6062,67 @@ def main() -> int:
               "sparse_stream": (32_768, 1000),
               "sparse_stream_depth1": (32_768, 1000),
               "sparse_grid_vmap": (100_000, 1000)}
+
+    def over(kind, rows, cols, c=1):
+        r = sparse_rows[(kind, rows, cols, c)]
+        dev = r["ms"] if r["device_ms"] is None else r["device_ms"]
+        return dev - r["bound_ms"]
+
+    def sparse_entry(name, line, r, by_path, excess, reduce_launches):
+        return dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/spmm.cu",
+            replaces=f"src/repro/kernels/spmm/kernel.py:{line}",
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            reduce_launches=reduce_launches, shape=[r["m"], r["n"]],
+            c=r["c"], plan=r.get("plan"), max_abs_err=r["max_abs_err"],
+            ms=r["ms"], device_ms=r["device_ms"], host_us=r.get("host_us"),
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], bound_dense_ms=r["bound_dense_ms"],
+            library_ms=r["library_ms"], excess_ms_by_path=excess)
+
+    # one column: the GEMV kernels (gram_bs: the block-sparse gram)
     for kind, line in (("gram_bs", 63), ("spmm", 112), ("xtv_bs", 158)):
-        r = sparse_rows[(kind, *at[kind])]
+        r = sparse_rows[(kind, *at[kind], 1)]
         by_path = {p: v[kind] for p, v in sparse_launches.items() if v[kind]}
         if sparse_grid["launches"][kind]:
             by_path["sparse_grid_vmap"] = sparse_grid["launches"][kind]
 
-        def over(rows, cols, kind=kind):
-            r = sparse_rows[(kind, rows, cols)]
-            dev = r["ms"] if r["device_ms"] is None else r["device_ms"]
-            return dev - r["bound_ms"]
-
         def excess(path, k, kind=kind):
-            if path == "sparse_grid_vmap" and kind == "spmm":
-                # the fold: one launch of 70 columns (its own row)
-                r = sparse_grid["folds"]["spmm"]
-                dev = r["ms"] if r["device_ms"] is None else r["device_ms"]
-                return k * (dev - r["bound_ms"])
             if path not in ("sparse_stream", "sparse_stream_depth1"):
-                return k * over(*shapes[path])
-            return (k - 1) * over(*shapes[path]) + over(6784, 1000)
-        kernels.append(dict(
-            name=kind, route="cuda", source="src/repro_torch/csrc/spmm.cu",
-            replaces=f"src/repro/kernels/spmm/kernel.py:{line}",
-            launches=sum(by_path.values()), launches_by_path=by_path,
-            reduce_launches=sum(v.get(f"{kind}_reduce", 0)
-                                for v in sparse_launches.values()),
-            shape=list(at[kind]),
-            max_abs_err=r["max_abs_err"], ms=r["ms"],
-            device_ms=r["device_ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            bound_dense_ms=r["bound_dense_ms"], library_ms=r["library_ms"],
-            excess_ms_by_path={p: excess(p, k) for p, k in by_path.items()}))
+                return k * over(kind, *shapes[path])
+            return (k - 1) * over(kind, *shapes[path]) + over(kind, 6784,
+                                                               1000)
+        kernels.append(sparse_entry(
+            kind, line, r, by_path,
+            {p: excess(p, k) for p, k in by_path.items()},
+            sum(v.get(f"{kind}_reduce", 0)
+                for v in sparse_launches.values())))
+    # two or more columns: the tile products, at mlogreg's 10 classes (the
+    # shape of most of their launches); the sparse grid's fold (70 λs)
+    # from its own row
+    for kind, line in (("spmm", 112), ("xtv_bs", 158)):
+        tile = f"{kind}_tile"
+        r = sparse_rows[(kind, 100_000, 1000, SPARSE_MLR_CLASSES)]
+        fold = sparse_grid["folds"][kind]
+        by_path = {"sparse_mlogreg": sparse_mlr_launches[tile],
+                   "sparse_grid_vmap": sparse_grid["launches"][tile]}
+        fold_dev = fold["ms"] if fold["device_ms"] is None \
+            else fold["device_ms"]
+        entry = sparse_entry(
+            tile, line, r, by_path,
+            dict(sparse_mlogreg=by_path["sparse_mlogreg"]
+                 * over(kind, 100_000, 1000, SPARSE_MLR_CLASSES),
+                 sparse_grid_vmap=by_path["sparse_grid_vmap"]
+                 * (fold_dev - fold["bound_ms"])),
+            sparse_mlr_launches.get(f"{tile}_reduce", 0)
+            + sparse_grid["launches"].get(f"{tile}_reduce", 0))
+        entry["fold"] = dict(
+            shape=[fold["m"], fold["n"], fold["batch"] * fold["c"]],
+            plan=fold["plan"], ms=fold["ms"], device_ms=fold["device_ms"],
+            host_us=fold["host_us"], bound_ms=fold["bound_ms"],
+            plain_ms=fold["plain_ms"], library_ms=fold["library_ms"],
+            max_abs_err=fold["max_abs_err"])
+        kernels.append(entry)
     r = flash_rows[FLASH_CASES[0][0]]
     flash_by_path = dict(
         lm_serve_prefill=serve_launches["prefill"],

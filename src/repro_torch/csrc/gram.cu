@@ -219,97 +219,6 @@ xtv_slab_kernel(const T* __restrict__ x, const T* __restrict__ v, int64_t m, int
 
 // ---- xtv as a tile product (two or more columns of V) ----------------------
 
-// One operand of the tile product: element (k, j), j < cols, at p + k * ld +
-// (j / gw) * gs + j % gw (gw = cols: a plain matrix; the fold's batch of v:
-// gw = c, gs its batch stride), bs elements from one batch element's to the
-// next (0: one operand for the batch). vec: 16-byte copies (p, ld, gs and
-// bs 16-byte aligned, gw a multiple of the copy), else element copies.
-template <typename T>
-struct Operand {
-  const T* p;
-  int64_t ld, gs, bs;
-  int cols, gw, vec;
-};
-
-constexpr int XT_THREADS = 256;  // 8 warps, 16 rows of U's tile each
-constexpr int XT_BM = 128;       // columns of U a tile
-constexpr int XT_STAGES = 4;     // depth of the cp.async ring
-
-// rows a stage (16 KB of U's tile) and the row pitches of U's and W's tiles
-// in shared memory: float64 fragments read conflict-free with a pitch of 4
-// mod 16 doubles, ldmatrix rows with an odd number of 16-byte units
-template <typename T>
-__host__ __device__ constexpr int xt_bk() {
-  return sizeof(T) == 8 ? 16 : sizeof(T) == 4 ? 32 : 64;
-}
-template <typename T>
-__host__ __device__ constexpr int xt_ldu() {
-  return XT_BM + (sizeof(T) == 2 ? 8 : 4);
-}
-template <typename T, int BN>
-__host__ __device__ constexpr int xt_ldw() {
-  return sizeof(T) == 2 ? (BN == 8 ? 8 : BN + 8) : BN + 4;
-}
-template <typename T, int BN>
-constexpr int xt_smem_bytes() {
-  return XT_STAGES * xt_bk<T>() * (xt_ldu<T>() + xt_ldw<T, BN>()) * (int)sizeof(T);
-}
-
-// The element offsets of a tile's columns c0 + j (j < W) and how many
-// columns a copy starting there may take (0 past the operand's width).
-template <typename T, int W>
-__device__ __forceinline__ void column_table(int64_t* off, int* valid, const Operand<T>& op,
-                                             int64_t c0, int tid) {
-  const int64_t v = op.vec ? 16 / (int)sizeof(T) : 1;
-  for (int j = tid; j < W; j += XT_THREADS) {
-    const int64_t col = c0 + j;
-    const bool in = col < op.cols;
-    off[j] = in ? (col / op.gw) * op.gs + col % op.gw : 0;
-    valid[j] = in ? (int)min64(v, op.cols - col) : 0;
-  }
-}
-
-// One stage of one operand: rows [k0, k0 + BK) of its tile's W columns into
-// s (row pitch LD), V elements a cp.async copy (4 bytes or more); rows at
-// or past r1 and columns past the operand are zero-filled.
-template <typename T, int V, int BK, int W, int LD>
-__device__ __forceinline__ void load_operand(T* s, const T* __restrict__ p, int64_t ld,
-                                             const int64_t* off, const int* valid, int64_t k0,
-                                             int64_t r1, int tid) {
-  constexpr int CPR = W / V, CHUNKS = BK * CPR;
-  constexpr int BYTES = V * (int)sizeof(T);
-  static_assert(BYTES >= 4, "a bfloat16 element copy is load_operand_bf16's");
-#pragma unroll
-  for (int q = 0; q < (CHUNKS + XT_THREADS - 1) / XT_THREADS; ++q) {
-    const int e = tid + q * XT_THREADS;
-    if (CHUNKS % XT_THREADS == 0 || e < CHUNKS) {
-      const int kk = e / CPR, cc = (e % CPR) * V;
-      const int64_t row = k0 + kk;
-      const int nv = row < r1 ? valid[cc] : 0;
-      const T* src = nv ? p + row * ld + off[cc] : p;
-      cp_async<BYTES>(s + kk * LD + cc, src, nv * (int)sizeof(T));
-    }
-  }
-}
-
-// A bfloat16 element copy goes through registers: at most 8 a thread in
-// flight, so the wide tiles' registers do not spill.
-template <int BK, int W, int LD>
-__device__ __forceinline__ void load_operand_bf16(__nv_bfloat16* s,
-                                                  const __nv_bfloat16* __restrict__ p,
-                                                  int64_t ld, const int64_t* off,
-                                                  const int* valid, int64_t k0, int64_t r1,
-                                                  int tid) {
-  constexpr int CHUNKS = BK * W;
-  static_assert(CHUNKS % XT_THREADS == 0, "whole rounds of copies");
-#pragma unroll 8
-  for (int q = 0; q < CHUNKS / XT_THREADS; ++q) {
-    const int e = tid + q * XT_THREADS, kk = e / W, cc = e % W;
-    const int64_t row = k0 + kk;
-    s[kk * LD + cc] = row < r1 && valid[cc] ? p[row * ld + off[cc]] : zero<__nv_bfloat16>();
-  }
-}
-
 // Block (tile, split, batch element): the 128 x BN output tile of
 // U[:, c0u..]^T W[:, c0w..] over rows [split * rows_per_split, ...) of its
 // element, written to out-layout slot (element, split): entry (i, j) of U^T
@@ -327,7 +236,7 @@ xtv_tile_kernel(const Operand<T> u, const Operand<T> w, int64_t m, int64_t rows_
   T* smem = reinterpret_cast<T*>(smem_raw);
   __shared__ int64_t uoff[XT_BM], woff[BN];
   __shared__ int uval[XT_BM], wval[BN];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int64_t c0u = (int64_t)(blockIdx.x % tiles_u) * XT_BM;
   const int64_t c0w = (int64_t)(blockIdx.x / tiles_u) * BN;
   const T* up = u.p + (int64_t)blockIdx.z * u.bs;
@@ -356,103 +265,11 @@ xtv_tile_kernel(const Operand<T> u, const Operand<T> w, int64_t m, int64_t rows_
     const int64_t i = c0u + mm, j = c0w + nn;
     if (i < u.cols && j < w.cols) ws[i * rs + j * cs] = val;
   };
-  constexpr int STAGE = BK * (LDU + LDW);
-  const int g = lane >> 2, t = lane & 3;
-
-  if constexpr (sizeof(T) == 8) {
-    // mma.m16n8k4 f64 (gram_mainloop.cuh's mma_f64_stage): warp w's block
-    // is U's columns 16 w .. 16 w + 15 against all of W's
-    constexpr int NI = BN / 8;
-    double acc[1][NI][4];
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[0][ni][e] = 0.0;
-    cp_ring<XT_STAGES, STAGE>(smem, niter, load, [&](const T* su) {
-      mma_f64_stage<BK, LDU, LDW>(acc, su, su + BK * LDU, 16 * warp, 0);
-    });
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int r = 16 * warp + g, c = ni * 8 + 2 * t;
-      put(r, c, acc[0][ni][0]);
-      put(r, c + 1, acc[0][ni][1]);
-      put(r + 8, c, acc[0][ni][2]);
-      put(r + 8, c + 1, acc[0][ni][3]);
-    }
-  } else if constexpr (sizeof(T) == 4) {
-    // FMA pipes: thread (p, q) owns U columns 2p, 2p + 1 against W columns
-    // [q NQ, q NQ + NQ); a warp reads 64 consecutive floats of a U row and
-    // one broadcast run of W's
-    constexpr int NQ = BN / 4;
-    const int p = tid & 63, q = tid >> 6;
-    float acc[2][NQ];
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) acc[0][j] = acc[1][j] = 0.f;
-    cp_ring<XT_STAGES, STAGE>(smem, niter, load, [&](const T* su) {
-      const T* sw = su + BK * LDU;
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        const float2 a = *reinterpret_cast<const float2*>(su + kk * LDU + 2 * p);
-        float b[NQ];
-        if constexpr (NQ == 2) {
-          const float2 v = *reinterpret_cast<const float2*>(sw + kk * LDW + q * NQ);
-          b[0] = v.x;
-          b[1] = v.y;
-        } else {
-#pragma unroll
-          for (int j = 0; j < NQ; j += 4) {
-            const float4 v = *reinterpret_cast<const float4*>(sw + kk * LDW + q * NQ + j);
-            b[j] = v.x;
-            b[j + 1] = v.y;
-            b[j + 2] = v.z;
-            b[j + 3] = v.w;
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          acc[0][j] = fmaf(a.x, b[j], acc[0][j]);
-          acc[1][j] = fmaf(a.y, b[j], acc[1][j]);
-        }
-      }
-    });
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-      put(2 * p, q * NQ + j, acc[0][j]);
-      put(2 * p + 1, q * NQ + j, acc[1][j]);
-    }
-  } else {
-    // mma.m16n8k16 bf16 -> f32 (gram_mainloop.cuh's mma_bf16_stage), warp
-    // blocks as for float64
-    constexpr int NI = BN / 8;
-    float acc[NI][4];
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
-    // each stage's 64 rows are a fresh chain of mma, added once into acc
-    // (the tensor cores' float32 sums drift low over long chains, as in
-    // gram_bf16_wgmma_kernel)
-    cp_ring<XT_STAGES, STAGE>(smem, niter, load, [&](const T* su) {
-      float part[1][NI][4];
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[0][ni][e] = 0.f;
-      mma_bf16_stage<BK, LDU, LDW>(part, su, su + BK * LDU, 16 * warp, 0);
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[ni][e] += part[0][ni][e];
-    });
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int r = 16 * warp + g, c = ni * 8 + 2 * t;
-      put(r, c, acc[ni][0]);
-      put(r, c + 1, acc[ni][1]);
-      put(r + 8, c, acc[ni][2]);
-      put(r + 8, c + 1, acc[ni][3]);
-    }
-  }
+  TileAcc<T, BN, true> acc;
+  cp_ring<XT_STAGES, BK * (LDU + LDW)>(smem, niter, load, [&](const T* su) {
+    acc.template stage<BK, LDU, LDW>(su, su + BK * LDU, BN / 8);
+  });
+  acc.store(put);
 }
 
 // ---- bfloat16 gram on wgmma + TMA ------------------------------------------

@@ -18,8 +18,10 @@
 //   * float32 stays on the FMA pipes (TF32 is off for the tolerance and
 //     the library yardstick): an 8 x 8 (or 8 x 4) register tile a thread.
 // The float64 and bfloat16 fragment steps of one stage (mma_f64_stage,
-// mma_bf16_stage) also serve gram.cu's xtv tile product, whose warps own
-// other blocks of its narrower tiles.
+// mma_bf16_stage) also serve the tile products (TileAcc: gram.cu's xtv of
+// two or more columns, spmm.cu's xtv_bs and spmm of two or more), whose
+// warps own other blocks of their narrower tiles; spmm's A operand is
+// row-major in k, which the steps read too.
 // Each stage holds BK rows of both column tiles; a 3-stage cp.async ring
 // issues the next stage's copies before the current stage is computed.
 // Which rows a stage holds is the caller's: gram.cu walks its row range in
@@ -203,33 +205,43 @@ template <int BN> struct WarpGrid {
 
 // Fragments of mma.m16n8k4.f64 (lane = 4 g + t; CuTe's
 // SM90_16x8x4_F64F64F64F64_TN): a = {A(g, t), A(g + 8, t)}, b = B(t, g),
-// c = {C(g, 2t), C(g, 2t+1), C(g+8, 2t), C(g+8, 2t+1)}. A stage holds
-// rows k of both operands' column tiles: A(m, k) = sa[k LDA + m0 + m] and
-// B(k, n) = sb[k LDB + n0 + n]. One stage's products of a warp's MI x NI
+// c = {C(g, 2t), C(g, 2t+1), C(g+8, 2t), C(g+8, 2t+1)}. B's stage holds
+// rows k: B(k, n) = sb[k LDB + n0 + n]. A's stage holds rows k too when
+// AK (K-major: A(m, k) = sa[k LDA + m0 + m], both operands column tiles of
+// X, as in a gram or an xtv), else rows m (A(m, k) = sa[(m0 + m) LDA + k]:
+// rows of X, as in spmm's X @ W). One stage's products of a warp's MI x NI
 // fragments, added into acc (the warp's block of the output tile, its
-// origin (m0, n0)); the gram tiles below and gram.cu's xtv tile product
-// run it, with their own warp blocks.
-template <int BK, int LDA, int LDB, int MI, int NI>
+// origin (m0, n0)); only the first `nact` of the NI fragments (the columns
+// a narrow operand fills) are computed. The gram tiles below and the tile
+// products (TileAcc) run it, with their own warp blocks.
+template <int BK, int LDA, int LDB, int MI, int NI, bool AK = true>
 __device__ __forceinline__ void mma_f64_stage(double (&acc)[MI][NI][4],
                                               const double* sa, const double* sb, int m0,
-                                              int n0) {
+                                              int n0, int nact = NI) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
+  // a warp with 20 or more accumulators has the products' independence
+  // within one k step; unrolled further, the next steps' operands held
+  // early spill its registers
+  constexpr int KU = MI * NI >= 20 ? 1 : BK / 4;
+#pragma unroll KU
   for (int ks = 0; ks < BK; ks += 4) {
-    const double* ra = sa + (ks + t) * LDA + m0 + g;
+    const double* ra = AK ? sa + (ks + t) * LDA + m0 + g : sa + (m0 + g) * LDA + ks + t;
     const double* rb = sb + (ks + t) * LDB + n0 + g;
+    constexpr int MS = AK ? 1 : LDA;  // from row m to row m + 1
     double a[MI][2], b[NI][1];
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) {
-      a[mi][0] = ra[mi * 16];
-      a[mi][1] = ra[mi * 16 + 8];
+      a[mi][0] = ra[mi * 16 * MS];
+      a[mi][1] = ra[(mi * 16 + 8) * MS];
     }
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni) b[ni][0] = rb[ni * 8];
+    for (int ni = 0; ni < NI; ++ni)
+      if (ni < nact) b[ni][0] = rb[ni * 8];
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) mma_f64(acc[mi][ni], a[mi], b[ni]);
+      for (int ni = 0; ni < NI; ++ni)
+        if (ni < nact) mma_f64(acc[mi][ni], a[mi], b[ni]);
   }
 }
 
@@ -279,6 +291,11 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
 __device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -286,28 +303,35 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
 }
 
 // mma.m16n8k16 bf16 -> f32: a = {A(g, 2t..), A(g+8, 2t..), A(g, 2t+8..),
-// A(g+8, 2t+8..)}, b = {B(2t.., g), B(2t+8.., g)}, c as for f64. A stage
-// row is k, so ldmatrix.trans of the 8 x 8 blocks (k, m) gives A's and
-// (k, n) gives B's fragments. One stage's products of a warp's MI x NI
-// fragments (NI one, or even: B's fragments come two at a time), as
-// mma_f64_stage.
-template <int BK, int LDA, int LDB, int MI, int NI>
+// A(g+8, 2t+8..)}, b = {B(2t.., g), B(2t+8.., g)}, c as for f64. B's stage
+// rows are k, so ldmatrix.trans of its 8 x 8 blocks (k, n) gives B's
+// fragments; A's likewise (blocks (k, m)) when AK, else its rows are m and
+// plain ldmatrix of the blocks (m, k) gives them. One stage's products of
+// a warp's MI x NI fragments (NI one, or even: B's fragments come two at a
+// time; `nact` even, or NI), as mma_f64_stage.
+template <int BK, int LDA, int LDB, int MI, int NI, bool AK = true>
 __device__ __forceinline__ void mma_bf16_stage(float (&acc)[MI][NI][4],
                                                const __nv_bfloat16* sa,
-                                               const __nv_bfloat16* sb, int m0, int n0) {
+                                               const __nv_bfloat16* sb, int m0, int n0,
+                                               int nact = NI) {
   static_assert(NI == 1 || NI % 2 == 0, "B's fragments two at a time");
   const int lane = threadIdx.x & 31, li = lane >> 3, lr = lane & 7;
 #pragma unroll
   for (int ks = 0; ks < BK; ks += 16) {
     uint32_t a[MI][4], b[NI][2];
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-      ldsm_x4_trans(a[mi], sa + (ks + lr + 8 * (li >> 1)) * LDA + m0 + mi * 16 + 8 * (li & 1));
+    for (int mi = 0; mi < MI; ++mi) {
+      if constexpr (AK)
+        ldsm_x4_trans(a[mi], sa + (ks + lr + 8 * (li >> 1)) * LDA + m0 + mi * 16 + 8 * (li & 1));
+      else
+        ldsm_x4(a[mi], sa + (m0 + mi * 16 + (lane & 15)) * LDA + ks + 8 * (lane >> 4));
+    }
     if constexpr (NI == 1) {
       ldsm_x2_trans(b[0], sb + (ks + lr + 8 * (li & 1)) * LDB + n0);
     } else {
 #pragma unroll
       for (int np = 0; np < NI / 2; ++np) {
+        if (2 * np >= nact) continue;
         uint32_t r4[4];
         ldsm_x4_trans(r4, sb + (ks + lr + 8 * (li & 1)) * LDB + n0 + np * 16 + 8 * (li >> 1));
         b[2 * np][0] = r4[0];
@@ -320,6 +344,7 @@ __device__ __forceinline__ void mma_bf16_stage(float (&acc)[MI][NI][4],
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
+        if (ni >= nact) continue;
         float* c = acc[mi][ni];
         asm volatile(
             "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -442,6 +467,294 @@ template <typename T>
 constexpr int gram_smem_bytes() {
   constexpr int LD = BM + (sizeof(T) == 2 ? 8 : 4);
   return STAGES * 2 * stage_rows<T>() * LD * (int)sizeof(T);
+}
+
+
+// ---- the tile product (gram.cu's xtv, spmm.cu's xtv_bs and spmm) ---------
+//
+// A 128 x BN output tile of A (128 rows m, contracted k) times B (k, BN
+// columns), BN the narrow operand's tile (16 to 128; gram.cu's xtv also 8
+// and 32): each stage of a cp.async ring holds BK values of k of both. In
+// gram.cu's xtv and spmm.cu's xtv_bs, A's rows are U's columns (A = U^T,
+// stage rows k: K-major), B is W's; in spmm.cu's spmm, A's rows are rows of
+// X (row-major in k) and B is W's rows.
+
+// One operand of the tile product: element (k, j), j < cols, at p + k * ld +
+// (j / gw) * gs + j % gw (gw = cols: a plain matrix; the fold's batch of v:
+// gw = c, gs its batch stride), bs elements from one batch element's to the
+// next (0: one operand for the batch). vec: 16-byte copies (p, ld, gs and
+// bs 16-byte aligned, gw a multiple of the copy), else element copies
+// (spmm.cu's narrow operands also take 2: 4-byte copies of bfloat16
+// pairs).
+template <typename T>
+struct Operand {
+  const T* p;
+  int64_t ld, gs, bs;
+  int cols, gw, vec;
+};
+
+constexpr int XT_THREADS = 256;  // 8 warps, 16 rows of the output tile each
+constexpr int XT_BM = 128;       // rows of the output tile (columns of U)
+constexpr int XT_STAGES = 4;     // depth of the cp.async ring
+
+// rows a stage (16 KB of U's tile) and the row pitches of U's and W's tiles
+// in shared memory: float64 fragments read conflict-free with a pitch of 4
+// mod 16 doubles, ldmatrix rows with an odd number of 16-byte units
+template <typename T>
+__host__ __device__ constexpr int xt_bk() {
+  return sizeof(T) == 8 ? 16 : sizeof(T) == 4 ? 32 : 64;
+}
+template <typename T>
+__host__ __device__ constexpr int xt_ldu() {
+  return XT_BM + (sizeof(T) == 2 ? 8 : 4);
+}
+template <typename T, int BN>
+__host__ __device__ constexpr int xt_ldw() {
+  return sizeof(T) == 2 ? (BN == 8 ? 8 : BN + 8) : BN + 4;
+}
+template <typename T, int BN>
+constexpr int xt_smem_bytes() {
+  return XT_STAGES * xt_bk<T>() * (xt_ldu<T>() + xt_ldw<T, BN>()) * (int)sizeof(T);
+}
+
+// The element offsets of a tile's columns c0 + j (j < W) and how many
+// columns a copy starting there may take (0 past the operand's width).
+template <typename T, int W, int NT = XT_THREADS>
+__device__ __forceinline__ void column_table(int64_t* off, int* valid, const Operand<T>& op,
+                                             int64_t c0, int tid) {
+  const int64_t v = op.vec ? 16 / (int)sizeof(T) : 1;
+  for (int j = tid; j < W; j += NT) {
+    const int64_t col = c0 + j;
+    const bool in = col < op.cols;
+    off[j] = in ? (col / op.gw) * op.gs + col % op.gw : 0;
+    valid[j] = in ? (int)min64(v, op.cols - col) : 0;
+  }
+}
+
+// One stage of one operand: rows [k0, k0 + BK) of its tile's W columns into
+// s (row pitch LD), V elements a cp.async copy (4 bytes or more), by NT
+// threads; rows at or past r1 and columns past the operand are zero-filled.
+template <typename T, int V, int BK, int W, int LD, int NT = XT_THREADS>
+__device__ __forceinline__ void load_operand(T* s, const T* __restrict__ p, int64_t ld,
+                                             const int64_t* off, const int* valid, int64_t k0,
+                                             int64_t r1, int tid) {
+  constexpr int CPR = W / V, CHUNKS = BK * CPR;
+  constexpr int BYTES = V * (int)sizeof(T);
+  static_assert(BYTES >= 4, "a bfloat16 element copy is load_operand_bf16's");
+#pragma unroll
+  for (int q = 0; q < (CHUNKS + NT - 1) / NT; ++q) {
+    const int e = tid + q * NT;
+    if (CHUNKS % NT == 0 || e < CHUNKS) {
+      const int kk = e / CPR, cc = (e % CPR) * V;
+      const int64_t row = k0 + kk;
+      const int nv = row < r1 ? valid[cc] : 0;
+      const T* src = nv ? p + row * ld + off[cc] : p;
+      cp_async<BYTES>(s + kk * LD + cc, src, nv * (int)sizeof(T));
+    }
+  }
+}
+
+// A bfloat16 element copy goes through registers: at most 8 a thread in
+// flight, so the wide tiles' registers do not spill.
+template <int BK, int W, int LD, int NT = XT_THREADS>
+__device__ __forceinline__ void load_operand_bf16(__nv_bfloat16* s,
+                                                  const __nv_bfloat16* __restrict__ p,
+                                                  int64_t ld, const int64_t* off,
+                                                  const int* valid, int64_t k0, int64_t r1,
+                                                  int tid) {
+  constexpr int CHUNKS = BK * W;
+  static_assert(CHUNKS % NT == 0, "whole rounds of copies");
+#pragma unroll 8
+  for (int q = 0; q < CHUNKS / NT; ++q) {
+    const int e = tid + q * NT, kk = e / W, cc = e % W;
+    const int64_t row = k0 + kk;
+    s[kk * LD + cc] = row < r1 && valid[cc] ? p[row * ld + off[cc]] : zero<__nv_bfloat16>();
+  }
+}
+
+// The tile product's accumulators of one thread and one stage's step. A
+// tile has 128 rows over WARPS warps (8, or 4 in spmm.cu's float64 tiles of
+// 80 columns, two blocks an SM). float64 and bfloat16 on mma.sync: warp w
+// owns the tile's rows RW w .. RW w + RW - 1 (RW = 128 / WARPS) against
+// all BN columns (the fragment steps above; a gram tile's warp owns 64 x 32
+// instead: BN = 8 has no 32-column warp block), the first `nact` fragments
+// only (a narrow operand's columns, rounded up to 8, bfloat16 16); with 4
+// warps a warp holds twice the independent accumulators (the FP64 tensor
+// cores need many in flight). bfloat16: each stage's products are a fresh
+// chain of mma, added once into the float32 accumulator (the tensor cores'
+// float32 sums drift low over long chains, as in gram.cu's wgmma gram).
+// float32 on the FMA pipes (TF32 would break the 1e-5 limit), every column:
+// thread (p, q) owns 2 rows (AK: 2p and 2p + 1, read as a float2 of a stage
+// row; else p and p + 64, read 4 k at a time as float4s of their rows)
+// against B's columns [q NQ, q NQ + NQ), read as broadcast runs. Every
+// thread sums its k in stage order. store(put) hands each accumulator to
+// put(row, column, value).
+template <typename T, int BN, bool AK, int WARPS = 8> struct TileAcc;
+
+template <int WARPS> struct TileWarps {
+  static constexpr int RW = 128 / WARPS;  // rows a warp
+  static constexpr int MI = RW / 16;
+  __device__ static __forceinline__ int m0() { return RW * (threadIdx.x >> 5); }
+};
+
+template <int BN, bool AK, int WARPS> struct TileAcc<double, BN, AK, WARPS> {
+  using W = TileWarps<WARPS>;
+  static constexpr int MI = W::MI, NI = BN / 8;
+  double acc[MI][NI][4];
+  __device__ __forceinline__ TileAcc() {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0;
+  }
+  template <int BK, int LDA, int LDB>
+  __device__ __forceinline__ void stage(const double* sa, const double* sb, int nact) {
+    mma_f64_stage<BK, LDA, LDB, MI, NI, AK>(acc, sa, sb, W::m0(), 0, nact);
+  }
+  template <typename Put> __device__ __forceinline__ void store(Put&& put) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int r = W::m0() + 16 * mi + g, c = ni * 8 + 2 * (lane & 3);
+        put(r, c, acc[mi][ni][0]);
+        put(r, c + 1, acc[mi][ni][1]);
+        put(r + 8, c, acc[mi][ni][2]);
+        put(r + 8, c + 1, acc[mi][ni][3]);
+      }
+  }
+};
+
+template <int BN, bool AK, int WARPS> struct TileAcc<__nv_bfloat16, BN, AK, WARPS> {
+  using W = TileWarps<WARPS>;
+  static constexpr int MI = W::MI, NI = BN / 8;
+  float acc[MI][NI][4];
+  __device__ __forceinline__ TileAcc() {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  }
+  template <int BK, int LDA, int LDB>
+  __device__ __forceinline__ void stage(const __nv_bfloat16* sa, const __nv_bfloat16* sb,
+                                        int nact) {
+    float part[MI][NI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
+    mma_bf16_stage<BK, LDA, LDB, MI, NI, AK>(part, sa, sb, W::m0(), 0, nact);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        if (ni < nact)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+  }
+  template <typename Put> __device__ __forceinline__ void store(Put&& put) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int r = W::m0() + 16 * mi + g, c = ni * 8 + 2 * (lane & 3);
+        put(r, c, acc[mi][ni][0]);
+        put(r, c + 1, acc[mi][ni][1]);
+        put(r + 8, c, acc[mi][ni][2]);
+        put(r + 8, c + 1, acc[mi][ni][3]);
+      }
+  }
+};
+
+template <int BN, bool AK, int WARPS> struct TileAcc<float, BN, AK, WARPS> {
+  static_assert(WARPS == 8, "float32 tiles run on 8 warps");
+  static constexpr int NQ = BN / 4;
+  float acc[2][NQ];
+  __device__ __forceinline__ TileAcc() {
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) acc[0][j] = acc[1][j] = 0.f;
+  }
+  // B's row kk of this thread's columns
+  template <int LDB>
+  __device__ __forceinline__ static void brow(float (&b)[NQ], const float* sb, int kk) {
+    const float* r = sb + kk * LDB + (threadIdx.x >> 6) * NQ;
+    if constexpr (NQ == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(r);
+      b[0] = v.x;
+      b[1] = v.y;
+    } else {
+#pragma unroll
+      for (int j = 0; j < NQ; j += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(r + j);
+        b[j] = v.x;
+        b[j + 1] = v.y;
+        b[j + 2] = v.z;
+        b[j + 3] = v.w;
+      }
+    }
+  }
+  template <int BK, int LDA, int LDB>
+  __device__ __forceinline__ void stage(const float* sa, const float* sb, int) {
+    const int p = threadIdx.x & 63;
+    if constexpr (AK) {
+#pragma unroll 8
+      for (int kk = 0; kk < BK; ++kk) {
+        const float2 a = *reinterpret_cast<const float2*>(sa + kk * LDA + 2 * p);
+        float b[NQ];
+        brow<LDB>(b, sb, kk);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          acc[0][j] = fmaf(a.x, b[j], acc[0][j]);
+          acc[1][j] = fmaf(a.y, b[j], acc[1][j]);
+        }
+      }
+    } else {
+      static_assert(BK % 4 == 0 && LDA % 4 == 0, "float4 runs of a row");
+#pragma unroll 2
+      for (int k4 = 0; k4 < BK; k4 += 4) {
+        const float4 a0 = *reinterpret_cast<const float4*>(sa + p * LDA + k4);
+        const float4 a1 = *reinterpret_cast<const float4*>(sa + (p + 64) * LDA + k4);
+        const float x0[4] = {a0.x, a0.y, a0.z, a0.w}, x1[4] = {a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float b[NQ];
+          brow<LDB>(b, sb, k4 + e);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            acc[0][j] = fmaf(x0[e], b[j], acc[0][j]);
+            acc[1][j] = fmaf(x1[e], b[j], acc[1][j]);
+          }
+        }
+      }
+    }
+  }
+  template <typename Put> __device__ __forceinline__ void store(Put&& put) const {
+    const int p = threadIdx.x & 63, c0 = (threadIdx.x >> 6) * NQ;
+    const int r0 = AK ? 2 * p : p, r1 = AK ? 2 * p + 1 : p + 64;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      put(r0, c0 + j, acc[0][j]);
+      put(r1, c0 + j, acc[1][j]);
+    }
+  }
+};
+
+// The first `nact` fragments of a BN-column tile of which `cols` columns
+// are the operand's (1 <= cols): 8 columns a float64 fragment, two
+// bfloat16 fragments at a time (NI > 1); float32 computes every column.
+template <typename T, int BN>
+__device__ __forceinline__ int active_fragments(int64_t cols) {
+  const int c = (int)min64(BN, cols);
+  if constexpr (sizeof(T) == 2) return BN == 8 ? 1 : 2 * ((c + 15) / 16);
+  return (c + 7) / 8;
 }
 
 // Epilogue pass over the tile-major workspace: one block per 32 x 32

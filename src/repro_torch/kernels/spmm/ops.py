@@ -14,10 +14,20 @@ These are the kernels behind the `bcoo` physical format in
     "meta" tensor the kernel's output shape with its work charged
     (`*_meta`).
 
+Which kernel takes a product of X with v or W of c columns is a pure
+function of the shape, the dtype and the card (`xtv_bs_route`,
+`spmm_route`): one column (the lmCG and lmDS paths) takes the GEMV
+kernels (`xtv_bs_partial_kernel`, `spmm_kernel`); two or more (a λ
+grid's fold, mlogreg's classes) the tile products on the tensor cores
+(`xtv_bs_tile_kernel`, `spmm_tile_kernel`), which read X once for c up
+to 128.
+
 The blocks are the card's (`ROWS` x `TILE`, the kernels' row chunk and
 gram tile edge), not the TPU's (512, 256), and nothing is padded. Each
 CUDA wrapper counts its launches in `LAUNCHES`, one count per kernel pass
-it launches (the reduce passes apart). The CUDA wrappers and the meta
+it launches, under the kernel's name (`spmm` and `xtv_bs` the GEMV
+kernels, `spmm_tile` and `xtv_bs_tile` the tile products; the reduce
+passes apart). The CUDA wrappers and the meta
 implementations charge the kernel's work over the populated blocks
 (`launch.kernel_model`) to an active `launch.hlocost` counter, which
 cannot see a `ctypes` launch (a meta mask holds no data: every block
@@ -36,14 +46,15 @@ from repro_torch.launch import hlocost, kernel_model
 from repro_torch.kernels.gram import ref as gram_ref
 from repro_torch.kernels.gram.ops import (_DTYPE_CODE, _MAX_SPLITS, _BM,
                                           _check_matrix, _check_rc, _on,
-                                          _raw_stream, _sm_count, _workspace,
-                                          aligned16, gram_tiles)
+                                          _raw_stream, _sm_count, _vec16,
+                                          _workspace, aligned16, gram_tiles)
 
 from . import ref
 
 # One count per launched kernel pass; reset with `reset_launches()`.
-LAUNCHES = {"gram_bs": 0, "gram_bs_reduce": 0, "spmm": 0, "xtv_bs": 0,
-            "xtv_bs_reduce": 0}
+LAUNCHES = {"gram_bs": 0, "gram_bs_reduce": 0, "spmm": 0, "spmm_tile": 0,
+            "xtv_bs": 0, "xtv_bs_reduce": 0, "xtv_bs_tile": 0,
+            "xtv_bs_tile_reduce": 0}
 
 ROWS = 256   # rows per mask chunk (RC in spmm.cu)
 TILE = 64    # columns per mask tile (TILE in spmm.cu)
@@ -61,6 +72,17 @@ _BS_MAX_CHUNKS = 8192
 # §6 sweeps 4-32)
 _XTV_BS_WAVES = 16
 
+# the tile products (two or more columns): the least c they take (the GEMV
+# kernels take one column only), the narrow operand's tile widths by dtype
+# (a tile computes no fragment past its columns; spmm.cu's `f64_wide` says
+# how float64's 80-column tiles differ), X's 128-column tiles in
+# xtv_bs_tile, and its (tile, split) blocks to aim for per resident block
+_TILE_CUT = 2
+_TILE_BN = {torch.float64: (16, 80, 128), torch.float32: (16, 128),
+            torch.bfloat16: (16, 128)}
+_XT_BM = 128
+_XTV_BS_TILE_WAVES = 4
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -75,14 +97,21 @@ def _library():
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_gram_bs.argtypes = [i32, i32, i32, p, i64, i64, i64, p,
                                       i64, i64, i32, p, p, p, p]
-        lib.repro_xtv_bs.argtypes = [i32, i32, p, p, i64, i64, i64, i64, i64,
-                                     p, i64, i32, p, p, p]
-        lib.repro_spmm.argtypes = [i32, i32, p, p, i64, i64, i64, i64, i64,
-                                   p, i64, p, p]
+        lib.repro_xtv_bs.argtypes = [i32, i32, p, p, i64, i64, i64, i64, p,
+                                     i64, i32, p, p, p]
+        lib.repro_spmm.argtypes = [i32, i32, p, p, i64, i64, i64, i64, p,
+                                   i64, p, p]
+        lib.repro_xtv_bs_tile.argtypes = [i32, i32, p, i64, i64, i64, i32, p,
+                                          i64, i64, i64, i32, i64, p, i64,
+                                          i32, p, p, p]
+        lib.repro_spmm_tile.argtypes = [i32, i32, p, i64, i64, i64, i32, p,
+                                        i64, i64, i64, i32, i64, p, i64, p,
+                                        p]
         lib.repro_spmm_row_chunk.argtypes = []
         lib.repro_spmm_col_tile.argtypes = []
         lib.repro_spmm_max_chunks.argtypes = []
         for fn in (lib.repro_gram_bs, lib.repro_xtv_bs, lib.repro_spmm,
+                   lib.repro_xtv_bs_tile, lib.repro_spmm_tile,
                    lib.repro_spmm_row_chunk,
                    lib.repro_spmm_col_tile, lib.repro_spmm_max_chunks):
             fn.restype = ctypes.c_int
@@ -146,19 +175,73 @@ def gram_bs_plan(m: int, n: int, dtype: torch.dtype,
 
 @lru_cache(maxsize=1024)
 def xtv_bs_plan(m: int, n: int, c: int, dtype: torch.dtype, sms: int) -> int:
-    """Splits of xtv_bs on a card with `sms` SMs: a function of the
-    shape, the dtype and the card, never of the mask, so a run with the
-    true mask and one with an all-ones mask sum the same partials in the
-    same order. Split s takes row chunks s, s + splits, s + 2 splits, ...
-    (strided, so every split samples the whole of X and the blocks'
-    populated work evens out); enough splits for `_XTV_BS_WAVES` (mask
-    tile, split) blocks per SM, at most one a chunk and the grid's 65,535.
-    (v's width `c` and the dtype are part of the key; a block covers one
-    mask tile in every dtype and the XC-column passes `c` sets do not
-    change the split count.)"""
+    """Splits of the one-column xtv_bs kernel on a card with `sms` SMs: a
+    function of the shape, the dtype and the card, never of the mask, so
+    a run with the true mask and one with an all-ones mask sum the same
+    partials in the same order. Split s takes row chunks s, s + splits,
+    s + 2 splits, ... (strided, so every split samples the whole of X and
+    the blocks' populated work evens out); enough splits for
+    `_XTV_BS_WAVES` (mask tile, split) blocks per SM, at most one a chunk
+    and the grid's 65,535. (v's width `c` and the dtype are part of the
+    key; a block covers one mask tile in every dtype.)"""
     chunks = -(-m // ROWS)
     want = -(-_XTV_BS_WAVES * sms // -(-n // TILE))
     return max(1, min(chunks, want, _MAX_SPLITS))
+
+
+def tile_bn(c: int, dtype: torch.dtype) -> int:
+    """The narrow operand's tile width in the tile products: the least of
+    `_TILE_BN[dtype]` that holds its `c` columns (128 tiles beyond 128)."""
+    widths = _TILE_BN[dtype]
+    return next((b for b in widths if c <= b), widths[-1])
+
+
+def xtv_bs_blocks_per_sm(bn: int, dtype: torch.dtype) -> int:
+    """Resident blocks an SM of xtv_bs_tile (`tile_min_blocks` in
+    spmm.cu): one at bn 128, else two (float64's 80 columns: blocks of 4
+    warps)."""
+    return 1 if bn == 128 else 2
+
+
+@lru_cache(maxsize=1024)
+def xtv_bs_tile_plan(m: int, n: int, c: int, dtype: torch.dtype,
+                     sms: int) -> tuple[int, int]:
+    """(bn, splits) of xtv_bs_tile on a card with `sms` SMs, a function of
+    the shape, the dtype and the card, never of the mask: X in tiles of
+    128 columns (two mask tiles) against `tile_bn(c)` columns of v, so X
+    is read once for c up to 128; split s takes row chunks s, s + splits,
+    ... as xtv_bs's, enough splits for `_XTV_BS_TILE_WAVES` (tile, split)
+    blocks per resident block, at most one a chunk and the grid's 65,535,
+    at least enough that no split holds more than `_BS_MAX_CHUNKS`
+    chunks (its bitmap in shared memory)."""
+    bn = tile_bn(c, dtype)
+    tiles = -(-n // _XT_BM) * -(-c // bn)
+    chunks = -(-m // ROWS)
+    slots = _XTV_BS_TILE_WAVES * sms * xtv_bs_blocks_per_sm(bn, dtype)
+    want = min(chunks, -(-slots // tiles), _MAX_SPLITS)
+    return bn, max(1, -(-chunks // _BS_MAX_CHUNKS), want)
+
+
+@lru_cache(maxsize=1024)
+def xtv_bs_route(m: int, n: int, c: int, dtype: torch.dtype,
+                 sms: int) -> tuple:
+    """Which kernel takes Xᵀv of c columns, with its plan: ("gemv",
+    splits) for one column (`xtv_bs_plan`), ("tile", bn, splits) from
+    `_TILE_CUT` columns (`xtv_bs_tile_plan`)."""
+    if c < _TILE_CUT:
+        return ("gemv", xtv_bs_plan(m, n, c, dtype, sms))
+    return ("tile",) + xtv_bs_tile_plan(m, n, c, dtype, sms)
+
+
+@lru_cache(maxsize=1024)
+def spmm_route(m: int, k: int, c: int, dtype: torch.dtype,
+               sms: int) -> tuple:
+    """Which kernel takes X @ W of c columns: ("gemv",) for one column,
+    ("tile", bn) from `_TILE_CUT` (`spmm_tile_kernel`: 128 rows of X
+    against `tile_bn(c)` columns of W, no split)."""
+    if c < _TILE_CUT:
+        return ("gemv",)
+    return ("tile", tile_bn(c, dtype))
 
 
 def gram_bs_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -192,11 +275,73 @@ def gram_bs_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _narrow(v: torch.Tensor, c: int, gw: int | None, gs: int):
+    """The narrow operand's row stride, column group (gw: c for a plain
+    matrix), group stride and copy width: 1 for 16-byte copies, 2 for
+    4-byte copies of bfloat16 pairs (an odd c's rows are 4-byte aligned,
+    not 16), else 0 (element copies)."""
+    gw = c if gw is None else gw
+    ld = v.stride(-2)
+    if _vec16(v, ld, gs) and gw % (16 // v.element_size()) == 0:
+        return ld, gw, gs, 1
+    pairs = v.dtype == torch.bfloat16 and v.data_ptr() % 4 == 0 \
+        and ld % 2 == 0 and gs % 2 == 0 and gw % 2 == 0
+    return ld, gw, gs, 2 if pairs else 0
+
+
+def _xtv_bs_tile(x: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                 out: torch.Tensor, plan: tuple, gw: int | None = None,
+                 gs: int = 0) -> torch.Tensor:
+    """Launch xtv_bs_tile (`repro_xtv_bs_tile`) under `plan` (bn, splits)
+    into `out` ((n, c), contiguous): v's column j at (j // gw) * gs + j %
+    gw of a row (gw None: a plain (m, c) matrix)."""
+    bn, splits = plan
+    m, n = x.shape
+    c = out.shape[1]
+    ld, gw, gs, vec = _narrow(v, c, gw, gs)
+    dev = x.device
+    lib = _library()
+    with _on(dev):
+        st = _raw_stream(dev)
+        ws = out if splits == 1 else _workspace(
+            dev, st, splits * n * c * out.element_size())
+        _check_rc(lib.repro_xtv_bs_tile(
+            _DTYPE_CODE[x.dtype], bn, x.data_ptr(), m, n, x.stride(0),
+            aligned16(x), v.data_ptr(), ld, gw, gs, vec, c, mask.data_ptr(),
+            mask.shape[1], splits, ws.data_ptr(), out.data_ptr(), st),
+            "xtv_bs")
+    LAUNCHES["xtv_bs_tile"] += 1
+    if splits > 1:
+        LAUNCHES["xtv_bs_tile_reduce"] += 1
+    return out
+
+
+def _spmm_tile(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
+               out: torch.Tensor, bn: int, gw: int | None = None,
+               gs: int = 0) -> torch.Tensor:
+    """Launch spmm_tile (`repro_spmm_tile`) with W's tiles `bn` wide into
+    `out` ((m, c), contiguous); W's columns as v's in `_xtv_bs_tile`."""
+    m, k = x.shape
+    c = out.shape[1]
+    ld, gw, gs, vec = _narrow(w, c, gw, gs)
+    dev = x.device
+    lib = _library()
+    with _on(dev):
+        _check_rc(lib.repro_spmm_tile(
+            _DTYPE_CODE[x.dtype], bn, x.data_ptr(), m, k, x.stride(0),
+            aligned16(x), w.data_ptr(), ld, gw, gs, vec, c, mask.data_ptr(),
+            mask.shape[1], out.data_ptr(), _raw_stream(dev)), "spmm")
+    LAUNCHES["spmm_tile"] += 1
+    return out
+
+
 def xtv_bs_cuda(x: torch.Tensor, v: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
     """Xᵀv on the card for a 2-D v, skipping masked blocks of X (replaces
-    `xtv_block_sparse`): the partial pass over the plan's splits and, past
-    one split, the reduce pass, one host call."""
+    `xtv_block_sparse`): one column through the GEMV kernel's partial
+    pass over the plan's splits and, past one split, the reduce pass; two
+    or more through the tile product and its reduce (`xtv_bs_route`); one
+    host call."""
     _check_matrix(x, "xtv_bs")
     _check_pair(x, v, "xtv_bs")
     m, n = x.shape
@@ -210,29 +355,32 @@ def xtv_bs_cuda(x: torch.Tensor, v: torch.Tensor,
     out = x.new_empty((n, c), dtype=acc)
     if m == 0 or n == 0 or c == 0:
         return out.zero_()
-    splits = xtv_bs_plan(m, n, c, x.dtype, _sm_count(dev))
+    route = xtv_bs_route(m, n, c, x.dtype, _sm_count(dev))
+    hlocost.charge(kernel_model.xtv_bs_work, mask, m, n, c, x.dtype)
+    if route[0] == "tile":
+        return _xtv_bs_tile(x, v, mask, out, route[1:])
+    splits = route[1]
     lib = _library()
     with _on(dev):
         st = _raw_stream(dev)
         # one split writes the output itself: no reduce pass
         ws = out if splits == 1 else \
-            _workspace(dev, st, splits * n * c * acc.itemsize)
+            _workspace(dev, st, splits * n * acc.itemsize)
         _check_rc(lib.repro_xtv_bs(
             _DTYPE_CODE[x.dtype], aligned16(x), x.data_ptr(), v.data_ptr(),
-            m, n, c, x.stride(0), v.stride(0), mask.data_ptr(),
-            mask.shape[1], splits, ws.data_ptr(), out.data_ptr(), st),
-            "xtv_bs")
+            m, n, x.stride(0), v.stride(0), mask.data_ptr(), mask.shape[1],
+            splits, ws.data_ptr(), out.data_ptr(), st), "xtv_bs")
     LAUNCHES["xtv_bs"] += 1
     if splits > 1:
         LAUNCHES["xtv_bs_reduce"] += 1
-    hlocost.charge(kernel_model.xtv_bs_work, mask, m, n, c, x.dtype)
     return out
 
 
 def spmm_cuda(x: torch.Tensor, w: torch.Tensor,
               mask: torch.Tensor) -> torch.Tensor:
     """Y = X @ W on the card for a 2-D W, skipping masked blocks of X
-    (replaces `spmm_block_sparse`)."""
+    (replaces `spmm_block_sparse`): the GEMV kernel for one column of W,
+    the tile product for two or more (`spmm_route`)."""
     _check_matrix(x, "spmm")
     _check_pair(x, w, "spmm")
     m, k = x.shape
@@ -248,27 +396,29 @@ def spmm_cuda(x: torch.Tensor, w: torch.Tensor,
         return out
     if k == 0:
         return out.zero_()
+    route = spmm_route(m, k, c, x.dtype, _sm_count(dev))
+    hlocost.charge(kernel_model.spmm_work, mask, m, k, c, x.dtype)
+    if route[0] == "tile":
+        return _spmm_tile(x, w, mask, out, route[1])
     lib = _library()
     with _on(dev):
         _check_rc(lib.repro_spmm(
             _DTYPE_CODE[x.dtype], aligned16(x), x.data_ptr(), w.data_ptr(),
-            m, k, c, x.stride(0), w.stride(0), mask.data_ptr(),
-            mask.shape[1], out.data_ptr(), _raw_stream(dev)), "spmm")
+            m, k, x.stride(0), w.stride(0), mask.data_ptr(), mask.shape[1],
+            out.data_ptr(), _raw_stream(dev)), "spmm")
     LAUNCHES["spmm"] += 1
-    hlocost.charge(kernel_model.spmm_work, mask, m, k, c, x.dtype)
     return out
 
 
 def _masked_meta(kind: str, xd: torch.Tensor, mask: torch.Tensor,
-                 v=None) -> torch.Tensor:
-    """gram_bs's, xtv_bs's or spmm's output for a "meta" X, charged as
-    a launch's over every block."""
+                 c: int = 0) -> torch.Tensor:
+    """gram_bs's, xtv_bs's or spmm's output for a "meta" X (v or W of `c`
+    columns), charged as a launch's over every block."""
     m, n = xd.shape
     acc = gram_ref.acc_dtype(xd.dtype)
     if kind == "gram_bs":
         hlocost.charge(kernel_model.gram_bs_work, mask, m, n, xd.dtype)
         return xd.new_empty((n, n), dtype=acc)
-    c = v.shape[1]
     if kind == "xtv_bs":
         hlocost.charge(kernel_model.xtv_bs_work, mask, m, n, c, xd.dtype)
         return xd.new_empty((n, c), dtype=acc)
@@ -307,7 +457,7 @@ def spmm_dense_masked(xd: torch.Tensor, w: torch.Tensor,
     if xd.device.type == "cpu":
         return ref.spmm(xd, w, mask, bm, bk)
     if xd.device.type == "meta":
-        return _masked_meta("spmm", xd, mask, w)
+        return _masked_meta("spmm", xd, mask, w.shape[1])
     _cuda_blocks(bm, bk, "spmm")
     return spmm_cuda(xd, w, mask)
 
@@ -321,7 +471,7 @@ def xtv_dense_masked(xd: torch.Tensor, v: torch.Tensor,
     if xd.device.type == "cpu":
         return ref.xtv(xd, v, mask, bm, bn)
     if xd.device.type == "meta":
-        return _masked_meta("xtv_bs", xd, mask, v)
+        return _masked_meta("xtv_bs", xd, mask, v.shape[1])
     _cuda_blocks(bm, bn, "xtv_bs")
     return xtv_bs_cuda(xd, v, mask)
 
@@ -368,15 +518,52 @@ def matmul_bcoo(a, b: torch.Tensor) -> torch.Tensor:
 # value is never bcoo: `batching.choose_mode`), but its variant suffix may
 # multiply that X with a batched dense operand (X @ beta over a λ grid).
 # These custom ops carry the vmap rule for that case: the batch folds into
-# the dense operand's columns, one ordinary masked launch of k·c columns.
+# the dense operand's columns, one masked launch of k·c columns. On the
+# card (and on "meta", which charges the same launch) the tile products
+# read each element of the batch where it lies, through a group stride
+# (column j of the fold at w[j // c][:, j % c]): no copy of the batch. One
+# column in all, and the CPU, take `fold_columns`.
 
-def _fold(fn, xd, w, mask, in_dims):
+def _fold(kind: str, xd, w, mask, in_dims):
     bx, bw, bm = in_dims
     if bx is not None or bm is not None:
         raise NotImplementedError(
             "a batched sparse operand has no batched lane (choose_mode "
             "sends such grids to the sequential loop)")
-    return gram_ops.fold_columns(lambda x, v: fn(x, v, mask), xd, w, bw)
+    w = gram_ops.rows(w.movedim(bw, 0))
+    k, r, c = w.shape
+    m, n = xd.shape
+    plain = spmm_dense_masked if kind == "spmm" else xtv_dense_masked
+    if xd.device.type == "cpu" or k * c < _TILE_CUT or m == 0 or n == 0:
+        return gram_ops.fold_columns(lambda x, v: plain(x, v, mask), xd, w,
+                                     0)
+    cols = k * c
+    if xd.device.type == "meta":
+        out = _masked_meta(kind, xd, mask, cols)
+    else:
+        _check_matrix(xd, kind)
+        if w.dtype != xd.dtype or w.device != xd.device:
+            raise TypeError(f"{kind}: x is {xd.dtype} on {xd.device}, the "
+                            f"other operand {w.dtype} on {w.device}")
+        if r != (n if kind == "spmm" else m):
+            raise ValueError(f"{kind}: shapes differ, {tuple(xd.shape)} "
+                             f"and a batch of {tuple(w.shape[1:])}")
+        _check_mask(mask, m, n, xd, kind)
+        acc = gram_ref.acc_dtype(xd.dtype)
+        sms = _sm_count(xd.device)
+        if kind == "spmm":
+            hlocost.charge(kernel_model.spmm_work, mask, m, n, cols, xd.dtype)
+            out = _spmm_tile(xd, w, mask, xd.new_empty((m, cols), dtype=acc),
+                             spmm_route(m, n, cols, xd.dtype, sms)[1], c,
+                             w.stride(0))
+        else:
+            hlocost.charge(kernel_model.xtv_bs_work, mask, m, n, cols,
+                           xd.dtype)
+            out = _xtv_bs_tile(xd, w, mask,
+                               xd.new_empty((n, cols), dtype=acc),
+                               xtv_bs_route(m, n, cols, xd.dtype, sms)[1:],
+                               c, w.stride(0))
+    return out.reshape(out.shape[0], k, c).permute(1, 0, 2), 0
 
 
 @torch.library.custom_op("repro_torch::spmm_masked", mutates_args=())
@@ -393,7 +580,7 @@ def _(xd, w, mask):
 
 @spmm_masked_op.register_vmap
 def _(info, in_dims, xd, w, mask):
-    return _fold(spmm_dense_masked, xd, w, mask, in_dims)
+    return _fold("spmm", xd, w, mask, in_dims)
 
 
 @torch.library.custom_op("repro_torch::xtv_masked", mutates_args=())
@@ -410,4 +597,4 @@ def _(xd, v, mask):
 
 @xtv_masked_op.register_vmap
 def _(info, in_dims, xd, v, mask):
-    return _fold(xtv_dense_masked, xd, v, mask, in_dims)
+    return _fold("xtv_bs", xd, v, mask, in_dims)

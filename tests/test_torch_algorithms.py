@@ -100,6 +100,21 @@ def test_mlogreg(rng):
     assert ((x @ tW).argmax(1) == labels).mean() > 0.95
 
 
+def test_mlogreg_sparse_inputs(rng):
+    """The bcoo lane: X below the sparse threshold, bound as BCOO in both
+    packages, so every iteration's X @ W and Xᵀ(P - Y) are block-sparse
+    products of several columns (one a class); W as on the dense lane."""
+    x = rng.normal(size=(256, 32)) * (rng.random((256, 32)) < 0.1)
+    labels = np.argmax(x @ rng.normal(size=(32, 3)), axis=1)
+    yoh = np.eye(3)[labels]
+    rW, tW = _both("mlogreg", [x, yoh], sparsity=0.1,
+                   rt_kw=dict(sparse_inputs=True), max_iter=30)
+    assert _rel(tW, rW) <= 1e-9
+    dense = talg.mlogreg(T.input_tensor("Xd", x), T.input_tensor("Yd", yoh),
+                         max_iter=30, runtime=_rt("port"))
+    assert _rel(tW, dense) <= 1e-9
+
+
 def test_mlogreg_three_classes(rng):
     x = rng.normal(size=(200, 5))
     labels = rng.integers(0, 3, size=200)

@@ -594,6 +594,258 @@ def test_xtv_bs_and_spmm_emulations_match_reference_kernels(reference, rng):
 
 
 # ---------------------------------------------------------------------------
+# two or more columns: the tile products (csrc/spmm.cu's xtv_bs_tile_kernel
+# and spmm_tile_kernel), their plans and routes, the vmapped fold
+# ---------------------------------------------------------------------------
+
+def _xtv_bs_tile_order(x, v, mask, bn, splits, bk=16):
+    """The CUDA xtv_bs_tile's algebra on the CPU, in float64: per output
+    tile (128 columns of X, two mask tiles, against `bn` columns of v) and
+    split s (row chunks s, s + splits, ...), the split's chunks in
+    ascending order, a chunk skipped when both of the tile's mask tiles
+    count 0 and a mask tile's columns of X read as zeros when its own
+    does, each stage of `bk` rows added into the tile's sum as one
+    product; the splits then summed in the xtv reduce's order."""
+    um = 128
+    m, n = x.shape
+    c = v.shape[1]
+    x, v = x.double(), v.double()
+    parts = []
+    for s in range(splits):
+        part = torch.zeros((n, c), dtype=torch.float64)
+        for c0 in range(0, n, um):
+            t = c0 // tops.TILE
+            for q0 in range(0, c, bn):
+                acc = torch.zeros((min(um, n - c0), min(bn, c - q0)),
+                                  dtype=torch.float64)
+                for ch in range(s, -(-m // tops.ROWS), splits):
+                    on = [t + q < mask.shape[1] and bool(mask[ch, t + q] > 0)
+                          for q in range(um // tops.TILE)]
+                    if not any(on):
+                        continue
+                    for r0 in range(ch * tops.ROWS,
+                                    min(m, (ch + 1) * tops.ROWS), bk):
+                        xs = x[r0:r0 + bk, c0:c0 + um].clone()
+                        for q, q_on in enumerate(on):
+                            if not q_on:
+                                xs[:, 64 * q:64 * q + 64] = 0.0
+                        acc = acc + xs.T @ v[r0:r0 + bk, q0:q0 + bn]
+                part[c0:c0 + um, q0:q0 + bn] = acc
+        parts.append(part)
+    return _xtv_reduce_order(parts)
+
+
+def _spmm_tile_order(x, w, mask, bk=16):
+    """The CUDA spmm_tile's algebra on the CPU, in float64: per 128 rows
+    of X (half a row chunk), the chunk's populated mask tiles in ascending
+    order, each stage of `bk` of a tile's columns added into the rows' sum
+    as one product; no split."""
+    m, k = x.shape
+    x, w = x.double(), w.double()
+    y = torch.zeros((m, w.shape[1]), dtype=torch.float64)
+    for r0 in range(0, m, 128):
+        rows = slice(r0, min(m, r0 + 128))
+        acc = torch.zeros((rows.stop - r0, w.shape[1]), dtype=torch.float64)
+        for t in torch.nonzero(mask[r0 // tops.ROWS] > 0).flatten().tolist():
+            for c0 in range(t * tops.TILE, min(k, (t + 1) * tops.TILE), bk):
+                acc = acc + x[rows, c0:c0 + bk] @ w[c0:c0 + bk]
+        y[rows] = acc
+    return y
+
+
+@pytest.mark.parametrize("bn,splits,c", [(16, 1, 2), (16, 3, 10), (80, 7, 40),
+                                         (80, 2, 70), (128, 2, 70),
+                                         (128, 4, 130)])
+def test_xtv_bs_tile_emulation_is_bitwise_under_an_all_ones_mask(rng, bn,
+                                                                 splits, c):
+    xn = _blocky_card(rng, 1700, 300, 0.4)
+    x = torch.from_numpy(xn)
+    v = torch.from_numpy(rng.normal(size=(1700, c)))
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    got = _xtv_bs_tile_order(x, v, mask, bn, splits)
+    assert torch.equal(got, _xtv_bs_tile_order(x, v, torch.ones_like(mask),
+                                               bn, splits))
+    assert _rel(got, xn.T @ v.numpy()) <= F64_RTOL
+
+
+@pytest.mark.parametrize("bk", [16, 32, 64])
+@pytest.mark.parametrize("c", [2, 10, 70])
+def test_spmm_tile_emulation_is_bitwise_under_an_all_ones_mask(rng, bk, c):
+    xn = _blocky_card(rng, 1100, 230, 0.4)
+    x = torch.from_numpy(xn)
+    w = torch.from_numpy(rng.normal(size=(230, c)))
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    got = _spmm_tile_order(x, w, mask, bk)
+    assert torch.equal(got, _spmm_tile_order(x, w, torch.ones_like(mask), bk))
+    assert _rel(got, xn @ w.numpy()) <= F64_RTOL
+
+
+def test_tile_emulations_leave_out_a_block_whose_count_is_0(rng):
+    """A populated block whose count is set to 0 is read as zeros (the
+    kernels zero-fill its half of an X tile, or skip its stages): the
+    product of X with that block zeroed, as the plain version gives."""
+    xn = _blocky_card(rng, 1100, 230, 0.6)
+    x = torch.from_numpy(xn)
+    v, w = (torch.from_numpy(rng.normal(size=s)) for s in ((1100, 5),
+                                                          (230, 5)))
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    nz = torch.nonzero(mask)
+    cut = mask.clone()
+    cut[tuple(nz[len(nz) // 2].tolist())] = 0
+    args = (cut, tops.ROWS, tops.TILE)
+    assert _rel(_xtv_bs_tile_order(x, v, cut, 16, 3),
+                tref.xtv(x, v, *args)) <= F64_RTOL
+    assert _rel(_spmm_tile_order(x, w, cut), tref.spmm(x, w, *args)) \
+        <= F64_RTOL
+    assert _rel(tref.xtv(x, v, *args), tref.xtv(x, v, mask, tops.ROWS,
+                                                tops.TILE)) > 1e-6
+
+
+@pytest.mark.parametrize("c", [2, 9])
+def test_tile_emulations_match_reference_kernels(reference, rng, c):
+    """The tile products' algebra against the reference's Pallas kernels
+    (interpret mode) with v and W of two or more columns."""
+    sops, _ = reference
+    xn = _blocky_card(rng, 1024, 200, 0.4).astype(np.float32)
+    vn = rng.normal(size=(1024, c)).astype(np.float32)
+    wn = rng.normal(size=(200, c)).astype(np.float32)
+    x = torch.from_numpy(xn)
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    got = _xtv_bs_tile_order(x, torch.from_numpy(vn), mask,
+                             tops.tile_bn(c, torch.float32), 3)
+    want = np.asarray(sops.xtv_dense_masked(xn, vn, bm=256, bn=64,
+                                            interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+    got = _spmm_tile_order(x, torch.from_numpy(wn), mask)
+    want = np.asarray(sops.spmm_dense_masked(xn, wn, bm=256, bk=64,
+                                             interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_tile_plans_take_no_mask():
+    import inspect
+    for fn in (tops.xtv_bs_tile_plan, tops.xtv_bs_route, tops.spmm_route):
+        assert list(inspect.signature(fn).parameters) == [
+            "m", *(["k"] if fn is tops.spmm_route else ["n"]), "c", "dtype",
+            "sms"]
+
+
+# (m, n, c) of the paths' multi-column launches and the card cases' odd
+# shapes: mlogreg's 10 classes and the sparse grid's 70 λs at the lmds
+# point, ragged c on the stream's 6,784-row tail, an offset slice, a long
+# X whose splits hold many chunks
+TILE_SHAPES = [(100_000, 1000, 10), (100_000, 1000, 70), (6784, 1000, 9),
+               (6784, 1000, 129), (3000, 301, 5), (300, 12, 2),
+               (1, 64, 3), (5_000_000, 40, 2), (2_000_000_000, 64, 16)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("m,n,c", TILE_SHAPES)
+def test_xtv_bs_tile_plan(m, n, c, dtype, sms):
+    """Every row chunk falls in exactly one split (strided: chunk ch in
+    split ch % splits), no split is empty or holds more than the kernel's
+    bitmap (`_BS_MAX_CHUNKS` chunks), splits stay within the grid's
+    65,535; v's tiles are the least of 16, 80 (float64) and 128 that
+    hold c, so X is read once for c up to 128; the plan asks for as many
+    (tile, split) blocks as `_XTV_BS_TILE_WAVES` resident blocks an SM
+    where the rows allow, and is a pure function of its arguments."""
+    bn, splits = tops.xtv_bs_tile_plan(m, n, c, dtype, sms)
+    assert tops.xtv_bs_tile_plan.__wrapped__(m, n, c, dtype, sms) == \
+        (bn, splits)
+    chunks = -(-m // tops.ROWS)
+    assert 1 <= splits <= min(chunks, 65_535)
+    assert -(-chunks // splits) <= tops._BS_MAX_CHUNKS
+    if chunks < 1000:
+        owner = [ch % splits for ch in range(chunks)]
+        assert sorted(set(owner)) == list(range(splits))
+    widths = (16, 80, 128) if dtype == torch.float64 else (16, 128)
+    assert bn == next(b for b in widths if min(c, 128) <= b)
+    assert (-(-c // bn) == 1) == (c <= 128)  # X read once up to 128
+    tiles = -(-n // 128) * -(-c // bn)
+    slots = tops._XTV_BS_TILE_WAVES * sms * tops.xtv_bs_blocks_per_sm(bn,
+                                                                      dtype)
+    if chunks <= 65_535 * 8 and splits < chunks:
+        assert splits == max(-(-slots // tiles),
+                             -(-chunks // tops._BS_MAX_CHUNKS))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("m,n,c", TILE_SHAPES + [(100_000, 1000, 1),
+                                                 (6784, 1000, 1)])
+def test_sparse_routes_by_columns(m, n, c, dtype):
+    """One column takes the GEMV kernels under their plan; from
+    `_TILE_CUT` (2) columns the tile products under theirs."""
+    xr = tops.xtv_bs_route(m, n, c, dtype, 132)
+    sr = tops.spmm_route(m, n, c, dtype, 132)
+    assert tops._TILE_CUT == 2
+    if c == 1:
+        assert xr == ("gemv", tops.xtv_bs_plan(m, n, c, dtype, 132))
+        assert sr == ("gemv",)
+    else:
+        assert xr == ("tile",) + tops.xtv_bs_tile_plan(m, n, c, dtype, 132)
+        assert sr == ("tile", tops.tile_bn(c, dtype))
+    assert tops.xtv_bs_route.__wrapped__(m, n, c, dtype, 132) == xr
+    assert tops.spmm_route.__wrapped__(m, n, c, dtype, 132) == sr
+
+
+@pytest.mark.parametrize("kind", ["spmm", "xtv_bs"])
+@pytest.mark.parametrize("c", [1, 2])
+def test_vmapped_masked_ops_match_reference(reference, rng, kind, c):
+    """`spmm_masked_op` / `xtv_masked_op` under torch.func.vmap over a
+    batch of w with one sparse X (a λ grid's fold) on the CPU against the
+    reference's masked products under jax.vmap with the Pallas kernels in
+    interpret mode, float32."""
+    import functools
+    import jax
+    import jax.numpy as jnp
+    sops, _ = reference
+    k, m, n = 3, 512, 130
+    xn = _blocky_card(rng, m, n, 0.5).astype(np.float32)
+    wn = rng.normal(size=(k, n if kind == "spmm" else m, c)).astype(
+        np.float32)
+    x = torch.from_numpy(xn)
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    op = tops.spmm_masked_op if kind == "spmm" else tops.xtv_masked_op
+    got = torch.func.vmap(op, in_dims=(None, 0, None))(
+        x, torch.from_numpy(wn), mask)
+    ref_fn = sops.spmm_dense_masked if kind == "spmm" else \
+        sops.xtv_dense_masked
+    kw = dict(bm=256, bk=64) if kind == "spmm" else dict(bm=256, bn=64)
+    want = jax.vmap(functools.partial(ref_fn, interpret=True, **kw),
+                    in_axes=(None, 0))(jnp.asarray(xn), jnp.asarray(wn))
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+@pytest.mark.parametrize("kind", ["spmm", "xtv_bs"])
+@pytest.mark.parametrize("k,c", [(70, 1), (3, 4), (1, 1)])
+def test_folded_masked_ops_count_on_meta_as_on_the_card(kind, k, c):
+    """The masked ops under vmap on "meta": the kernel's work for k·c
+    columns and no other op (the tile products read the batch in place;
+    a one-column fold's w is a view), and the card's output shape."""
+    from repro_torch.launch import hlocost, kernel_model
+    m, n, dt = 600, 130, torch.float64
+    x = torch.empty((m, n), dtype=dt, device="meta")
+    w = torch.empty((k, n if kind == "spmm" else m, c), dtype=dt,
+                    device="meta")
+    mask = torch.empty((-(-m // tops.ROWS), -(-n // tops.TILE)),
+                       dtype=torch.int32, device="meta")
+    op = tops.spmm_masked_op if kind == "spmm" else tops.xtv_masked_op
+    fn = torch.func.vmap(op, in_dims=(None, 0, None))
+    t = hlocost.count(fn, x, w, mask)
+    work = (kernel_model.spmm_work if kind == "spmm" else
+            kernel_model.xtv_bs_work)(mask, m, n, k * c, dt)
+    assert (t.flops, t.bytes) == work
+    assert set(t.by_op) == {kind} and t.by_op[kind][0] == 1
+    out = fn(x, w, mask)
+    assert out.shape == (k, m if kind == "spmm" else n, c)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -623,11 +875,13 @@ def test_cuda_kernels_match_plain_version(cuda_device, m, n, c, dtype):
     xv = tops.xtv_bs_cuda(x, v, mask)
     y = tops.spmm_cuda(x, w, mask)
     torch.cuda.synchronize()
-    for k in ("gram_bs", "gram_bs_reduce", "xtv_bs", "spmm"):
+    # one column: the GEMV kernels; two or more: the tile products
+    xk, sk = ("xtv_bs", "spmm") if c == 1 else ("xtv_bs_tile", "spmm_tile")
+    for k in ("gram_bs", "gram_bs_reduce", xk, sk):
         assert tops.LAUNCHES[k] == before[k] + 1
-    splits = tops.xtv_bs_plan(m, n, c, dtype, tops._sm_count(x.device))
-    assert tops.LAUNCHES["xtv_bs_reduce"] == before["xtv_bs_reduce"] \
-        + (splits > 1)
+    route = tops.xtv_bs_route(m, n, c, dtype, tops._sm_count(x.device))
+    assert tops.LAUNCHES[f"{xk}_reduce"] == before[f"{xk}_reduce"] \
+        + (route[-1] > 1)
     tol = KERNEL_TOL[dtype]
     args = (mask, tops.ROWS, tops.TILE)
     assert gram_ref.scaled_err(g, tref.gram(x, *args), x, x) <= tol
@@ -685,13 +939,13 @@ def test_cuda_gram_bs_paths_match_plain_version(cuda_device, monkeypatch,
                                     ("odd", 5)])
 def test_cuda_xtv_bs_and_spmm_paths_match_plain_version(cuda_device, dtype,
                                                        case, c):
-    """xtv_bs and spmm at c = 1, 3 and 5 (the c = 1 instantiation and the
-    XC-column passes, a ragged last pass), on the 6,784-row stream tail (a
-    128-row last chunk, a 40-column last tile), a column slice at offset 1
-    and an odd width (element loads: 8-byte-aligned rows); each within the
-    limit of its plain version, bitwise against an all-ones mask and a
-    second call, and with one populated block's count set to 0, against
-    the plain version with that block left out."""
+    """xtv_bs and spmm at c = 1 (the GEMV kernels), 3 and 5 (the tile
+    products), on the 6,784-row stream tail (a 128-row last chunk, a
+    40-column last tile), a column slice at offset 1 and an odd width
+    (element loads: 8-byte-aligned rows); each within the limit of its
+    plain version, bitwise against an all-ones mask and a second call,
+    and with one populated block's count set to 0, against the plain
+    version with that block left out."""
     rng = np.random.default_rng(3)
     if case == "tail":
         xn = _blocky(rng, 6784, 1000, 1024, 128, 0.25, 0.2)
@@ -763,9 +1017,10 @@ def test_cuda_wrappers_refuse_what_they_do_not_take(cuda_device):
 @pytest.mark.parametrize("kind", ["spmm", "xtv_bs"])
 def test_cuda_sparse_fold_rules_launch_once(cuda_device, kind):
     """The masked ops under torch.func.vmap on the card (a sparse grid's
-    X @ β over 70 λs): one launch of the hand kernel over the folded
-    k·c columns, each element within the kernel limit of a lone call and
-    of the plain version computed in float64, bitwise repeatable."""
+    X @ β over 70 λs): one launch of the tile product over the folded
+    k·c columns (each β read in place), each element within the kernel
+    limit of a lone call and of the plain version computed in float64,
+    bitwise repeatable."""
     rng = np.random.default_rng(5)
     k, m, n = 70, 20_000, 1000
     x = torch.from_numpy(_blocky(rng, m, n, 1024, 128, 0.25, 0.2)).to(
@@ -780,7 +1035,8 @@ def test_cuda_sparse_fold_rules_launch_once(cuda_device, kind):
     before = dict(tops.LAUNCHES)
     got = fn(x, w, mask)
     torch.cuda.synchronize()
-    assert tops.LAUNCHES[kind] == before[kind] + 1
+    assert tops.LAUNCHES[f"{kind}_tile"] == before[f"{kind}_tile"] + 1
+    assert tops.LAUNCHES[kind] == before[kind]
     a = x.mT if kind == "spmm" else x
     tol = KERNEL_TOL[torch.float64]
     for b in range(k):
@@ -788,4 +1044,86 @@ def test_cuda_sparse_fold_rules_launch_once(cuda_device, kind):
                                    w[b]) <= tol
         assert gram_ref.scaled_err(got[b], plain(x, w[b], mask, tops.ROWS,
                                                  tops.TILE), a, w[b]) <= tol
+    assert torch.equal(got, fn(x, w, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("m,n,c,offset", [
+    pytest.param(20_000, 1000, 10, 0, id="mlogreg-like-20000-1000-10"),
+    pytest.param(20_000, 1000, 70, 0, id="fold-width-20000-1000-70"),
+    pytest.param(6784, 1000, 9, 0, id="tail-c9"),
+    pytest.param(6784, 1000, 129, 0, id="tail-c129"),
+    pytest.param(6784, 1000, 9, 1, id="tail-offset1-c9"),
+    pytest.param(3001, 301, 2, 3, id="ragged-offset3-c2"),
+    pytest.param(100, 70, 17, 0, id="one-chunk-c17"),
+    pytest.param(513, 64, 64, 0, id="one-tile-c64"),
+])
+def test_cuda_tile_products_match_plain_version(cuda_device, m, n, c, offset,
+                                                dtype):
+    """Two or more columns on the tile products: ragged m, n and c, column
+    slices at odd offsets (element copies of X), every dtype; each within
+    the kernel limit of the plain version (the same dtype's, and float64's),
+    bitwise against an all-ones mask and on repeat, one launch of the tile
+    product (and its reduce past one split) and none of the GEMV kernels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    xn = _blocky(rng, m, n + offset, 1024, 128, 0.3, 0.2)
+    x = torch.from_numpy(xn).to(cuda_device, dtype)[:, offset:]
+    v = torch.from_numpy(rng.normal(size=(m, c))).to(cuda_device, dtype)
+    w = torch.from_numpy(rng.normal(size=(n, c))).to(cuda_device, dtype)
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    ones = torch.ones_like(mask)
+    args = (mask, tops.ROWS, tops.TILE)
+    tol = KERNEL_TOL[dtype]
+    before = dict(tops.LAUNCHES)
+    xv, y = tops.xtv_bs_cuda(x, v, mask), tops.spmm_cuda(x, w, mask)
+    torch.cuda.synchronize()
+    route = tops.xtv_bs_route(m, n, c, dtype, tops._sm_count(x.device))
+    assert route[0] == "tile"
+    assert tops.LAUNCHES["xtv_bs_tile"] == before["xtv_bs_tile"] + 1
+    assert tops.LAUNCHES["xtv_bs_tile_reduce"] == \
+        before["xtv_bs_tile_reduce"] + (route[-1] > 1)
+    assert tops.LAUNCHES["spmm_tile"] == before["spmm_tile"] + 1
+    assert tops.LAUNCHES["xtv_bs"] == before["xtv_bs"]
+    assert tops.LAUNCHES["spmm"] == before["spmm"]
+    assert xv.dtype == gram_ref.acc_dtype(dtype) and xv.shape == (n, c)
+    assert y.dtype == gram_ref.acc_dtype(dtype) and y.shape == (m, c)
+    for want_x, want_y in ((tref.xtv(x, v, *args), tref.spmm(x, w, *args)),
+                           (tref.xtv(x.double(), v.double(), *args),
+                            tref.spmm(x.double(), w.double(), *args))):
+        assert gram_ref.scaled_err(xv, want_x, x, v) <= tol
+        assert gram_ref.scaled_err(y, want_y, x.mT, w) <= tol
+    assert torch.equal(xv, tops.xtv_bs_cuda(x, v, ones))
+    assert torch.equal(xv, tops.xtv_bs_cuda(x, v, mask))
+    assert torch.equal(y, tops.spmm_cuda(x, w, ones))
+    assert torch.equal(y, tops.spmm_cuda(x, w, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["spmm", "xtv_bs"])
+@pytest.mark.parametrize("k,c", [(3, 4), (8, 10)])
+def test_cuda_folds_of_several_columns(cuda_device, kind, k, c):
+    """The vmapped fold with c >= 2 columns an element (v's groups read in
+    place by 16-byte copies): one tile launch, each element within the
+    kernel limit of a lone call, bitwise on repeat."""
+    rng = np.random.default_rng(8)
+    m, n = 5000, 300
+    x = torch.from_numpy(_blocky(rng, m, n, 1024, 128, 0.3, 0.2)).to(
+        cuda_device)
+    mask = tref.block_mask(x, tops.ROWS, tops.TILE)
+    w = torch.from_numpy(rng.normal(size=(k, n if kind == "spmm" else m,
+                                          c))).to(cuda_device)
+    op, lone = ((tops.spmm_masked_op, tops.spmm_cuda) if kind == "spmm" else
+                (tops.xtv_masked_op, tops.xtv_bs_cuda))
+    fn = torch.func.vmap(op, in_dims=(None, 0, None))
+    before = dict(tops.LAUNCHES)
+    got = fn(x, w, mask)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES[f"{kind}_tile"] == before[f"{kind}_tile"] + 1
+    a = x.mT if kind == "spmm" else x
+    for b in range(k):
+        assert gram_ref.scaled_err(got[b], lone(x, w[b], mask), a, w[b]) \
+            <= KERNEL_TOL[torch.float64]
     assert torch.equal(got, fn(x, w, mask))

@@ -7,7 +7,7 @@
     git show <commit>:src/repro_torch/kernels/gram/ops.py > build/other/gram_ops.py
     python3 tools/spmm_ab.py [--kernel gram_bs,xtv_bs,spmm] [--other build/other]
         [--variant NAME:KEY=VALUE,...] ... [--waves N,N,...]
-        [--cases NAME,...] [--iters N] [--fits]
+        [--columns C,C,...] [--cases NAME,...] [--iters N] [--fits]
 
 `--other` is a directory holding another commit's `spmm.cu`,
 `spmm_ops.py`, `gram.cu`, `gram_ops.py` and, from commit 89529c8 on,
@@ -28,6 +28,10 @@ changed):
     XB_MIN_BLOCKS=n, SPMM_MIN_BLOCKS=n
                      resident blocks an SM in the kernels' launch bounds
                      (they cap the registers a thread)
+    TILE_STAGES=n    depth of the tile products' cp.async ring (two or
+                     more columns: xtv_bs_tile, spmm_tile)
+    XBT_F64_ROWS=n   rows of X a float64 xtv_bs_tile stage holds
+    SP_F64_COLS=n    columns of X a float64 spmm_tile stage holds
 
 A variant with no substitutions is the sources as they stand; a layout
 no constant sets (PERF.md §6's slab of 32 x 16 bytes) is timed as a
@@ -38,8 +42,11 @@ bytes are printed from ptxas's report. Then, for each case (chip_smoke's
 shapes: gram_bs at 100,000 x 1,000 blocky and uniform, the 6,784-row tail
 and a sparse_stream bucket of 32,768 rows; xtv_bs at sparse_lmds' 100,000
 x 1,000 blocky, sparse_lmcg's 100,000 x 2,000 blocky-wide, the bucket and
-the tail; spmm at sparse_lmcg's shape and the tail; float64 unless the
-name says otherwise), the versions run in turn (A, B, ..., ..., B, A),
+the tail; spmm at sparse_lmcg's shape and the tail; both at the lmds
+point, blocky and uniform (every block populated: the mask skips
+nothing); float64 unless the name says otherwise), at each v or W width
+of `--columns` (1 by default; two or more take the tile products in this
+tree), the versions run in turn (A, B, ..., ..., B, A),
 each checked against the plain version (chip_smoke's TOL), bitwise
 against itself with an all-ones mask and against a second call (gram_bs:
 bitwise symmetric too), and timed: `ms` by CUDA events over `--iters`
@@ -49,7 +56,8 @@ memory one call adds to what was allocated before it (its output and its
 split workspace); `library_ms` is one `torch.matmul` of the dense layout
 (a yardstick the port never calls). With `--waves`, this tree's gram_bs
 and xtv_bs then run under each value of their plans' blocks per SM
-(`_BS_WAVES`, `_XTV_BS_WAVES`) in turn, with the plan it gives. With
+(`_BS_WAVES`, `_XTV_BS_WAVES`, and `_XTV_BS_TILE_WAVES` for two or more
+columns) in turn, with the plan it gives. With
 `--fits`, chip_smoke's sparse_lm phase (the sparse lmDS fit, lmCG and the
 streamed lmDS fit) then runs once with each version's kernels in the
 wrapper's place. One JSON line per result. Needs a CUDA card and nvcc;
@@ -72,7 +80,8 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 CONSTANTS = ("STAGES", "F64_BK", "MAX_CHUNKS", "XB_UNROLL", "XB_MIN_BLOCKS",
-             "SPMM_SLOTS", "SPMM_W_BYTES", "SPMM_MIN_BLOCKS")
+             "SPMM_SLOTS", "SPMM_W_BYTES", "SPMM_MIN_BLOCKS", "TILE_STAGES",
+             "XBT_F64_ROWS", "SP_F64_COLS")
 KERNELS = ("gram_bs", "xtv_bs", "spmm")
 OUT = ROOT / "build" / "variants"
 # (name, kernel, rows, cols, pattern, dtype)
@@ -89,7 +98,10 @@ CASES += [(f"{name}{suffix}", kind, m, n, pattern, dtype)
                           ("stream-bucket", 32_768, 1000, "BLOCKY"),
                           ("tail", 6784, 1000, "BLOCKY"))),
               ("spmm", (("lmcg", 100_000, 2000, "BLOCKY_WIDE"),
-                        ("tail", 6784, 1000, "BLOCKY"))))
+                        ("tail", 6784, 1000, "BLOCKY"))),
+              ("xtv_bs", (("lmds-uniform", 100_000, 1000, "UNIFORM"),)),
+              ("spmm", (("lmds", 100_000, 1000, "BLOCKY"),
+                        ("lmds-uniform", 100_000, 1000, "UNIFORM"))))
           for name, m, n, pattern in shapes
           for suffix, dtype in (("", "float64"), ("-f32", "float32"),
                                 ("-bf16", "bfloat16"))]
@@ -101,11 +113,12 @@ def emit(obj) -> None:
 
 def ptxas_summary(log: str) -> dict:
     """{kernel<template arguments>: [registers, spill bytes]} of spmm.cu's
-    partial, xtv_bs and spmm kernels, from ptxas's report."""
+    partial, xtv_bs, spmm and tile kernels, from ptxas's report."""
     out, name = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*(gram_bs_partial_kernel|"
-                      r"xtv_bs_partial_kernel|spmm_kernel)I(\w+?)EE", ln)
+        m = re.search(r"Compiling entry function '\S*?(gram_bs_partial_kernel|"
+                      r"xtv_bs_partial_kernel|spmm_kernel|xtv_bs_tile_kernel|"
+                      r"spmm_tile_kernel)I(\w+?)EE", ln)
         if m:
             name = f"{m.group(1)}<{m.group(2)}>"
             out[name] = [None, None]
@@ -199,6 +212,7 @@ def main() -> int:
     ap.add_argument("--other", type=Path)
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--waves")
+    ap.add_argument("--columns", default="1")
     ap.add_argument("--cases")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--fits", action="store_true")
@@ -253,8 +267,9 @@ def main() -> int:
         current[0] = name
         ops._lib = libs[name]
         ops._BS_MAX_CHUNKS = chunks[name]
-        ops.gram_bs_plan.cache_clear()
-        ops.xtv_bs_plan.cache_clear()
+        for plan in (ops.gram_bs_plan, ops.xtv_bs_plan, ops.xtv_bs_tile_plan,
+                     ops.xtv_bs_route, ops.spmm_route):
+            plan.cache_clear()
 
     def this_fn(name, kind):
         def call(*a):
@@ -275,6 +290,8 @@ def main() -> int:
     names = list(fns)
     order = names + names[::-1]
     wanted = args.cases.split(",") if args.cases else None
+    columns = [int(c) for c in args.columns.split(",")]
+    peaks = cs.peaks_for(torch.cuda.get_device_name(0))[1]
     import numpy as np
     from repro_torch.core.backend import sparsify, to_device
     from repro_torch.kernels.gram.ref import scaled_err
@@ -283,22 +300,7 @@ def main() -> int:
     dt = {"float64": torch.float64, "float32": torch.float32,
           "bfloat16": torch.bfloat16}
     data = {}
-    for case, kind, m, n, pattern, dtype in CASES:
-        if kind not in kernels or (wanted and case not in wanted):
-            continue
-        key = (m, n, pattern)
-        if key not in data:
-            data.clear()
-            torch.cuda.empty_cache()
-            rng = np.random.default_rng(cs.SEED)
-            xh, _ = cs.blocky(rng, m, n, *getattr(cs, pattern))
-            xs = to_device(sparsify(xh), cs.DEVICE)
-            other_in = torch.from_numpy(rng.standard_normal(
-                (max(m, n), 1))).to(cs.DEVICE)
-            data[key] = (xs.todense(), ops.block_mask_from_indices(xs),
-                         other_in)
-            del xh, xs
-        xd, mask, other_in = data[key]
+    def run_case(case, kind, m, n, pattern, dtype, c, xd, mask, other_in):
         x = xd.to(dt[dtype])
         ones = torch.ones_like(mask)
         if kind == "gram_bs":
@@ -307,13 +309,13 @@ def main() -> int:
             a, b = x, x
             lib = lambda: torch.matmul(x.mT, x)
         elif kind == "xtv_bs":
-            w = other_in[:m].to(dt[dtype])
+            w = other_in[:m, :c].to(dt[dtype])
             args_of = lambda mk: (x, w, mk)
             want = ref.xtv(x, w, mask, ops.ROWS, ops.TILE)
             a, b = x, w
             lib = lambda: torch.matmul(x.mT, w)
         else:
-            w = other_in[:n].to(dt[dtype])
+            w = other_in[:n, :c].to(dt[dtype])
             args_of = lambda mk: (x, w, mk)
             want = ref.spmm(x, w, mask, ops.ROWS, ops.TILE)
             a, b = x.mT, w
@@ -342,20 +344,21 @@ def main() -> int:
             for kname, sec in by_name.items():
                 m_ = re.search(r"(gram_bs_partial|gram_tile_reduce|"
                                r"gram_reduce|xtv_bs_partial|xtv_reduce|"
-                               r"spmm_kernel)", kname)
+                               r"xtv_bs_tile|spmm_tile|spmm_kernel)", kname)
                 k_ = m_.group(1) if m_ else kname[:40]
                 kms[k_] = kms.get(k_, 0.0) + 100 * sec
             rows.setdefault(name, []).append(dict(
                 ok=ok, ms=ms, device_ms=None if busy is None else 100 * busy,
                 kernel_ms=kms, peak_mb=peak_mb))
-        bnd = cs.sparse_bounds(kind, mask, m, n, 1, dtype, cs.PEAKS["H100"])
-        emit(dict(case=case, kernel=kind, m=m, n=n, dtype=dtype,
+        bnd = cs.sparse_bounds(kind, mask, m, n, c, dtype, peaks)
+        emit(dict(case=case, kernel=kind, m=m, n=n, c=c, dtype=dtype,
                   bound_ms=bnd["bound_ms"],
                   library_ms=cs.cuda_ms(lib, iters=args.iters), **rows))
         if args.waves and kind in ("gram_bs", "xtv_bs"):
             fn = fns["this"][kind]
             use("this")
-            knob = "_BS_WAVES" if kind == "gram_bs" else "_XTV_BS_WAVES"
+            knob = "_BS_WAVES" if kind == "gram_bs" else \
+                "_XTV_BS_WAVES" if c == 1 else "_XTV_BS_TILE_WAVES"
             base = getattr(ops, knob)
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             swept = {}
@@ -364,11 +367,9 @@ def main() -> int:
                         else dict.fromkeys(base, wv))
                 current[0] = None  # the plan changed
                 use("this")
-                ops.gram_bs_plan.cache_clear()
-                ops.xtv_bs_plan.cache_clear()
                 plan = ops.gram_bs_plan(m, n, x.dtype, sms) \
-                    if kind == "gram_bs" else ops.xtv_bs_plan(m, n, 1, x.dtype,
-                                                              sms)
+                    if kind == "gram_bs" else ops.xtv_bs_route(m, n, c, x.dtype,
+                                                               sms)
                 run = (lambda: fn(*args_of(mask)))
                 _, _, busy, _ = cs.device_trace(
                     lambda: [run() for _ in range(10)])
@@ -376,9 +377,28 @@ def main() -> int:
                                  if busy is None else 100 * busy)
             setattr(ops, knob, base)
             current[0] = None
-            emit(dict(waves=case, kernel=kind,
+            emit(dict(waves=case, kernel=kind, c=c,
                       **{str(k): v for k, v in swept.items()}))
         del x, want
+
+    for case, kind, m, n, pattern, dtype in CASES:
+        if kind not in kernels or (wanted and case not in wanted):
+            continue
+        key = (m, n, pattern)
+        if key not in data:
+            data.clear()
+            torch.cuda.empty_cache()
+            rng = np.random.default_rng(cs.SEED)
+            xh, _ = cs.blocky(rng, m, n, *getattr(cs, pattern))
+            xs = to_device(sparsify(xh), cs.DEVICE)
+            other_in = torch.from_numpy(rng.standard_normal(
+                (max(m, n), max(columns)))).to(cs.DEVICE)
+            data[key] = (xs.todense(), ops.block_mask_from_indices(xs),
+                         other_in)
+            del xh, xs
+        xd, mask, other_in = data[key]
+        for c in (columns if kind != "gram_bs" else [1]):
+            run_case(case, kind, m, n, pattern, dtype, c, xd, mask, other_in)
     data.clear()
     torch.cuda.empty_cache()
     if "this" in libs:
