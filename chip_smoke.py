@@ -11,10 +11,11 @@ card. One JSON line per phase:
   2. build         — compile `src/repro_torch/csrc/*.cu` (gram, spmm,
                      flash, wkv6, ssd; gram and spmm share
                      gram_mainloop.cuh, which with flash includes
-                     sm90.cuh) for sm_90a, one `nvcc` per source,
-                     all started together; the bf16 flash instantiations
-                     (hd 32, 64, 128 and MLA's q/k 192 with v 128) and
-                     MLA's float32 one,
+                     sm90.cuh; flash and wkv6 include tf32.cuh) for
+                     sm_90a, one `nvcc` per source, all started
+                     together; the bf16 and float32 flash
+                     instantiations (hd 32, 64, 128 and MLA's q/k 192
+                     with v 128),
                      gram's float64 partial kernels, its bf16 wgmma
                      kernels and xtv tile products, every WKV6
                      state and output kernel, every selective-scan kernel
@@ -50,10 +51,12 @@ card. One JSON line per phase:
                      q/k 192 and v 128 in bf16 and float32 and ragged,
                      llama-3.2-vision-90b's cross-attention over 1,024
                      image tokens, musicgen-large's and deepseek-moe-16b's
-                     heads), bitwise
+                     heads, lm-100m's in float32), bitwise
                      repeatable, with kernel, plain, library (one
                      scaled_dot_product_attention, a yardstick the port
-                     never calls) and bound times
+                     never calls) and bound times; the float32 kernel's
+                     bound at the 3xTF32 rate (a third of TF32's) and at
+                     the FMA pipes' float32 rate beside it
   6. quickstart    — the 5000 x 64 lambda sweep with a ReuseCache: reuse
                      hits, bitwise fuse=True/fuse=False parity,
                      PreparedScript replays without rebuilds
@@ -289,7 +292,7 @@ card. One JSON line per phase:
                      peak as its bound. No kernel launches: the wrappers
                      refuse a gradient
  32. fedavg        — FedAvgTrainer over 4 sites of lm-100m at full width
-                     (float32, remat off), each site a TokenPipeline shard
+                     (float32, remat on), each site a TokenPipeline shard
                      of the train phase's data (batch 8 × 256), a sync
                      every 8 rounds, 16 rounds, `loss_fn` through
                      Model.loss by functional_call; int8 compression off
@@ -1963,6 +1966,7 @@ FLASH_CASES = [
     ("ragged-17", 8, 17, 17, 16, 8, 128, 128, True, "bfloat16"),
     ("non-causal", 8, 2048, 1024, 16, 8, 128, 128, False, "bfloat16"),
     ("qwen3-0.6b-f32", 8, 2048, 2048, 16, 8, 128, 128, True, "float32"),
+    ("lm-100m-f32", 8, 2048, 2048, 10, 5, 64, 64, True, "float32"),
     ("deepseek-v2-236b", 8, 2048, 2048, 128, 128, 192, 128, True,
      "bfloat16"),
     ("deepseek-v2-236b-f32", 8, 2048, 2048, 128, 128, 192, 128, True,
@@ -1975,8 +1979,15 @@ FLASH_CASES = [
     ("musicgen-large", 8, 2048, 2048, 32, 32, 64, 64, True, "bfloat16"),
     ("deepseek-moe-16b", 8, 2048, 2048, 16, 16, 128, 128, True, "bfloat16"),
 ]
-# the MLA case whose row the kernels line carries beside the path's
+# the MLA case whose row the kernels line carries beside the path's, and
+# the float32 cases it carries as the float32 kernel's instantiations
 FLASH_MLA_CASE = "deepseek-v2-236b"
+FLASH_F32_CASES = ("qwen3-0.6b-f32", "deepseek-v2-236b-f32", "lm-100m-f32")
+# the rate of the kernel's products by dtype: bf16 at the bf16 tensor-core
+# rate; float32 as 3xTF32, three TF32 products for each (a third of the
+# TF32 rate). The float32 rows also carry their bound at the FMA pipes'
+# float32 rate, for comparison with a kernel on those pipes
+FLASH_RATE = {"bfloat16": ("bfloat16", 1), "float32": ("tf32", 3)}
 # float32 scores of one plain-version call in a slice of the batch: at
 # MLA's 128 heads and S 2,048 the whole batch's would take 17.2 GB
 PLAIN_SCORE_BYTES = 2e9
@@ -1987,10 +1998,18 @@ def flash_bound(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
                 ) -> tuple[float, str]:
     """Least time for one attention call: the visible (q, k) pairs each
     take 2·hd operations for QKᵀ and 2·dv for PV; q, k, v read once and
-    the output written once (`launch.kernel_model.flash_work`)."""
+    the output written once (`launch.kernel_model.flash_work`), the
+    operations at FLASH_RATE[dtype]."""
     from repro_torch.launch import kernel_model as km
-    return _t(km.flash_work(B, Sq, Sk, Hq, Hkv, hd, dv, causal, dtype),
-              peaks[dtype], peaks["bw"])
+    ops, nbytes = km.flash_work(B, Sq, Sk, Hq, Hkv, hd, dv, causal, dtype)
+    rate, products = FLASH_RATE[dtype]
+    return _t((ops * products, nbytes), peaks[rate], peaks["bw"])
+
+
+def flash_rate(dtype: str) -> str:
+    """The rate `flash_bound` takes for `dtype`: "bfloat16", "tf32/3"."""
+    rate, products = FLASH_RATE[dtype]
+    return rate if products == 1 else f"{rate}/{products}"
 
 
 def _batch_slices(q, k):
@@ -2019,6 +2038,7 @@ def phase_flash_kernels(peaks: dict, cases=FLASH_CASES) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch import kernel_model as km
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     rows = {}
@@ -2057,6 +2077,11 @@ def phase_flash_kernels(peaks: dict, cases=FLASH_CASES) -> dict:
         del qt, kt, vt
         bms, by = flash_bound(B, Sq, Sk, Hq, Hkv, hd, dv, causal, dtype,
                               peaks)
+        extra = {}
+        if dtype == "float32":  # beside it, the FMA pipes' bound
+            extra["fma_bound_ms"] = _t(km.flash_work(
+                B, Sq, Sk, Hq, Hkv, hd, dv, causal, dtype),
+                peaks["float32"], peaks["bw"])[0]
         row = dict(phase="flash_kernel", case=name, B=B, Sq=Sq, Sk=Sk, Hq=Hq,
                    Hkv=Hkv, hd=hd, dv=dv, causal=causal, dtype=dtype,
                    max_abs_err=err, scaled_err=scaled,
@@ -2064,7 +2089,8 @@ def phase_flash_kernels(peaks: dict, cases=FLASH_CASES) -> dict:
                    ok=all(checks.values()), ms=ms,
                    device_ms=None if dev_s is None else 100 * dev_s,
                    plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bms, bound_by=by)
+                   bound_ms=bms, bound_by=by, bound_rate=flash_rate(dtype),
+                   **extra)
         emit(row)
         if not row["ok"]:
             raise AssertionError(f"flash {name} failed its checks: {row}")
@@ -2109,6 +2135,14 @@ def _probed_steps(*counters):
         yield log
     finally:
         serve.make_prefill_step, serve.make_decode_step = makers
+
+
+def _flash_f32_launches() -> dict:
+    """The float32 flash kernel's launches by instantiation ("hd:dv") since
+    the counts were last set to 0."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    return {f"{hd}:{dv}": fops.LAUNCHES[f"flash_f32_{hd}_{dv}"]
+            for hd, dv in fops._HEAD_DIMS}
 
 
 def nvidia_smi() -> str:
@@ -2287,6 +2321,7 @@ def phase_lm_serve(peaks: dict, cfg=None, batch: int = 8, prompt: int = 2048,
         toks = generate(model, prompts, max_new=new, max_len=max_len)
         wall = time.perf_counter() - t0
         launches = fops.LAUNCHES["flash"]
+        f32 = _flash_f32_launches()
     peak_bytes = torch.cuda.max_memory_allocated()
     tokens = torch.from_numpy(prompts).to(dev)
     prefill_warm_ms = _warm_prefill_ms(model, tokens, max_len)
@@ -2361,7 +2396,7 @@ def phase_lm_serve(peaks: dict, cfg=None, batch: int = 8, prompt: int = 2048,
                tokens_per_s=batch * new / wall,
                flash_launches=dict(generate=launches,
                                    prefill=prefill_launches,
-                                   decode=decode_launches),
+                                   decode=decode_launches, float32=f32),
                steps=dict(prefill=len(prefills), decode=len(decodes)),
                prefill_ms=prefill_ms, prefill_warm_ms=prefill_warm_ms,
                prefill_bound_ms=prefill_bound_ms,
@@ -3157,6 +3192,7 @@ def phase_hybrid_serve(peaks: dict, cfg=None, batch: int = 8,
         wall = time.perf_counter() - t0
         launches = dict(ssm_scan=sops.LAUNCHES["ssm_scan"],
                         flash=fops.LAUNCHES["flash"])
+        f32 = _flash_f32_launches()
     peak_bytes = torch.cuda.max_memory_allocated()
     tokens = torch.from_numpy(prompts).to(dev)
     prefill_warm_ms = _warm_prefill_ms(model, tokens, max_len)
@@ -3257,7 +3293,7 @@ def phase_hybrid_serve(peaks: dict, cfg=None, batch: int = 8,
             and plain["hidden_rel_err"] <= HYBRID_HIDDEN_TOL
             and caught and held):
         raise AssertionError(f"hybrid_serve failed: {row}")
-    return dict(generate=launches, **by_step)
+    return dict(generate=launches, float32=f32, **by_step)
 
 
 def _hybrid_layers(model, tokens) -> dict:
@@ -3528,6 +3564,7 @@ def _serve_family(peaks: dict, phase: str, cfg, cut: dict, batch: int,
                         image_embeds=img)
         wall = time.perf_counter() - t0
         launches = fops.LAUNCHES["flash"]
+        f32 = _flash_f32_launches()
     peak_bytes = torch.cuda.max_memory_allocated()
     tokens = torch.from_numpy(prompts).to(dev)
     prefill_warm_ms = _warm_prefill_ms(model, tokens, max_len, img)
@@ -3573,7 +3610,7 @@ def _serve_family(peaks: dict, phase: str, cfg, cut: dict, batch: int,
                image_tokens=None if img is None else cfg.n_image_tokens,
                xattn_gates=gates or None, init_s=init_s,
                generate_wall_s=wall, tokens_per_s=batch * new / wall,
-               flash_launches=dict(generate=launches, **by_step),
+               flash_launches=dict(generate=launches, float32=f32, **by_step),
                steps=dict(prefill=len(prefills), decode=len(decodes)),
                prefill_ms=prefill_ms, prefill_warm_ms=prefill_warm_ms,
                prefill_bound_ms=prefill_bound_ms,
@@ -3934,6 +3971,7 @@ def _moe_ep_serve(peaks: dict, model, prompts, local: dict) -> dict:
             toks = generate(model, prompts, max_new=EP_NEW, max_len=max_len)
             wall = time.perf_counter() - t0
             launches, calls = fops.LAUNCHES["flash"], ep["calls"]
+            f32 = _flash_f32_launches()
         peak_bytes = torch.cuda.max_memory_allocated()
         prefill_warm_ms = _warm_prefill_ms(model, tokens, max_len)
         prefills = [st for st in steps if st[0] == "prefill"]
@@ -3959,7 +3997,8 @@ def _moe_ep_serve(peaks: dict, model, prompts, local: dict) -> dict:
                generate_wall_s=wall, tokens_per_s=batch * EP_NEW / wall,
                flash_launches=dict(generate=launches,
                                    prefill=by_step["prefill"]["flash"],
-                                   decode=by_step["decode"]["flash"]),
+                                   decode=by_step["decode"]["flash"],
+                                   float32=f32),
                ep_calls=dict(generate=calls,
                              prefill=by_step["prefill"]["calls"],
                              decode=by_step["decode"]["calls"],
@@ -4074,10 +4113,9 @@ def phase_fedavg(peaks: dict, cfg=None, batch: int = 8, seq: int = 256,
     from repro_torch.launch.steps import init_train_state
     from repro_torch.models import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
-    # remat off: a checkpointed period recomputes after functional_call
-    # has put the model's own weights back, so its gradient would be the
-    # model's, not the site's
-    cfg = (cfg or get_config("lm-100m")).with_(remat=False)
+    # remat on, as the config has it: a checkpointed period recomputes at
+    # the site's parameters that its forward ran at
+    cfg = cfg or get_config("lm-100m")
     model = build_model(cfg, DEVICE, train=True)
     params, _ = init_train_state(model, seed=SEED)
     params = {k: v.detach().clone() for k, v in params.items()}
@@ -4140,7 +4178,7 @@ def phase_fedavg(peaks: dict, cfg=None, batch: int = 8, seq: int = 256,
     torch.cuda.empty_cache()
     row = dict(phase="fedavg", arch=cfg.name, sites=FED_SITES,
                sync_every=FED_SYNC_EVERY, rounds=rounds, batch=batch,
-               seq=seq, lr=FED_LR, cut=dict(remat=False), params=n,
+               seq=seq, lr=FED_LR, remat=cfg.remat, params=n,
                leaves=n_leaves, runs=runs,
                wire_ratio=float(ratio),
                wire_ratio_exact=ratio == Fraction(n + 4 * n_leaves, 4 * n),
@@ -5746,7 +5784,8 @@ def phase_train(peaks: dict, reduced: bool = False, bf16_cfg=None,
     emit(dict(phase="train", part="bf16", **qwen))
     launches = dict(flash=fops.LAUNCHES["flash"], wkv6=wops.LAUNCHES["wkv6"],
                     ssm_scan=sops.LAUNCHES["ssm_scan"])
-    row = dict(phase="train", launches=launches,
+    f32 = _flash_f32_launches()
+    row = dict(phase="train", launches=launches, flash_float32_launches=f32,
                wrappers_refuse_grad=refused,
                tol=dict(loss=TRAIN_LOSS_TOL, grad=TRAIN_GRAD_TOL,
                         bf16_grad=BF16_TRAIN_GRAD_TOL))
@@ -5770,7 +5809,7 @@ def phase_train(peaks: dict, reduced: bool = False, bf16_cfg=None,
             and qwen["masters_float32"] and qwen["masters_off_bf16_grid"] > 0.5
             and all(qwen["weights_are_masters_cast"])):
         raise AssertionError(f"train failed: {row}, lm {lm}, bf16 {qwen}")
-    return launches
+    return dict(launches, float32=f32)
 
 
 def ptxas_spills(log: str, entry: str) -> dict:
@@ -5883,10 +5922,10 @@ def main() -> int:
     if sorted(spills) != pairs or any(spills.values()):
         raise AssertionError(f"bf16 flash instantiations spill (or are not "
                              f"all built): {spills}")
-    # MLA's float32 instantiation (a new shape of the FMA kernel)
-    if sorted(fspills) != pairs or fspills["192:128"]:
-        raise AssertionError(f"the float32 (192, 128) flash instantiation "
-                             f"spills (or is not built): {fspills}")
+    # the float32 kernel (3xTF32 on mma.sync), every instantiation
+    if sorted(fspills) != pairs or any(fspills.values()):
+        raise AssertionError(f"float32 flash instantiations spill (or are "
+                             f"not all built): {fspills}")
     # float64 partial: 2 tile widths x 2 copy widths; the bf16 wgmma
     # gram: 2 tile widths; the xtv tile product: 3 dtypes x 4 widths of W
     want = {"gram_f64_partial_kernel": 4, "gram_bf16_wgmma_kernel": 2,
@@ -6133,6 +6172,13 @@ def main() -> int:
     for path, fl in family_launches.items():
         flash_by_path[f"{path}_prefill"] = fl["prefill"]
         flash_by_path[f"{path}_decode"] = fl["decode"]
+    # the float32 kernel's launches by instantiation and path, each path's
+    # main path read as its total flash launches are
+    f32_by_path = dict(lm_serve=serve_launches["float32"],
+                       hybrid_serve=hybrid_launches["float32"],
+                       train=train_launches["float32"],
+                       **{path: fl["float32"]
+                          for path, fl in family_launches.items()})
     # MLA's (192, 128) instantiation at deepseek-v2-236b's prefill shape
     m = flash_rows[FLASH_MLA_CASE]
     kernels.append(dict(
@@ -6143,12 +6189,27 @@ def main() -> int:
         max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
+        bound_rate=r["bound_rate"],
         instantiations={"192:128": dict(
             case=m["case"], launches=family_launches["mla_serve"]["prefill"],
             max_abs_err=m["max_abs_err"], ms=m["ms"],
             device_ms=m["device_ms"], plain_ms=m["plain_ms"],
             bound_ms=m["bound_ms"], bound_by=m["bound_by"],
-            library_ms=m["library_ms"])}))
+            bound_rate=m["bound_rate"], library_ms=m["library_ms"]),
+            # the float32 kernel
+            **{f"{f['hd']}:{f['dv']}:float32": dict(
+                case=f["case"],
+                launches=sum(by[f"{f['hd']}:{f['dv']}"]
+                             for by in f32_by_path.values()),
+                launches_by_path={path: by[f"{f['hd']}:{f['dv']}"]
+                                  for path, by in f32_by_path.items()},
+                max_abs_err=f["max_abs_err"],
+                scaled_err=f["scaled_err"], ms=f["ms"],
+                device_ms=f["device_ms"], plain_ms=f["plain_ms"],
+                bound_ms=f["bound_ms"], bound_by=f["bound_by"],
+                bound_rate=f["bound_rate"], fma_bound_ms=f["fma_bound_ms"],
+                library_ms=f["library_ms"])
+               for f in (flash_rows[c] for c in FLASH_F32_CASES)}}))
     r = wkv6_row
     kernels.append(dict(
         name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",

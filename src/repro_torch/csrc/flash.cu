@@ -56,13 +56,58 @@
 // panels of Q and K in place of 8 over two, and the tiles (Q 48 KB, two
 // stages of K 24 KB and V 16 KB) take 129 KB of shared memory.
 //
-// The float32 instantiation (a check of the algorithm at full precision;
-// TF32 would round the inputs) runs on the FMA pipes: four threads per q
-// row, each holding a quarter of the head dim. Each output tile is written
-// by one CTA, with no atomics, so results are bitwise repeatable.
+// The float32 kernel (flash_f32_kernel) computes the same function and is
+// held to float32's own share: each output entry within 2^-16 of its
+// envelope sum_j p_j |v_j|. TF32 alone rounds q, k, p and v to 2^-11 and
+// misses that by far. What bounds it: its products at float32 accuracy on
+// the tensor cores, as 3xTF32 (three TF32 products each), so at MLA's
+// (192, 128) heads, (8, 2,048, 128 heads) causal, 1.375e12 operations
+// take at least 3 x 1.375e12 / 494.7e12 = 8.34 ms; the exponentials on the
+// MUFU (~0.6 ms) and the bytes (~1.6 ms) lie under that.
+//
+// What the float32 design does about it: both products run as mma.sync
+// m16n8k8 TF32 steps, each split three ways (a.b ~ lo.hi + hi.lo + hi.hi
+// in float32 accumulators). wgmma's TF32 form would reach the full rate
+// but reads B only K-major, which V (keys x dv, dv contiguous) is not, and
+// Q's and K's lo planes at hd 192 would not fit in shared memory beside a
+// two-stage ring. mma.sync's own TF32 rate on an H100 is ~320 TFLOP/s
+// (tools/flash_variants.py --mma-peak), so its 3xTF32 floor at MLA's shape
+// is 12.9 ms. Every operand is split in registers where it is read: hi is
+// x itself (the mma reads its top 19 bits, x truncated to TF32) and lo is
+// x - trunc(x), exact in float32 and truncated in turn by the mma; lo's
+// truncation and the dropped lo.lo term are each under 2^-20 of a product.
+// That is two ALU operations a value; rounding hi and lo to nearest costs
+// two more, for no need (PERF.md). Q's fragment is
+// split once per k-step and tile, P's once per k-step from S's
+// accumulator, whose layout the P V step takes as its A operand with its
+// keys permuted to match (no shuffle).
+//
+// The tensor cores' float32 sums drift low along a chain of steps on one
+// accumulator (they truncate), by more than the operands' roundings: so
+// S's lo terms go to accumulators of their own (the hi.hi chain a third as
+// long), and each tile's P V is summed in fresh accumulators, four n-tiles
+// at a time, then added to O (rescaled by alpha) by one float32 fma
+// (PERF.md has each one's error at MLA's shape).
+//
+// One CTA per (128 q rows, q head, batch) holds eight consumer warps of 16
+// rows and one producer warp, one thread of which issues TMA loads
+// (float32 tiles in 128-byte swizzled panels of 32 columns): Q once, then
+// K and V tiles of BN rows (32 at dv 128, 64 at dv 32 and 64) into a
+// two-stage ring guarded by full/empty mbarriers, so the next tile's load
+// runs under this tile's products. Every fragment read is a conflict-free
+// 4-byte shared load of the swizzled tiles (the tiles are addressed from
+// the shared array itself: a pointer cast through an integer loses the
+// shared window, and its reads become slower generic loads). ptxas holds
+// the 288 threads to 168 registers, which the kernel fits without spills
+// (seven consumer warps, under 255, were slower). A warp
+// skips a kv tile whose keys all lie past its rows and masks only a tile
+// across the diagonal or the ragged edge.
+//
+// Each output tile is written by one CTA, with no atomics, so results of
+// either kernel are bitwise repeatable.
 //
 // Interface: one plain C entry point for ctypes. It takes device pointers,
-// sizes, element strides and the CUDA stream, encodes the bf16 tensor maps
+// sizes, element strides and the CUDA stream, encodes the tensor maps
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so nothing
 // links libcuda), launches one kernel on that stream, never synchronises
 // or allocates (the Python wrapper owns every buffer), and returns a CUDA
@@ -75,6 +120,7 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -492,161 +538,351 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ---- float32: FMA pipes ----------------------------------------------------
+// ---- float32: 3xTF32 on mma.sync, TMA ring, warp-specialised -------------
 
-constexpr int F_BM = 64;       // q rows per CTA
-constexpr int F_BN = 32;       // kv rows per block
-constexpr int F_THREADS = 256; // four per q row
+constexpr int F_NW = 8;                      // consumer warps, 16 q rows each
+constexpr int F_BM = 16 * F_NW;              // q rows per CTA
+constexpr int F_STAGES = 2;                  // K/V ring depth
+constexpr int F_CONSUMERS = 32 * F_NW;       // threads of the consumer warps
+constexpr int F_THREADS = F_CONSUMERS + 32;  // and one producer warp
+constexpr int F_BN_WIDE = 32;                // kv rows per tile at hd 128, 192
+constexpr int F_BN_NARROW = 64;              // and at hd 32 and 64
+// the chains of mma steps on one accumulator: S's lo terms (lo.hi + hi.lo)
+// in accumulators of their own, each tile's P V in fresh accumulators of
+// F_PV_GROUP n-tiles added to O by one float32 fma
+constexpr int F_PV_GROUP = 4;
 
+// x as a 3xTF32 operand: hi is x's own bits, which the mma truncates to
+// TF32, and lo = x - hi exactly, which the mma truncates in turn
+__device__ __forceinline__ Tf<true> split(float x) {
+  Tf<true> r;
+  r.h = __float_as_uint(x);
+  r.l = __float_as_uint(x - __uint_as_float(r.h & 0xffffe000u));
+  return r;
+}
+
+// Shared-memory tiles of the float32 kernel: TMA writes each as panels of
+// 32 columns (128 bytes, the swizzle span), each panel rows x 32, 1024-byte
+// aligned, 16-byte chunks XOR-swizzled by the row (SWIZZLE_128B). A ring
+// stage holds one K tile and then one V tile.
 template <int DQK, int DV>
-__global__ void __launch_bounds__(F_THREADS)
-flash_f32_kernel(const Params p) {
-  // float4s per thread per row (a quarter of the head dim) and per row, of
-  // q/k and of v
-  constexpr int QV4 = DQK / 16, OV4 = DV / 16, RK = DQK / 4, RV = DV / 4;
-  __shared__ __align__(16) float4 ks[F_BN * RK];
-  __shared__ __align__(16) float4 vs[F_BN * RV];
+struct FTile {
+  static constexpr int BN = DV == 128 ? F_BN_WIDE : F_BN_NARROW;
+  static constexpr uint32_t Q_BYTES = F_BM * DQK * 4;
+  static constexpr uint32_t K_BYTES = BN * DQK * 4;  // one K tile
+  static constexpr uint32_t V_BYTES = BN * DV * 4;   // one V tile
+  static constexpr uint32_t STAGE_BYTES = K_BYTES + V_BYTES;
+  static constexpr uint32_t SMEM = Q_BYTES + F_STAGES * STAGE_BYTES + 1024;
+};
 
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * F_BM;
+// One CTA per (128 q rows, q head, batch): warps 0-7 each own 16 q rows,
+// warp 8 is the producer, one thread of which loads Q once and K/V tiles
+// of BN rows into an F_STAGES-deep ring (full/empty mbarriers), as the
+// bfloat16 kernel does. Each consumer warp runs S = Q K^T and O += P V as
+// mma.sync m16n8k8 TF32 steps, each split three ways (tf32.cuh: a·b ≈
+// lo·hi + hi·lo + hi·hi), with every operand split where it is read: Q's
+// A fragment once per k-step and tile, K's and V's B fragments per step,
+// P once per k-step from S's accumulator. A warp skips a tile whose keys
+// all lie past its rows (causal) and masks only a tile that crosses the
+// diagonal or the ragged edge.
+//
+// Fragments (g = lane / 4, t = lane % 4; tf32.cuh): S's k-step kk takes
+// head-dim columns 8kk + t and 8kk + t + 4 of Q rows g, g + 8 and of K
+// row (key) g of each 8-key n-tile. P V's k-step kk is S's n-tile kk with
+// its keys in the order S's accumulator holds them: A = {S[g][2t],
+// S[g+8][2t], S[g][2t+1], S[g+8][2t+1]} (no shuffle), so the B fragment
+// is V's keys 8kk + 2t and 8kk + 2t + 1 at column g of each 8-column
+// n-tile. Every one of these reads is a conflict-free 4-byte load from the
+// swizzled tiles: within a warp the XOR with the row spreads g (Q, K) or
+// (t, g / 4) (V) over the eight chunks.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const Params p) {
+  using T = FTile<DQK, DV>;
+  constexpr int BN = T::BN;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 3 * F_STAGES];
+  uint64_t* full_q = bars;
+  uint64_t* full_k = bars + 1;
+  uint64_t* full_v = bars + 1 + F_STAGES;
+  uint64_t* empty = bars + 1 + 2 * F_STAGES;
+  // the tiles from the first 1024-byte boundary, as pointer arithmetic on
+  // smem_raw so that the compiler keeps them in the shared window (its
+  // loads 32-bit LDS, not generic loads)
+  float* qs = reinterpret_cast<float*>(
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  float* kvs = qs + F_BM * DQK;  // stage s: K, then V, at s * STAGE_BYTES
+
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * F_BM;  // longest sweeps first
   const int hq = blockIdx.y, b = blockIdx.z, hk = hq / p.G;
-  const int tid = threadIdx.x, part = tid & 3;
-  const int row = m0 + (tid >> 2);
-  const float* q = static_cast<const float*>(p.q) + b * p.qsb + hq * p.qsh;
-  const float* k = static_cast<const float*>(p.k) + b * p.ksb + hk * p.ksh;
-  const float* v = static_cast<const float*>(p.v) + b * p.vsb + hk * p.vsh;
+  const int n_kv = visible_blocks(p, m0, F_BM, BN);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
 
-  // this thread's float4s of q: part, part + 4, ... (conflict-free reads)
-  float4 qv[QV4], acc[OV4];
-#pragma unroll
-  for (int i = 0; i < QV4; ++i)
-    qv[i] = row < p.Sq
-        ? reinterpret_cast<const float4*>(q + row * p.qss)[part + 4 * i]
-        : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int i = 0; i < OV4; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float m_run = NEG_INF, l_run = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], F_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int n_kv = visible_blocks(p, m0, F_BM, F_BN);
-  for (int j = 0; j < n_kv; ++j) {
-    const int n0 = j * F_BN;
-    __syncthreads();
-    for (int c = tid; c < F_BN * RK; c += F_THREADS) {
-      const int r = c / RK, cc = c % RK;
-      ks[c] = n0 + r < p.Sk
-          ? reinterpret_cast<const float4*>(k + (n0 + r) * p.kss)[cc]
-          : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    for (int c = tid; c < F_BN * RV; c += F_THREADS) {
-      const int r = c / RV, cc = c % RV;
-      vs[c] = n0 + r < p.Sk
-          ? reinterpret_cast<const float4*>(v + (n0 + r) * p.vss)[cc]
-          : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    __syncthreads();
-
-    float s[F_BN];
-    float mx = NEG_INF;
+  if (warp == F_NW) {
+    // ---- producer: one thread issues every load
+    if (threadIdx.x == F_CONSUMERS) {
+      mbar_expect_tx(full_q, T::Q_BYTES);
 #pragma unroll
-    for (int n = 0; n < F_BN; ++n) {
-      float d = 0.f;
+      for (int c = 0; c < DQK; c += 32)
+        tma_load(smem_u32(qs + c * F_BM), &tq, c, hq, m0, b, full_q);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % F_STAGES;
+        mbar_wait(&empty[st], ((j / F_STAGES) & 1) ^ 1);  // round 0 passes
+        const uint32_t kdst = smem_u32(kvs) + st * T::STAGE_BYTES;
+        const uint32_t vdst = kdst + T::K_BYTES;
+        mbar_expect_tx(&full_k[st], T::K_BYTES);
 #pragma unroll
-      for (int i = 0; i < QV4; ++i) {
-        const float4 kx = ks[n * RK + part + 4 * i];
-        d = fmaf(qv[i].x, kx.x, d);
-        d = fmaf(qv[i].y, kx.y, d);
-        d = fmaf(qv[i].z, kx.z, d);
-        d = fmaf(qv[i].w, kx.w, d);
-      }
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
-      float x = d * p.scale;
-      const int col = n0 + n;
-      if (col >= p.Sk || (p.causal && col > row)) x = NEG_INF;
-      s[n] = x;
-      mx = fmaxf(mx, x);
-    }
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    m_run = m_new;
-    float sum = 0.f;
+        for (int c = 0; c < DQK; c += 32)
+          tma_load(kdst + c * BN * 4, &tk, c, hk, j * BN, b, &full_k[st]);
+        mbar_expect_tx(&full_v[st], T::V_BYTES);
 #pragma unroll
-    for (int n = 0; n < F_BN; ++n) {
-      s[n] = expf(s[n] - m_new);
-      sum += s[n];
-    }
-    l_run = l_run * alpha + sum;
-#pragma unroll
-    for (int i = 0; i < OV4; ++i) {
-      acc[i].x *= alpha; acc[i].y *= alpha; acc[i].z *= alpha; acc[i].w *= alpha;
-    }
-#pragma unroll
-    for (int n = 0; n < F_BN; ++n) {
-#pragma unroll
-      for (int i = 0; i < OV4; ++i) {
-        const float4 vx = vs[n * RV + part + 4 * i];
-        acc[i].x = fmaf(s[n], vx.x, acc[i].x);
-        acc[i].y = fmaf(s[n], vx.y, acc[i].y);
-        acc[i].z = fmaf(s[n], vx.z, acc[i].z);
-        acc[i].w = fmaf(s[n], vx.w, acc[i].w);
+        for (int c = 0; c < DV; c += 32)
+          tma_load(vdst + c * BN * 4, &tv, c, hk, j * BN, b, &full_v[st]);
       }
     }
+    return;
   }
 
-  if (row < p.Sq) {
-    float4* out = reinterpret_cast<float4*>(static_cast<float*>(p.o) + b * p.osb +
-                                            hq * p.osh + row * p.oss);
-    const float d = fmaxf(l_run, 1e-30f);
+  // ---- consumers: warp w owns q rows m0 + 16 w .. + 15
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row_first = m0 + warp * 16;
+  const int r0 = row_first + g, r1 = r0 + 8;
+  // offsets (floats) within a panel: row g's chunk c at column t (Q, K);
+  // V's rows 2t + h at chunk 2m + g / 4, column g % 4
+  int xq[8], xv[2][4];
 #pragma unroll
-    for (int i = 0; i < OV4; ++i)
-      out[part + 4 * i] = make_float4(acc[i].x / d, acc[i].y / d, acc[i].z / d, acc[i].w / d);
+  for (int c = 0; c < 8; ++c) xq[c] = 32 * g + (((c ^ g) << 2) | t);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      xv[h][m] = 32 * (2 * t + h) +
+                 ((((2 * m + (g >> 2)) ^ (2 * t + h)) << 2) | (g & 3));
+  const float* qw = qs + warp * 16 * 32;  // this warp's rows of panel 0
+
+  float o[DV / 8][4];
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+  // exp(x) = exp2(x log2 e): log2 e folds into the float32 scale
+  const float sc = p.scale * 1.4426950408889634f;
+
+  mbar_wait(full_q, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j % F_STAGES, ph = (j / F_STAGES) & 1;
+    const int n0 = j * BN;
+    const float* ks = kvs + st * (T::STAGE_BYTES / 4);
+    const float* vs = ks + T::K_BYTES / 4;
+    mbar_wait(&full_k[st], ph);
+    if (p.causal && n0 > row_first + 15) {  // every key past this warp's rows
+      mbar_arrive(&empty[st]);
+      continue;
+    }
+
+    // S = Q K^T, 3xTF32; each term over every n-tile before the next, so
+    // that BN / 8 independent steps lie between two on one accumulator
+    float sp[BN / 8][4], sl[BN / 8][4];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sp[i][e] = sl[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DQK / 8; ++kk) {
+      const int c = 2 * (kk & 3);  // this k-step's chunks: c, c + 1
+      const float* qp = qw + (kk >> 2) * F_BM * 32;
+      const Tf<true> a[4] = {split(qp[xq[c]]), split(qp[xq[c] + 256]),
+                             split(qp[xq[c + 1]]),
+                             split(qp[xq[c + 1] + 256])};
+      const float* kp = ks + (kk >> 2) * BN * 32;
+      Tf<true> bk[BN / 8][2];
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        bk[nt][0] = split(kp[nt * 256 + xq[c]]);
+        bk[nt][1] = split(kp[nt * 256 + xq[c + 1]]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt)
+        mma_tf32(sl[nt], a[0].l, a[1].l, a[2].l, a[3].l, bk[nt][0].h,
+                 bk[nt][1].h);
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt)
+        mma_tf32(sl[nt], a[0].h, a[1].h, a[2].h, a[3].h, bk[nt][0].l,
+                 bk[nt][1].l);
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt)
+        mma_tf32(sp[nt], a[0].h, a[1].h, a[2].h, a[3].h, bk[nt][0].h,
+                 bk[nt][1].h);
+    }
+    float s[BN / 8][4];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = sl[i][e] + sp[i][e];
+
+    // scale in float32, mask (only tiles across the diagonal or the
+    // ragged edge), online softmax over the tile
+    const bool edge = (p.causal && n0 + BN - 1 > row_first) || n0 + BN > p.Sk;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * sc;
+        if (edge) {
+          const int col = n0 + nt * 8 + 2 * t + (e & 1);
+          const int row = (e < 2) ? r0 : r1;
+          x = (col >= p.Sk || (p.causal && col > row)) ? NEG_INF : x;
+        }
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_run[h], mx[h]);
+      alpha[h] = exp2f(m_run[h] - m_new);
+      m_run[h] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(s[nt][e] - m_run[e >> 1]);
+        sum[e >> 1] += s[nt][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l_run[h] = l_run[h] * alpha[h] + sum[h];
+    }
+    // O = O alpha + P V, 3xTF32: n-tiles in groups of NG, each summed over
+    // the tile in fresh accumulators
+    constexpr int NG = F_PV_GROUP;
+    mbar_wait(&full_v[st], ph);
+#pragma unroll
+    for (int j0 = 0; j0 < DV / 8; j0 += NG) {
+      float tp[NG][4];
+#pragma unroll
+      for (int i = 0; i < NG; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tp[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        const Tf<true> a[4] = {split(s[kk][0]), split(s[kk][2]),
+                               split(s[kk][1]), split(s[kk][3])};
+        Tf<true> bv[NG][2];
+#pragma unroll
+        for (int i = 0; i < NG; ++i) {
+          const int jn = j0 + i;
+          const float* vp = vs + (jn >> 2) * BN * 32 + kk * 256;
+          bv[i][0] = split(vp[xv[0][jn & 3]]);
+          bv[i][1] = split(vp[xv[1][jn & 3]]);
+        }
+#pragma unroll
+        for (int i = 0; i < NG; ++i)
+          mma_tf32(tp[i], a[0].l, a[1].l, a[2].l, a[3].l, bv[i][0].h, bv[i][1].h);
+#pragma unroll
+        for (int i = 0; i < NG; ++i)
+          mma_tf32(tp[i], a[0].h, a[1].h, a[2].h, a[3].h, bv[i][0].l, bv[i][1].l);
+#pragma unroll
+        for (int i = 0; i < NG; ++i)
+          mma_tf32(tp[i], a[0].h, a[1].h, a[2].h, a[3].h, bv[i][0].h, bv[i][1].h);
+      }
+#pragma unroll
+      for (int i = 0; i < NG; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[j0 + i][e] = fmaf(o[j0 + i][e], alpha[e >> 1], tp[i][e]);
+    }
+    mbar_arrive(&empty[st]);  // this stage's K and V are read
+  }
+
+  float* out = static_cast<float*>(p.o) + b * p.osb + hq * p.osh;
+  // one division a row, then products
+  const float d0 = 1.f / fmaxf(l_run[0], 1e-30f);
+  const float d1 = 1.f / fmaxf(l_run[1], 1e-30f);
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i) {
+    const int col = i * 8 + 2 * t;
+    if (r0 < p.Sq)
+      *reinterpret_cast<float2*>(out + r0 * p.oss + col) =
+          make_float2(o[i][0] * d0, o[i][1] * d0);
+    if (r1 < p.Sq)
+      *reinterpret_cast<float2*>(out + r1 * p.oss + col) =
+          make_float2(o[i][2] * d1, o[i][3] * d1);
   }
 }
 
 // ---- host side --------------------------------------------------------------
 
-// A 4-D (hd, H, S, B) bf16 tensor map over the tensor's own strides
-// (elements), whose box is one swizzle panel (T::PW columns) of `rows`
-// sequence rows of one head of one batch.
-template <class T>
-int encode(CUtensorMap* map, const void* base, int hd, int H, int S, int B,
-           int64_t sh, int64_t ss, int64_t sb, int rows) {
+// A 4-D (hd, H, S, B) tensor map of `elem`-byte elements over the
+// tensor's own strides (elements), whose box is one swizzle panel (`cols`
+// columns: 128 bytes, or 64) of `rows` sequence rows of one head of one
+// batch.
+int encode(CUtensorMap* map, CUtensorMapDataType type, int elem,
+           const void* base, int hd, int H, int S, int B, int64_t sh,
+           int64_t ss, int64_t sb, int cols, int rows) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)T::PW, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(sh * elem), (cuuint64_t)(ss * elem),
+                                 (cuuint64_t)(sb * elem)};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(base), dims, strides, box, unit,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                               : CU_TENSOR_MAP_SWIZZLE_64B,
+  CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box,
+                  unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  cols * elem == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : CU_TENSOR_MAP_SWIZZLE_64B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // zeros past the edge
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int DQK, int DV>
-int launch_bf16(const Params& p, int B, int Hq, int Hkv, cudaStream_t st) {
-  using T = Tile<DQK, DV>;
-  auto kernel = flash_bf16_kernel<DQK, DV>;
-  // once per device: the dynamic shared memory beyond 48 KB
+// once per device and kernel: the dynamic shared memory beyond 48 KB
+template <auto kernel>
+int allow_smem(uint32_t bytes) {
   static bool ready[64];
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
     return (int)cudaErrorInvalidDevice;
   if (!ready[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
     ready[dev] = true;
   }
+  return 0;
+}
+
+template <int DQK, int DV>
+int launch_bf16(const Params& p, int B, int Hq, int Hkv, cudaStream_t st) {
+  using T = Tile<DQK, DV>;
+  constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int rc = allow_smem<flash_bf16_kernel<DQK, DV>>(T::SMEM);
   CUtensorMap tq, tk, tv;
-  int rc = encode<T>(&tq, p.q, DQK, Hq, p.Sq, B, p.qsh, p.qss, p.qsb, BM);
-  if (rc == 0) rc = encode<T>(&tk, p.k, DQK, Hkv, p.Sk, B, p.ksh, p.kss, p.ksb, T::BN);
-  if (rc == 0) rc = encode<T>(&tv, p.v, DV, Hkv, p.Sk, B, p.vsh, p.vss, p.vsb, T::BN);
+  if (rc == 0) rc = encode(&tq, bf16, 2, p.q, DQK, Hq, p.Sq, B, p.qsh, p.qss, p.qsb, T::PW, BM);
+  if (rc == 0) rc = encode(&tk, bf16, 2, p.k, DQK, Hkv, p.Sk, B, p.ksh, p.kss, p.ksb, T::PW, T::BN);
+  if (rc == 0) rc = encode(&tv, bf16, 2, p.v, DV, Hkv, p.Sk, B, p.vsh, p.vss, p.vsb, T::PW, T::BN);
   if (rc != 0) return rc;
   dim3 grid((p.Sq + BM - 1) / BM, Hq, B);
   flash_bf16_kernel<DQK, DV><<<grid, THREADS, T::SMEM, st>>>(tq, tk, tv, p);
@@ -654,11 +890,24 @@ int launch_bf16(const Params& p, int B, int Hq, int Hkv, cudaStream_t st) {
 }
 
 template <int DQK, int DV>
+int launch_f32(const Params& p, int B, int Hq, int Hkv, cudaStream_t st) {
+  using T = FTile<DQK, DV>;
+  constexpr CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int rc = allow_smem<flash_f32_kernel<DQK, DV>>(T::SMEM);
+  CUtensorMap tq, tk, tv;
+  if (rc == 0) rc = encode(&tq, f32, 4, p.q, DQK, Hq, p.Sq, B, p.qsh, p.qss, p.qsb, 32, F_BM);
+  if (rc == 0) rc = encode(&tk, f32, 4, p.k, DQK, Hkv, p.Sk, B, p.ksh, p.kss, p.ksb, 32, T::BN);
+  if (rc == 0) rc = encode(&tv, f32, 4, p.v, DV, Hkv, p.Sk, B, p.vsh, p.vss, p.vsb, 32, T::BN);
+  if (rc != 0) return rc;
+  dim3 grid((p.Sq + F_BM - 1) / F_BM, Hq, B);
+  flash_f32_kernel<DQK, DV><<<grid, F_THREADS, T::SMEM, st>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+template <int DQK, int DV>
 int launch(int dtype, const Params& p, int B, int Hq, int Hkv, cudaStream_t st) {
   if (dtype == kBF16) return launch_bf16<DQK, DV>(p, B, Hq, Hkv, st);
-  dim3 grid((p.Sq + F_BM - 1) / F_BM, Hq, B);
-  flash_f32_kernel<DQK, DV><<<grid, F_THREADS, 0, st>>>(p);
-  return (int)cudaGetLastError();
+  return launch_f32<DQK, DV>(p, B, Hq, Hkv, st);
 }
 
 }  // namespace

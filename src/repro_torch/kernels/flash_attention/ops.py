@@ -3,9 +3,10 @@
 `flash_attention(q, k, v)` takes model-layout tensors (B, S, H, hd) with
 GQA kv heads, v's head dim `dv` either q's or, for MLA (q/k 192 = 128 +
 a 64-wide RoPE part), 128, and picks the path from the tensors' device:
-  * CUDA — the hand-written sm_90a kernel of `repro_torch/csrc/flash.cu`
-           (bfloat16 on tensor cores, float32 on FMA pipes), or an
-           exception; there is no fallback to the plain version
+  * CUDA — the hand-written sm_90a kernels of `repro_torch/csrc/flash.cu`
+           (bfloat16 on wgmma; float32 as 3xTF32 mma.sync steps, to
+           float32's accuracy), or an exception; there is no fallback to
+           the plain version or to a library call
   * CPU  — the plain torch version in `ref`
   * meta — `flash_attention_meta`: the kernel's output shape, nothing
            computed (the dry run's route, which is the card's)
@@ -30,14 +31,17 @@ from ...launch import hlocost, kernel_model
 from .. import no_backward
 from . import ref
 
-# One count per kernel launch; reset with `reset_launches()`.
-LAUNCHES = {"flash": 0}
-
 # the instantiations of flash.cu, as (q/k head dim, v head dim); float16
 # has none and is refused on the card
 _DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}
 _HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
 _lib = None
+
+# One count per kernel launch; reset with `reset_launches()`. "flash"
+# counts every launch, "flash_f32_<hd>_<dv>" those of the float32 kernel
+# at one instantiation as well.
+LAUNCHES = {"flash": 0,
+            **{f"flash_f32_{hd}_{dv}": 0 for hd, dv in _HEAD_DIMS}}
 
 
 def reset_launches() -> None:
@@ -126,6 +130,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise RuntimeError(f"flash_attention: CUDA launch failed with "
                                f"error {rc}")
         LAUNCHES["flash"] += 1
+        if q.dtype == torch.float32:
+            LAUNCHES[f"flash_f32_{hd}_{dv}"] += 1
     hlocost.charge(kernel_model.flash_work, B, Sq, Sk, Hq, Hkv, hd, dv,
                    causal, q.dtype)
     return out

@@ -42,16 +42,24 @@ compute dtype. `loss` runs a grad-enabled forward on the reference's
 plain routes (no kernel has a backward) and, with `cfg.remat`, each
 period under a non-reentrant checkpoint, as the reference's
 `jax.checkpoint` of its period body: the backward recomputes a period's
-activations from its input. The prefix layers run outside it, as in the
-reference. A MoE layer's host read of its group sizes runs again in the
-recompute and routes the same tokens (top-k breaks ties to the lower
-index), so the recompute matches the forward.
+activations from its input and from the tensors the forward ran the
+period at, which the checkpoint takes as inputs and the recompute puts
+back in the period's parameter and buffer slots (`_Period.run_at`, as
+`torch.func.functional_call` would, without its per-call set-up). So a
+loss taken at other
+parameters than the module's own (`functional_call` of the model, as
+`FedAvgTrainer`'s sites do) recomputes at those, as the reference's
+`Model.loss(params, batch)` does. The prefix layers run outside it, as
+in the reference. A MoE layer's host read of its group sizes runs again
+in the recompute and routes the same tokens (top-k breaks ties to the
+lower index), so the recompute matches the forward.
 
 Entry points compute on CUDA unless the caller passes `device="cpu"`
 (`build_model`).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -83,6 +91,41 @@ def _tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+class _Period(nn.ModuleDict):
+    """One period's layers, keyed "{i}:{kind}"; `forward` runs them
+    without caches (the checkpointed training route)."""
+
+    def slots(self) -> list:
+        """(the dict that holds it, its name) for each tensor the period
+        runs at: every parameter and buffer of its modules."""
+        return [(d, name) for m in self.modules()
+                for d in (m._parameters, m._buffers)
+                for name, t in d.items() if t is not None]
+
+    def run_at(self, slots, cfg, x, positions, image_embeds, plain: bool,
+               *tensors):
+        """`forward` with `tensors` in `slots`, the slots' own tensors
+        put back after."""
+        held = [d[name] for d, name in slots]
+        for (d, name), t in zip(slots, tensors):
+            d[name] = t
+        try:
+            return self(cfg, x, positions, image_embeds, plain)
+        finally:
+            for (d, name), t in zip(slots, held):
+                d[name] = t
+
+    def forward(self, cfg, x, positions, image_embeds, plain: bool):
+        """(x, the period's aux)."""
+        aux_p = torch.zeros((), dtype=torch.float32, device=x.device)
+        for key, blk in self.items():
+            x, aux, _ = blocks.block_forward(
+                blk, cfg, key.split(":", 1)[1], x, positions, image_embeds,
+                plain=plain)
+            aux_p = aux_p + aux
+        return x, aux_p
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -94,8 +137,8 @@ class Model(nn.Module):
         self.prefix = nn.ModuleList(blocks.Block(cfg, _PREFIX, device)
                                     for _ in range(cfg.first_dense_layers))
         self.periods = nn.ModuleList(
-            nn.ModuleDict({f"{i}:{kind}": blocks.Block(cfg, kind, device)
-                           for i, kind in enumerate(self.kinds)})
+            _Period({f"{i}:{kind}": blocks.Block(cfg, kind, device)
+                     for i, kind in enumerate(self.kinds)})
             for _ in range(cfg.n_periods()))
 
     @property
@@ -195,9 +238,16 @@ class Model(nn.Module):
                 write(caches["prefix"][i], cache)
         for layer, period in enumerate(self.periods):
             if remat:
-                # the forward draws no random numbers: no RNG state to keep
-                x, aux = checkpoint(self._period, period, x, positions,
-                                    image_embeds, plain, use_reentrant=False,
+                # the tensors the period runs at now (under functional_call
+                # of the model, the caller's), kept for the recompute; the
+                # forward draws no random numbers: no RNG state to keep
+                # (the slots bound, not passed: checkpoint walks its
+                # arguments' containers)
+                slots = period.slots()
+                x, aux = checkpoint(partial(period.run_at, slots), cfg, x,
+                                    positions, image_embeds, plain,
+                                    *(d[name] for d, name in slots),
+                                    use_reentrant=False,
                                     preserve_rng_state=False)
                 aux_total = aux_total + aux
                 continue
@@ -210,16 +260,6 @@ class Model(nn.Module):
                     write(_tree_map(lambda t: t[layer],
                                     caches["periods"][key]), cache)
         return self.final_norm(x), aux_total, caches
-
-    def _period(self, period, x, positions, image_embeds, plain: bool):
-        """One period's layers without caches: (x, the period's aux)."""
-        aux_p = torch.zeros((), dtype=torch.float32, device=x.device)
-        for key, blk in period.items():
-            x, aux, _ = blocks.block_forward(
-                blk, self.cfg, key.split(":", 1)[1], x, positions,
-                image_embeds, plain=plain)
-            aux_p = aux_p + aux
-        return x, aux_p
 
     # ------------------------------------------------------------------
     # loss

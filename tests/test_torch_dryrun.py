@@ -52,6 +52,7 @@ from repro_torch.launch import dryrun, kernel_model
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.shapes import input_specs
 from repro_torch.models import build_model
+from _torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -139,14 +140,6 @@ def reference(tmp_path_factory):
     if proc.poll() is None:
         proc.kill()
         proc.communicate()
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class _StubMesh:  # the builders read only the axis sizes

@@ -251,3 +251,87 @@ def test_fedavg_matches_reference(rng, compressed):
         assert all(float(s.err["w"].abs().max()) > 0 for s in port.sites)
     else:
         assert port.bytes_exchanged == 3 * 3 * 4 * 64
+
+
+# ---------------------------------------------------------------------------
+# FedAvg of an LM through Model.loss with remat (ROADMAP Queue 3, item 37)
+# ---------------------------------------------------------------------------
+
+class _Loss(torch.nn.Module):
+    def __init__(self, model):
+        super().__init__()
+        self.m = model
+
+    def forward(self, batch):
+        return self.m.loss(batch)
+
+
+class _LossOf:
+    """`loss_fn(params, batch)`: the model's `loss` at `params` (name ->
+    tensor) through `torch.func.functional_call`, as a site computes it;
+    the module's own weights stay as they are."""
+
+    def __init__(self, model):
+        self.module = _Loss(model)
+
+    def __call__(self, params, batch):
+        return torch.func.functional_call(
+            self.module, {f"m.{k}": v for k, v in params.items()}, (batch,))
+
+
+def _grads_at(loss_fn, params, batch):
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    loss, _ = loss_fn(leaves, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                materialize_grads=True)
+    return float(loss.detach()), dict(zip(leaves, grads))
+
+
+def test_fedavg_site_gradients_with_remat_match_reference():
+    """lm-100m (reduced, float32), batch 2 × 32, at a site's parameters
+    (the model's + 0.05·N(0, 1), drawn with numpy): the gradients through
+    `functional_call` with remat on equal those with remat off bit for
+    bit (the recompute repeats the forward at the same tensors), and the
+    reference's `jax.grad` of `Model.loss(params, batch)` within the
+    training parity tests' limits (loss rel 1e-5, each leaf 1e-4 of its
+    largest |gradient|); then one `FedAvgTrainer` round with remat on."""
+    from test_torch_train_models import (GRAD_TOL, LOSS_RTOL, batch_for,
+                                         leaf_errors, reference_loss_and_grads,
+                                         reference_pair)
+    from repro_torch.interop import params_from_reference
+    ref, params, port, cfg = reference_pair("lm_100m")
+    assert cfg.remat
+    rng = np.random.default_rng(37)
+    site_np = jax.tree_util.tree_map(
+        lambda a: (a + 0.05 * rng.normal(size=a.shape)).astype(np.float32),
+        params)
+    site = params_from_reference(site_np, cfg, "cpu")
+    own = {k: v.detach().clone() for k, v in port.state_dict().items()}
+    batch = batch_for(cfg, batch=2, seq=32)
+    loss_fn = _LossOf(port)
+
+    loss_on, on = _grads_at(loss_fn, site, batch)
+    port.cfg = cfg.with_(remat=False)
+    loss_off, off = _grads_at(loss_fn, site, batch)
+    port.cfg = cfg
+    assert loss_on == loss_off
+    assert all(torch.equal(on[n], off[n]) for n in off)
+    # the module's own weights were never the ones differentiated
+    assert all(torch.equal(v, own[k]) for k, v in port.state_dict().items())
+
+    want_loss, want = reference_loss_and_grads(ref, site_np, batch, cfg)
+    assert set(on) == set(want)
+    assert abs(loss_on - want_loss) <= LOSS_RTOL * abs(want_loss)
+    errs = leaf_errors(on, want)
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= GRAD_TOL, (worst, errs[worst])
+
+    tr = FedAvgTrainer(loss_fn=loss_fn, n_sites=2, sync_every=1, lr=1e-3)
+    tr.init({k: v.clone() for k, v in site.items()})
+    losses = [tr.local_step(s, batch_for(cfg, seed=2 + s, batch=2, seq=32))
+              for s in range(2)]
+    assert tr.maybe_sync() and tr.step == 1
+    assert all(np.isfinite(losses))
+    moved = [float((tr.anchor[k] - site[k]).abs().max()) for k in site]
+    assert all(np.isfinite(moved)) and max(moved) > 0

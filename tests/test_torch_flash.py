@@ -19,6 +19,18 @@ float32's share, which is all a float32 kernel may differ by. The CPU
 cases show the limit passes these roundings and fails planted faults: a
 block of 64 or of 128 keys dropped from the last q rows, and a causal
 mask off by one.
+
+The float32 kernel computes both products as 3xTF32 tensor-core steps.
+`ref.attention_tf32x3` emulates it on the CPU (its kv tiles, its
+online-softmax rescale order, its TF32 hi/lo rounding of Q, K, P and V):
+at the serving path's S 2,048 with heads of 128 and at MLA's (192, 128)
+it lies within a quarter of the float32 limit, with one TF32 rounding of
+each operand (no lo terms) beyond twice the limit, and it matches the
+reference's Pallas kernel in interpret mode at the float32 shapes and
+tolerance above. The emulation covers operand rounding and tile order,
+not the tensor cores' float32 accumulation; the kernel's design against
+that (split accumulators, PV groups) is checked only by the `cuda` cases
+and chip_smoke.py.
 This module imports jax only inside the `reference` fixture.
 """
 import math
@@ -29,6 +41,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as tops
 from repro_torch.kernels.flash_attention import ref as tref
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -57,12 +70,15 @@ def _np(t):
     return t.float().cpu().numpy()
 
 
-@pytest.mark.parametrize("S,Hq,Hkv,hd,bq,bk", [
+REFERENCE_SHAPES = [
     (128, 4, 4, 32, 64, 64),     # MHA
     (256, 8, 2, 64, 64, 64),     # GQA 4:1
     (256, 4, 1, 64, 128, 64),    # MQA
     (192, 2, 2, 32, 64, 64),     # several q blocks per kv block row
-])
+]
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,hd,bq,bk", REFERENCE_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_reference_kernel(reference, rng, S, Hq, Hkv, hd, bq,
@@ -156,6 +172,53 @@ def test_kernel_tolerance_passes_roundings_and_fails_faults(rng, fault,
     assert tref.scaled_err(sound, want, q, k, v) <= KERNEL_TOL[dtype]
     bad = _attention_f32(q, k, v, FAULTS[fault](pos, S)).to(q.dtype)
     assert tref.scaled_err(bad, want, q, k, v) > 2 * KERNEL_TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# the float32 kernel's operand roundings (3xTF32) and tiles, on the CPU
+# ---------------------------------------------------------------------------
+
+def _serving_qkv(rng, hd, dv, S=2048):
+    """The serving path's row count, one kv head of two q heads."""
+    return _port((rng.normal(size=(1, S, 2, hd)),
+                  rng.normal(size=(1, S, 1, hd)),
+                  rng.normal(size=(1, S, 1, dv))), "float32")
+
+
+@pytest.mark.parametrize("hd,dv", [(128, 128), (192, 128)],
+                         ids=["hd128", "mla"])
+def test_tf32x3_arithmetic_within_a_quarter_of_the_float32_limit(rng, hd,
+                                                                 dv):
+    q, k, v = _serving_qkv(rng, hd, dv)
+    got = tref.attention_tf32x3(q, k, v)
+    assert got.dtype == torch.float32 and got.shape == (1, 2048, 2, dv)
+    want = tref.attention(q, k, v)
+    assert tref.scaled_err(got, want, q, k, v) <= KERNEL_TOL["float32"] / 4
+
+
+@pytest.mark.parametrize("hd,dv", [(128, 128), (192, 128)],
+                         ids=["hd128", "mla"])
+def test_one_tf32_rounding_fails_the_float32_limit(rng, hd, dv):
+    """The same tiles with Q, K, P and V each rounded once to TF32 (no lo
+    terms): the limit catches a kernel that dropped them."""
+    q, k, v = _serving_qkv(rng, hd, dv)
+    got = tref.attention_tf32x3(q, k, v, split=False)
+    want = tref.attention(q, k, v)
+    assert tref.scaled_err(got, want, q, k, v) > 2 * KERNEL_TOL["float32"]
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,hd,bq,bk", REFERENCE_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32x3_arithmetic_matches_reference_kernel(reference, rng, S, Hq,
+                                                    Hkv, hd, bq, bk, causal):
+    jnp, fops, _ = reference
+    arrays = _qkv(rng, 2, S, S, Hq, Hkv, hd)
+    kernel = fops.flash_attention(*(jnp.asarray(a, jnp.float32)
+                                    for a in arrays), causal=causal,
+                                  interpret=True, bq=bq, bk=bk)
+    got = tref.attention_tf32x3(*_port(arrays, "float32"), causal=causal)
+    np.testing.assert_allclose(_np(got), np.asarray(kernel, np.float32),
+                               **TOL["float32"])
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from repro_torch.core.dag import SPARSE_THRESHOLD
 from repro_torch.core.rewrites import run_rewrites as t_rewrites
 from repro_torch.interop import bcoo_from_reference
 from repro_torch.lifecycle import regression as treg
+from _torch_threads import one_thread  # noqa: F401
 
 PKGS = {"ref": R, "port": T}
 COMPILE = {"ref": r_compile, "port": t_compile}

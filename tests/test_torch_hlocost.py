@@ -43,6 +43,7 @@ from repro_torch.kernels.ssd.ref import ssm_scan
 from repro_torch.launch import hlocost, kernel_model, roofline
 from repro_torch.launch.shapes import SHAPES
 from repro_torch.models import build_model
+from _torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -58,14 +59,6 @@ finally:
         os.environ.pop("XLA_FLAGS", None)
     else:
         os.environ["XLA_FLAGS"] = _flags
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ref_analyze(fn, *shapes):

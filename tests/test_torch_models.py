@@ -41,6 +41,7 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.interop import params_from_reference
 from repro_torch.launch.serve import generate
 from repro_torch.models import build_model
+from _torch_threads import one_thread  # noqa: F401
 
 DENSE = ["qwen3_0_6b", "llama3_2_1b", "llama3_2_3b", "phi3_medium_14b",
          "lm_100m"]

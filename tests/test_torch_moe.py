@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import moe as tmoe
+from _torch_threads import one_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")

@@ -37,6 +37,7 @@ from repro_torch.distributed import compress, hints, logical_devices
 from repro_torch.launch.mesh import (data_axes, make_mesh,
                                      make_production_mesh)
 from repro_torch.models import moe as tmoe
+from _torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(2, 4), (1, 8)]

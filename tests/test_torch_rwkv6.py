@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.rwkv6 import ops as tops
 from repro_torch.kernels.rwkv6 import ref as tref
 from repro_torch.models import rwkv6 as trwkv
+from _torch_threads import one_thread  # noqa: F401
 
 KERNEL_TOL = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -8 + 2.0 ** -12}
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.kernels.ssd import ops as tops
 from repro_torch.kernels.ssd import ref as tref
+from _torch_threads import one_thread  # noqa: F401
 
 KERNEL_TOL = 2.0 ** -14
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}

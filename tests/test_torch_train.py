@@ -59,7 +59,7 @@ from repro_torch.optim.adamw import (accumulate_grads,
                                      adamw_init, adamw_update,
                                      clip_by_global_norm)
 from repro_torch.optim.schedules import warmup_cosine
-from test_torch_train_models import one_thread  # noqa: F401
+from _torch_threads import one_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")

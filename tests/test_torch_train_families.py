@@ -13,7 +13,8 @@ two test workers. The port trains on `wkv_chunked` and `selective_scan`
 """
 import pytest
 
-from test_torch_train_models import check_family, one_thread  # noqa: F401
+from _torch_threads import one_thread  # noqa: F401
+from test_torch_train_models import check_family
 
 pytest.importorskip("jax")
 

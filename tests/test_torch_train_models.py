@@ -40,6 +40,7 @@ from repro_torch.interop import (params_from_reference,
 from repro_torch.models import build_model
 from repro_torch.optim.adamw import (adamw_init, adamw_update,
                                      trainable_params)
+from _torch_threads import one_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
@@ -50,18 +51,6 @@ GRAD_TOL = 1e-4
 BF16_LOSS_RTOL = 1e-3
 BF16_GRAD_TOL = 5e-2
 ADAMW_RTOL = 1e-6
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread for each test: these run thousands of small
-    ops, which several threads per test worker slow down several times
-    over when the workers share the machine's cores (jamba's loss: 16 s
-    against 103 s beside five busy processes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 
 
 def reference_pair(arch, **overrides):

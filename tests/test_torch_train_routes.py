@@ -25,6 +25,7 @@ from repro_torch.kernels.rwkv6 import ops as wops
 from repro_torch.kernels.ssd import ops as sops
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models import build_model
+from _torch_threads import one_thread  # noqa: F401
 
 FAMILIES = ["qwen3_0_6b", "deepseek_moe_16b", "deepseek_v2_236b",
             "rwkv6_3b", "jamba_v0_1_52b", "llama3_2_vision_90b",
@@ -32,18 +33,6 @@ FAMILIES = ["qwen3_0_6b", "deepseek_moe_16b", "deepseek_v2_236b",
 ENTRY_POINTS = [(fops, "flash_attention"), (fops, "flash_attention_cuda"),
                 (wops, "wkv6"), (wops, "wkv6_cuda"),
                 (sops, "ssm_scan"), (sops, "ssm_scan_cuda")]
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread for each test: these run thousands of small
-    ops, which several threads per test worker slow down several times
-    over when the workers share the machine's cores (jamba's loss: 16 s
-    against 103 s beside five busy processes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 
 
 def _cfg(arch, **kw):
